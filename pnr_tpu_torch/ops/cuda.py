@@ -1,0 +1,119 @@
+"""Build and bind the port's hand-written CUDA kernels (csrc/*.cu).
+
+The sources compile with `nvcc` into one shared library with a plain C
+interface, loaded with ctypes: no PyTorch headers, so a build takes
+seconds. The library lands in `pnr_tpu_torch/_build/` under a name keyed
+by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is reused. A failed build raises with nvcc's stderr.
+
+Every C entry point takes device pointers and the CUDA stream as
+`c_void_p`, sizes as `c_int`, launches on that stream without
+synchronising, and returns `cudaGetLastError()`; `check` turns a
+non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+
+#: no --use_fast_math: the Frangi exponentials, acosf and the FLT_MIN
+#: gating of the correlation depend on IEEE expf/sqrtf/division and on
+#: denormals not being flushed
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "pnr_gauss1d": (_P, _I, _P, _I, _I, _I, _I, _P, _I, _P),
+    "pnr_frangi_scale": (
+        _P, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+    ),
+    "pnr_exact_sums": (_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P),
+}
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))) + sorted(
+        glob.glob(os.path.join(CSRC, "*.cuh"))
+    )
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode())
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libpnr_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the hashed shared library (if absent)."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

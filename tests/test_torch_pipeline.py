@@ -1,0 +1,125 @@
+"""The port's main path as a whole against the JAX package, on the CPU.
+
+The branching-neuron phantom of tests/test_phantom_neuron.py runs
+through `pnr_tpu.pipeline.reconstruction_func` and through the port's,
+exact mode, same config and keys. The seed sets must agree, the port must
+pass the JAX package's exact-mode quality gate, and the two F1 scores
+are held to each other as a paired difference on the same phantom.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import test_phantom_neuron as phantom
+from pnr_tpu.graph.nodes import NodeList
+from pnr_tpu.io.swc import read_swc, save_nodelist
+from pnr_tpu.utils.swc_compare import compare_swc
+from pnr_tpu_torch import cli
+from pnr_tpu_torch.graph.refine import non_blurring
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = dataclasses.replace(phantom.CFG, zncc_mode="exact", ni=40)
+
+
+def _score(res, gold, path):
+    save_nodelist(res.tree, path)
+    return compare_swc(read_swc(path), gold, dist=4.0, resample=1.0)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    from pnr_tpu.pipeline import reconstruction_func as jax_reconstruction
+    from pnr_tpu_torch.pipeline import reconstruction_func as port_reconstruction
+
+    vol, gold = phantom.branching_neuron_phantom()
+    tmp = tmp_path_factory.mktemp("swc")
+    port = port_reconstruction(vol, CFG, verbose=False, device="cpu")
+    ref = jax_reconstruction(vol, CFG, verbose=False)
+    return {
+        "port": (port, _score(port, gold, str(tmp / "port.swc"))),
+        "jax": (ref, _score(ref, gold, str(tmp / "jax.swc"))),
+    }
+
+
+def test_seed_sets_match(runs):
+    port, ref = runs["port"][0], runs["jax"][0]
+    sp = {tuple(p) for p in port.seeds_pos.astype(int).tolist()}
+    sj = {tuple(p) for p in ref.seeds_pos.astype(int).tolist()}
+    assert len(sp & sj) >= 0.9 * max(len(sp), len(sj), 1), (len(sp), len(sj))
+
+
+def test_port_passes_exact_quality_gate(runs):
+    res, score = runs["port"]
+    assert score.recall > 0.8, score
+    assert score.precision > 0.85, score
+    assert score.f1 > 0.85, score
+    assert set(res.timings) == {
+        "frangi", "seed extraction", "seed selection & sorting", "tracing", "reconstruct",
+    }
+
+
+def test_f1_paired_with_jax(runs):
+    assert abs(runs["port"][1].f1 - runs["jax"][1].f1) <= 0.05, (
+        runs["port"][1], runs["jax"][1],
+    )
+
+
+def test_non_blurring_matches_jax():
+    from pnr_tpu.graph.refine import non_blurring as jax_non_blurring
+
+    rng = np.random.default_rng(4)
+    nodes = NodeList()
+    for _ in range(300):
+        nodes.add(*rng.uniform(0, 40, 3), sig=float(rng.uniform(1.0, 3.0)))
+    want = jax_non_blurring(nodes, 1.5, 4, 1e-4)
+    got = non_blurring(nodes, 1.5, 4, 1e-4, "cpu")
+    for axis in ("x", "y", "z", "sig"):
+        np.testing.assert_allclose(getattr(got, axis), getattr(want, axis), atol=1e-4)
+
+
+def test_cli_round_trip(tmp_path):
+    vol = phantom.branching_neuron_phantom()[0]
+    src = tmp_path / "stack.npy"
+    np.save(src, vol)
+    out, metrics = tmp_path / "out.swc", tmp_path / "m.json"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [
+            sys.executable, "-m", "pnr_tpu_torch", "-i", str(src),
+            "-p", "2,3", "0", "10", "0.5", "2", "2", "20", "16", "2", "4", "9",
+            "-o", str(out), "--metrics", str(metrics), "--quiet", "--device", "cpu",
+        ],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    swc = read_swc(str(out))
+    assert len(swc) > 10
+    assert abs(np.median(swc[:, 3]) - 36) < 8  # the phantom's trunk row
+    entry = json.loads(metrics.read_text())["stacks"][0]
+    assert entry["tree_nodes"] == len(swc)
+
+
+@pytest.mark.parametrize(
+    "flag", ["--watch", "--checkpoint=c.npz", "--save-midres", "--mesh=2", "--zncc-mode=tube"]
+)
+def test_cli_unported_options_exit_nonzero(flag, capsys):
+    rc = cli.main(["-i", "x.npy", "-p", *["1"] * 11, flag, "--device", "cpu"])
+    assert rc != 0
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_default_device_needs_a_card(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    src = tmp_path / "stack.npy"
+    np.save(src, np.zeros((8, 16, 16), np.uint8))
+    rc = cli.main(["-i", str(src), "-p", "2,3", "0", "10", "0.5", "2", "2", "20", "16", "2", "4", "9"])
+    assert rc != 0
+    assert "no CUDA device" in capsys.readouterr().err
