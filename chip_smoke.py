@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA device and nvcc.
 Phases, each of which exits non-zero on failure:
 
 1. device: a CUDA device is present; prints the card's name and power limit;
-2. build: compiles pnr_tpu_torch/csrc/*.cu and launches each kernel once;
+2. build: compiles pnr_tpu_torch/csrc/*.cu and launches each kernel once
+   (K1, K2, the map build's 1-D correlation, K5, K6) at a tiny shape;
 3. K1 (frangi3d_fused) against its plain PyTorch version on the card:
    clean and noisy tube volumes (64, 256, 256) and the main path's
    (128, 640, 640) stack at sigmas (2, 4, 6), then both timed (CUDA
@@ -17,15 +18,27 @@ Phases, each of which exits non-zero on failure:
    particles) and B=1 seed scoring, on the main path's stack one tracer
    chunk (T=128, B=20) and 173-seed scoring (B=1), with queries along the
    tube axis; both versions timed at T=256, B=20;
-5. main path: the 52.4-Mvox (128, 640, 640) stack of bench.py's
+5. tube map build on the main path's stack at sigmas (2, 4, 6): the
+   packed field through `pnr_gauss1d` against the plain shift-and-add
+   (per channel max|d| / max(|plain|, 1) < 1e-5), both timed;
+6. K5 (hat_sample_patch) against its plain version on that field: one
+   tracer chunk (T=128, N=20) with queries around the tube axis, a quarter
+   anywhere; K6 (hat_sample_field) against its plain version and against
+   the extract + K5 route on 173 B=1 seeds along the axis and T=512 B=1
+   anywhere. Bars: samples within 1e-5 of each column's scale, corr
+   max|d| < 1e-4, sigma agreement > 0.99; K5 and K6 timed;
+7. bf16 field: a forced bfloat16 field on a (64, 256, 256) noisy tube
+   against the float32 field: corr max error < 8e-3, sigma flips < 3%;
+8. main paths: the 52.4-Mvox (128, 640, 640) stack of bench.py's
    make_volume through the port's CLI in-process with
-   `-p 2,4,6 0 10 0.5 3 2 100 20 2 4 9 --device cuda`, twice. The SWC must
-   lie on the tube axis and both kernels' launch counters must have risen
-   during the first run;
-6. profile: a third run of the main path under torch.profiler; prints the
+   `-p 2,4,6 0 10 0.5 3 2 100 20 2 4 9 --device cuda`, twice in exact mode
+   and twice with `--zncc-mode tube`. Each SWC must lie on the tube axis,
+   and the kernels of each path must have been launched by its first run
+   (launch counts set to 0 just before it and read just after);
+9. profile: one more run of each path under torch.profiler; prints the
    card's busy time, its idle share, each kernel's device time and the
    host's kernel-launch calls;
-7. the same path on a small stack on the card and on the CPU (plain
+10. both paths on a small stack on the card and on the CPU (plain
    versions) must agree.
 
 The line before the last is a JSON object describing each kernel; the last
@@ -50,6 +63,8 @@ SIGMAS = (2.0, 4.0, 6.0)
 ZDIST = 2.0
 MAIN_SHAPE = (128, 640, 640)
 MAIN_PARAMS = ["2,4,6", "0", "10", "0.5", "3", "2", "100", "20", "2", "4", "9"]
+#: the device every phase runs on (the kernels need a CUDA device)
+DEVICE = "cuda"
 
 
 def check(cond, msg):
@@ -111,20 +126,26 @@ def phase_build(torch):
     from pnr_tpu_torch.ops import cuda
     from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
     from pnr_tpu_torch.ops.zncc_exact import ExactPatchEngine, ZnccTemplates
+    from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine, TubeZnccModel, build_tube_maps_packed
 
     t0 = time.perf_counter()
     path = cuda.build()
     cuda.library()
     print(f"[build] {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.3f} s", flush=True)
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     vol = torch.from_numpy(tube((8, 24, 24), noise=20)).to(dev)
     frangi3d_fused(vol, (2.0,), ZDIST)
     eng = ExactPatchEngine(ZnccTemplates((2.0,), False), 2, dev)
     pos = torch.tensor([[[12.0, 12.0, 4.0]]], device=dev)
     dirs = torch.tensor([[[1.0, 0.0, 0.0]]], device=dev)
     eng.eval_fused(vol, pos, dirs)
+    model = TubeZnccModel((2.0,), False)
+    field = build_tube_maps_packed(vol, model)
+    teng = TubePatchEngine(model, 2, ZDIST, device=dev)
+    teng.eval_fused(field, pos, dirs)  # K6
+    teng.corr(tuple(vol.shape), *teng.extract(field, pos[:, 0]), pos, dirs)  # K5
     torch.cuda.synchronize()
-    print("[build] both kernels launched at a tiny shape", flush=True)
+    print("[build] K1, K2, the map build, K5 and K6 launched at a tiny shape", flush=True)
 
 
 def dirs_aligned(torch, j_ref, jmax, va, vb):
@@ -169,7 +190,7 @@ def phase_k1(torch, card, main_vol):
     from pnr_tpu_torch.ops.frangi import frangi3d
     from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     r = k1_compare(torch, "clean tube", torch.from_numpy(tube((64, 256, 256))).to(dev))
     check(r["rel"] < 1e-4, "K1 clean tube max|dJ|/Jmax < 1e-4")
     check(r["jmin"] < 1e-4 and r["jmax"] < 1e-4, "K1 clean tube Jmin and Jmax")
@@ -218,7 +239,7 @@ def phase_k2(torch, card, main_vol):
         ExactPatchEngine, ZnccTemplates, exact_corr_from_sums, exact_sums, exact_sums_plain,
     )
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     eng = ExactPatchEngine(ZnccTemplates(SIGMAS, False), 2, dev)
     rng = np.random.default_rng(11)
     tube_vol = torch.from_numpy(tube((64, 256, 256), noise=40)).to(dev)
@@ -260,53 +281,221 @@ def phase_k2(torch, card, main_vol):
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def cli_argv(src, workdir, run):
-    return ["-i", src, "-p", *MAIN_PARAMS, "--device", "cuda",
-            "-o", os.path.join(workdir, f"run{run}.swc"),
-            "--metrics", os.path.join(workdir, f"run{run}.json"), "--quiet"]
+def tube_queries(rng, shape, t, b, axis_sd, anywhere=0.25):
+    """k2_queries with a chosen share of the clouds anywhere in the volume."""
+    pos, d = k2_queries(rng, shape, t, b, axis_sd)
+    l, h, w = shape
+    move = rng.random(t) < anywhere
+    shift = np.stack([rng.uniform(0, w - 1, t), rng.uniform(0, h - 1, t),
+                      rng.uniform(0, l - 1, t)], -1) - pos.mean(axis=1)
+    pos[move] += shift[move][:, None, :].astype(np.float32)
+    return pos, d
 
 
-def phase_main(torch, card, src, workdir):
+def col_errs(k, p):
+    """max|k - p| / max(|p|, 1) per channel of (..., >=3) samples."""
+    return [float((k[..., c] - p[..., c]).abs().max()) / max(float(p[..., c].abs().max()), 1.0)
+            for c in range(3)]
+
+
+def phase_maps(torch, card, main_vol):
+    """The tube map build through pnr_gauss1d against the plain
+    shift-and-add, on the main path's stack; returns the kernel's field."""
+    from pnr_tpu_torch.ops import gaussian
+    from pnr_tpu_torch.ops.zncc_fast import (
+        TubeZnccModel, build_tube_maps_packed, build_tube_maps_packed_plain,
+    )
+
+    model = TubeZnccModel(SIGMAS, False)
+    n0 = gaussian.LAUNCHES
+    field = build_tube_maps_packed(main_vol, model)
+    launches = gaussian.LAUNCHES - n0
+    plain = build_tube_maps_packed_plain(main_vol, model)
+    s, z, y, x3 = field.shape
+    errs = col_errs(field.view(s, z, y, x3 // 3, 3), plain.view(s, z, y, x3 // 3, 3))
+    del plain
+    print(f"[maps] {MAIN_SHAPE} sigmas {SIGMAS}: field {tuple(field.shape)} "
+          f"{field.numel() * 4 / 1e9:.3f} GB, {launches} pnr_gauss1d launches; max|d|/max(|plain|,1) "
+          f"per channel {', '.join(f'{e:.3e}' for e in errs)}", flush=True)
+    check(max(errs) < 1e-5, "map build: per channel max|d| / max(|plain|, 1) < 1e-5")
+    ms = time_ms(torch, lambda: build_tube_maps_packed(main_vol, model))
+    plain_ms = time_ms(torch, lambda: build_tube_maps_packed_plain(main_vol, model))
+    print(f"[maps] build: kernel route {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]", flush=True)
+    return field, {"max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_k5_k6(torch, card, field):
+    """K5 and K6 against their plain versions on the main stack's field."""
+    from pnr_tpu_torch.ops import hat_sample as hs
+    from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine, TubeZnccModel
+
+    dev = field.device
+    eng = TubePatchEngine(TubeZnccModel(SIGMAS, False), 2, ZDIST, device=dev)
+    dims = eng.vol_dims(field.shape)
+    rng = np.random.default_rng(12)
+
+    def corr_check(label, a, b):
+        cerr = float((a[0] - b[0]).abs().max())
+        agree = float((a[1] == b[1]).float().mean())
+        print(f"[{label}] corr max|d| {cerr:.3e}, sigma agreement {agree:.4f}", flush=True)
+        check(cerr < 1e-4 and agree > 0.99, f"{label}: corr max|d| < 1e-4, sigma agreement > 0.99")
+        return cerr
+
+    # K5: one tracer chunk, T=128 traces of N=20 particles
+    pos, d = (torch.from_numpy(a).to(dev) for a in tube_queries(rng, dims, 128, 20, 1.0))
+    t, n = pos.shape[:2]
+    patches, corners = eng.extract(field, pos.mean(dim=1))
+    groups = eng.groups(dims)
+    rels = [eng.rel_coords(dims, pd, c, pos, d, g0, g1)
+            for c, (g0, g1, pd) in zip(corners, groups)]
+    vk = [hs.hat_sample_patch(p, r) for p, r in zip(patches, rels)]
+    vp = [hs.hat_sample_patch_plain(p, r) for p, r in zip(patches, rels)]
+    errs = [max(col_errs(a, b)) for a, b in zip(vk, vp)]
+    print(f"[K5] T=128 N=20 groups {[g[2] for g in groups]}: samples max|d|/max(|plain|,1) "
+          f"{', '.join(f'{e:.3e}' for e in errs)}", flush=True)
+    check(max(errs) < 1e-5, "K5: samples within 1e-5 of each column's scale")
+    worst5 = corr_check("K5", eng.finish(torch.cat([v[..., :3] for v in vk], 1), t, n),
+                        eng.finish(torch.cat([v[..., :3] for v in vp], 1), t, n))
+    k5 = {"max_abs_err": worst5,
+          "ms": time_ms(torch, lambda: [hs.hat_sample_patch(p, r) for p, r in zip(patches, rels)]),
+          "plain_ms": time_ms(torch, lambda: [hs.hat_sample_patch_plain(p, r)
+                                              for p, r in zip(patches, rels)])}
+    print(f"[K5] T=128 N=20, the three group launches of one iteration: kernel {k5['ms']:.3f} ms, "
+          f"plain {k5['plain_ms']:.3f} ms [{card}]", flush=True)
+
+    # K6: B=1 seed scoring, along the axis and anywhere
+    worst6, timing = 0.0, None
+    for label, t, axis_sd, anywhere in (("173 seeds on the axis", 173, 0.5, 0.0),
+                                        ("T=512 anywhere", 512, 1.0, 1.0)):
+        pos, d = (torch.from_numpy(a).to(dev)
+                  for a in tube_queries(rng, dims, t, 1, axis_sd, anywhere))
+        pdims = eng.dims(dims)
+        corner = eng.corners(dims, pos[:, 0], pdims)
+        rel = eng.rel_coords(dims, pdims, corner, pos, d).reshape(t, -1, 4)
+        kern = hs.hat_sample_field(field, corner, rel, pdims)
+        plain = hs.hat_sample_field_plain(field, corner, rel, pdims)
+        err = max(col_errs(kern, plain))
+        print(f"[K6] {label}, window {pdims}: samples max|d|/max(|plain|,1) {err:.3e}", flush=True)
+        check(err < 1e-5, f"K6 {label}: samples within 1e-5 of each column's scale")
+        m = rel.shape[1] // len(SIGMAS)
+        worst6 = max(worst6, corr_check(
+            f"K6 {label} vs plain",
+            eng.finish(kern.view(t, len(SIGMAS), m, 4)[..., :3], t, 1),
+            eng.finish(plain.view(t, len(SIGMAS), m, 4)[..., :3], t, 1)))
+        pc, cc = eng.extract(field, pos[:, 0])
+        corr_check(f"K6 {label} vs extract + K5", eng.eval_fused(field, pos, d),
+                   eng.corr(dims, pc, cc, pos, d))
+        timing = (
+            time_ms(torch, lambda: hs.hat_sample_field(field, corner, rel, pdims)),
+            time_ms(torch, lambda: hs.hat_sample_field_plain(field, corner, rel, pdims)),
+        )
+    k6 = {"max_abs_err": worst6, "ms": timing[0], "plain_ms": timing[1]}
+    print(f"[K6] T=512 B=1: kernel {k6['ms']:.3f} ms, plain {k6['plain_ms']:.3f} ms [{card}]",
+          flush=True)
+    return k5, k6
+
+
+def phase_bf16(torch):
+    """A forced bfloat16 field against the float32 one, through the
+    tracer's engine (bf16 goes through extract + K5, f32 through K6)."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    dev = torch.device(DEVICE)
+    shape = (64, 256, 256)
+    vol = torch.from_numpy(tube(shape, noise=40)).to(dev)
+    rng = np.random.default_rng(13)
+    pos, d = (torch.from_numpy(a).to(dev) for a in tube_queries(rng, shape, 512, 1, 1.0))
+    out = {}
+    for dt in ("f32", "bf16"):
+        cfg = PNRConfig(sigmas=SIGMAS, znccth=0.5, kappa=3.0, step=2, ni=8, np=20, zdist=ZDIST,
+                        nodepervol=4, vol=9, zncc_mode="tube", tube_map_dtype=dt)
+        tracker = BatchedTracker(cfg, dev)
+        field = tracker.prepare_field(vol)
+        check(field.dtype == (torch.bfloat16 if dt == "bf16" else torch.float32), "field dtype")
+        out[dt] = tracker.engine.eval_fused(field, pos, d)
+    err = float((out["bf16"][0] - out["f32"][0]).abs().max())
+    flipped = out["bf16"][1] != out["f32"][1]
+    flips = float(flipped.float().mean())
+    at = float(out["f32"][0][flipped].abs().max()) if bool(flipped.any()) else 0.0
+    print(f"[bf16] {shape} noisy tube, T=512 B=1: corr max|d| {err:.3e}, sigma flips {flips:.4f} "
+          f"(largest |corr| at a flip {at:.4f})", flush=True)
+    check(err < 8e-3 and flips < 0.03, "bf16 field: corr max error < 8e-3, sigma flips < 3%")
+
+
+def cli_argv(src, workdir, tag, mode):
+    return ["-i", src, "-p", *MAIN_PARAMS, "--device", DEVICE, "--zncc-mode", mode,
+            "-o", os.path.join(workdir, f"{tag}.swc"),
+            "--metrics", os.path.join(workdir, f"{tag}.json"), "--quiet"]
+
+
+def counters():
+    """Every kernel launch counter of the port, by name."""
+    from pnr_tpu_torch.ops import frangi_fused, gaussian, hat_sample, zncc_exact
+
+    return {
+        "frangi3d_fused": (frangi_fused, "LAUNCHES"),
+        "exact_sums": (zncc_exact, "LAUNCHES"),
+        "conv1d_along_axis": (gaussian, "LAUNCHES"),
+        "hat_sample_patch": (hat_sample, "PATCH_LAUNCHES"),
+        "hat_sample_field": (hat_sample, "FIELD_LAUNCHES"),
+    }
+
+
+#: the kernels each path must launch
+PATH_KERNELS = {
+    "exact": ("frangi3d_fused", "exact_sums"),
+    "tube": ("frangi3d_fused", "conv1d_along_axis", "hat_sample_patch", "hat_sample_field"),
+}
+
+
+def phase_main(torch, card, src, workdir, mode):
     from pnr_tpu_torch import cli
-    from pnr_tpu_torch.ops import frangi_fused, zncc_exact
 
     launches = wall = None
     for run in (1, 2):
-        swc = os.path.join(workdir, f"run{run}.swc")
-        metrics = os.path.join(workdir, f"run{run}.json")
-        argv = cli_argv(src, workdir, run)
+        tag = f"{mode}{run}"
         if run == 1:
-            frangi_fused.LAUNCHES = 0
-            zncc_exact.LAUNCHES = 0
+            for mod, attr in counters().values():
+                setattr(mod, attr, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rc = cli.main(argv)
+        rc = cli.main(cli_argv(src, workdir, tag, mode))
         torch.cuda.synchronize()
         e2e = time.perf_counter() - t0
         if run == 1:
-            launches = {"frangi3d_fused": frangi_fused.LAUNCHES,
-                        "exact_sums": zncc_exact.LAUNCHES}
-        check(rc == 0, f"CLI run {run} exited {rc}")
-        rows = np.loadtxt(swc, comments="#", ndmin=2)  # id type x y z r parent
-        entry = json.load(open(metrics))["stacks"][0]
-        ys, zs = rows[:, 3], rows[:, 4]
-        print(f"[main] run {run}: {e2e:.3f} s end to end, {len(rows)} SWC nodes, median y "
+            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+        check(rc == 0, f"{mode} CLI run {run} exited {rc}")
+        rows = np.loadtxt(os.path.join(workdir, f"{tag}.swc"), comments="#", ndmin=2)
+        entry = json.load(open(os.path.join(workdir, f"{tag}.json")))["stacks"][0]
+        ys, zs = rows[:, 3], rows[:, 4]  # id type x y z r parent
+        print(f"[main {mode}] run {run}: {e2e:.3f} s end to end, {len(rows)} SWC nodes, median y "
               f"{np.median(ys):.3f} z {np.median(zs):.3f}, seeds {entry.get('n_raw_seeds')} raw / "
               f"{entry['n_seeds']} selected, {entry['trace_count']} traces [{card}]", flush=True)
-        print(f"[main] run {run} stages (s): {json.dumps(entry['timings_s'])}", flush=True)
-        check(len(rows) > 10, "main path SWC has more than 10 nodes")
-        check(abs(np.median(ys) - MAIN_SHAPE[1] / 2) <= 3, "median node y within 3 of 320")
-        check(abs(np.median(zs) - MAIN_SHAPE[0] / 2) <= 3, "median node z within 3 of 64")
+        print(f"[main {mode}] run {run} stages (s): {json.dumps(entry['timings_s'])}", flush=True)
+        check(len(rows) > 10, f"{mode} path SWC has more than 10 nodes")
+        check(abs(np.median(ys) - MAIN_SHAPE[1] / 2) <= 3, f"{mode}: median node y within 3 of 320")
+        check(abs(np.median(zs) - MAIN_SHAPE[0] / 2) <= 3, f"{mode}: median node z within 3 of 64")
         if run == 1:
-            print(f"[main] kernel launches during run 1: {json.dumps(launches)}", flush=True)
-            check(all(v > 0 for v in launches.values()),
-                  "both kernels were launched by the main path")
+            print(f"[main {mode}] kernel launches during run 1: {json.dumps(launches)}", flush=True)
+            check(all(launches[k] > 0 for k in PATH_KERNELS[mode]),
+                  f"the {mode} path launched {', '.join(PATH_KERNELS[mode])}")
         wall = e2e
     return launches, wall
 
 
-def phase_profile(torch, card, src, workdir, unprofiled_s):
-    """A third main-path run under torch.profiler: the card's busy time
+#: kernel names (substrings) in the profiler's device events
+PROFILE_KERNELS = {
+    "K1 (frangi_scale, decode_stats)": ("frangi_scale_kernel", "decode_stats_kernel"),
+    "gauss1d (K1's passes and the map build)": ("gauss1d_kernel",),
+    "K2": ("exact_sums_kernel",),
+    "K5": ("hat_patch_kernel",),
+    "K6": ("hat_field_kernel",),
+}
+
+
+def phase_profile(torch, card, src, workdir, mode, unprofiled_s):
+    """One more run of a path under torch.profiler: the card's busy time
     (union of its kernel and copy spans), idle share, per-kernel device
     time and the host's kernel-launch calls."""
     from torch.autograd import DeviceType
@@ -317,60 +506,60 @@ def phase_profile(torch, card, src, workdir, unprofiled_s):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rc = cli.main(cli_argv(src, workdir, 3))
+        rc = cli.main(cli_argv(src, workdir, f"{mode}3", mode))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(rc == 0, f"profiled CLI run exited {rc}")
+    check(rc == 0, f"profiled {mode} CLI run exited {rc}")
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not e.name.startswith("Activity Buffer")]
-    check(dev, "the profiler recorded device work in the main path")
+    check(dev, f"the profiler recorded device work in the {mode} path")
     busy_us, end = 0.0, -1.0
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
         if b > end:
             busy_us += b - max(a, end)
             end = b
     busy_s = busy_us / 1e6
-
-    def device_ms(*names):
-        hit = [e for e in dev if any(n in e.name for n in names)]
-        return sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit)
-
-    k1_ms, k1_n = device_ms("gauss1d_kernel", "frangi_scale_kernel", "decode_stats_kernel")
-    k2_ms, k2_n = device_ms("exact_sums_kernel")
+    per = {}
+    for label, names in PROFILE_KERNELS.items():
+        hit = [e for e in dev if any(nm in e.name for nm in names)]
+        per[label] = (sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit))
     host_launch = [e for e in events if e.device_type == DeviceType.CPU
                    and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")]
     launch_ms = sum(e.time_range.elapsed_us() for e in host_launch) / 1e3
-    print(f"[profile] run 3 under torch.profiler: {wall:.3f} s; card busy {busy_s * 1e3:.3f} ms, "
-          f"idle {1 - busy_s / wall:.4f} of the profiled run and "
+    print(f"[profile {mode}] run 3 under torch.profiler: {wall:.3f} s; card busy "
+          f"{busy_s * 1e3:.3f} ms, idle {1 - busy_s / wall:.4f} of the profiled run and "
           f"{1 - busy_s / unprofiled_s:.4f} of run 2's {unprofiled_s:.3f} s [{card}]", flush=True)
-    print(f"[profile] K1 {k1_ms:.3f} ms in {k1_n} launches, K2 {k2_ms:.3f} ms in {k2_n} "
-          f"launches; {len(dev)} device ops; {len(host_launch)} host kernel-launch calls "
-          f"taking {launch_ms:.3f} ms", flush=True)
-    check(k1_n > 0 and k2_n > 0, "the profiler saw both kernels on the main path")
+    print(f"[profile {mode}] " + "; ".join(
+        f"{k} {ms:.3f} ms in {n} launches" for k, (ms, n) in per.items() if n)
+        + f"; {len(dev)} device ops; {len(host_launch)} host kernel-launch calls taking "
+          f"{launch_ms:.3f} ms", flush=True)
+    want = {"exact": ("K1 (frangi_scale, decode_stats)", "K2"),
+            "tube": ("K1 (frangi_scale, decode_stats)", "K5", "K6")}[mode]
+    check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {mode} path")
     top = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
-    print("[profile] top device ops:\n" + top, flush=True)
+    print(f"[profile {mode}] top device ops:\n" + top, flush=True)
 
 
-def phase_small_agreement(torch):
+def phase_small_agreement(torch, mode):
     from pnr_tpu_torch import PNRConfig
     from pnr_tpu_torch.pipeline import reconstruction_func
 
     vol = make_volume((24, 64, 96), seed=7)
     cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2,
-                    ni=100, np=20, zdist=ZDIST, nodepervol=4, vol=9)
-    gpu = reconstruction_func(vol, cfg, verbose=False, device="cuda")
+                    ni=100, np=20, zdist=ZDIST, nodepervol=4, vol=9, zncc_mode=mode)
+    gpu = reconstruction_func(vol, cfg, verbose=False, device=DEVICE)
     cpu = reconstruction_func(vol, cfg, verbose=False, device="cpu")
     sg = {tuple(p) for p in gpu.seeds_pos.astype(int).tolist()}
     sc = {tuple(p) for p in cpu.seeds_pos.astype(int).tolist()}
     overlap = len(sg & sc) / max(len(sg), len(sc), 1)
     dy = abs(np.median(gpu.tree.y[1:]) - np.median(cpu.tree.y[1:]))
     dz = abs(np.median(gpu.tree.z[1:]) - np.median(cpu.tree.z[1:]))
-    print(f"[small] card vs plain CPU: seed overlap {overlap:.3f}, nodes {len(gpu.tree) - 1} vs "
-          f"{len(cpu.tree) - 1}, traces {gpu.trace_count} vs {cpu.trace_count}, median "
-          f"|dy| {dy:.3f} |dz| {dz:.3f}", flush=True)
-    check(overlap >= 0.9, "small stack: seed sets agree")
-    check(len(gpu.tree) > 10 and dy < 2.0 and dz < 2.0, "small stack: trees agree")
+    print(f"[small {mode}] card vs plain CPU: seed overlap {overlap:.3f}, nodes "
+          f"{len(gpu.tree) - 1} vs {len(cpu.tree) - 1}, traces {gpu.trace_count} vs "
+          f"{cpu.trace_count}, median |dy| {dy:.3f} |dz| {dz:.3f}", flush=True)
+    check(overlap >= 0.9, f"small stack, {mode}: seed sets agree")
+    check(len(gpu.tree) > 10 and dy < 2.0 and dz < 2.0, f"small stack, {mode}: trees agree")
 
 
 def main() -> int:
@@ -383,34 +572,54 @@ def main() -> int:
         print("chip_smoke: run from the root of a pnr-tpu checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
     card = phase_device(torch)
     phase_build(torch)
     t0 = time.perf_counter()
     main_np = make_volume(MAIN_SHAPE)
     print(f"[main] built the {MAIN_SHAPE} stack in {time.perf_counter() - t0:.3f} s", flush=True)
-    main_vol = torch.from_numpy(main_np).cuda()
+    main_vol = torch.from_numpy(main_np).to(DEVICE)
     k1 = phase_k1(torch, card, main_vol)
     k2 = phase_k2(torch, card, main_vol)
-    del main_vol
+    field, maps = phase_maps(torch, card, main_vol)
+    k5, k6 = phase_k5_k6(torch, card, field)
+    del main_vol, field
+    phase_bf16(torch)
+    torch.cuda.empty_cache()
+    launches = {}
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
         src = os.path.join(workdir, "stack.npy")
         np.save(src, main_np)
-        launches, run2_s = phase_main(torch, card, src, workdir)
-        phase_profile(torch, card, src, workdir, run2_s)
+        for mode in ("exact", "tube"):
+            launches[mode], run2_s = phase_main(torch, card, src, workdir, mode)
+            phase_profile(torch, card, src, workdir, mode, run2_s)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    phase_small_agreement(torch)
+    for mode in ("exact", "tube"):
+        phase_small_agreement(torch, mode)
     check("jax" not in sys.modules, "no jax was imported")
+    print(f"[maps] the tube map build (not a TPU kernel: JAX runs an XLA shift-and-add): "
+          f"{json.dumps(maps)}; launches in the tube path's run 1 "
+          f"{launches['tube']['conv1d_along_axis']}", flush=True)
+    print(f"[done] {time.perf_counter() - t_start:.3f} s in all [{card}]", flush=True)
     kernels = [
         {"name": "frangi3d_fused", "route": "cuda",
          "source": "pnr_tpu_torch/csrc/frangi_fused.cu",
          "replaces": "pnr_tpu/ops/frangi_fused.py:265",
-         "launches": launches["frangi3d_fused"], **k1},
+         "launches": launches["exact"]["frangi3d_fused"], **k1},
         {"name": "exact_sums", "route": "cuda",
          "source": "pnr_tpu_torch/csrc/zncc_exact.cu",
          "replaces": "pnr_tpu/ops/zncc_exact.py:194",
-         "launches": launches["exact_sums"], **k2},
+         "launches": launches["exact"]["exact_sums"], **k2},
+        {"name": "hat_sample_patch", "route": "cuda",
+         "source": "pnr_tpu_torch/csrc/hat_sample.cu",
+         "replaces": "pnr_tpu/ops/pallas_sample.py:66",
+         "launches": launches["tube"]["hat_sample_patch"], **k5},
+        {"name": "hat_sample_field", "route": "cuda",
+         "source": "pnr_tpu_torch/csrc/hat_sample.cu",
+         "replaces": "pnr_tpu/ops/pallas_sample.py:145",
+         "launches": launches["tube"]["hat_sample_field"], **k6},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

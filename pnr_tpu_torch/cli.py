@@ -14,6 +14,7 @@ positional parameters after -p, the same validation and output naming
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -38,7 +39,7 @@ _NOT_PORTED = (
 def print_help_params() -> None:
     print(
         """*** PNR (Advantra), PyTorch/CUDA port: usage ***
-python -m pnr_tpu_torch -i <inimg_file> -p <neuritesigmas somaradius tolerance znccth kappa step ni np zdist nodepervol vol> [-o out.swc] [--metrics M] [--quiet] [--device cuda]
+python -m pnr_tpu_torch -i <inimg_file> -p <neuritesigmas somaradius tolerance znccth kappa step ni np zdist nodepervol vol> [-o out.swc] [--metrics M] [--zncc-mode exact|tube] [--quiet] [--device cuda]
 inimg_file     The input image (.tif / .v3draw / .npy).
 neuritesigmas  Comma-delimited Gaussian cross-section sigmas.
 somaradius     Minimum soma radius (0: no soma detection; >0 not ported yet).
@@ -63,7 +64,9 @@ def main(argv=None) -> int:
                     help="output SWC file path (default: <image>_Advantra.swc)")
     ap.add_argument("--metrics", default=None,
                     help="write the stage timings and counts as JSON")
-    ap.add_argument("--zncc-mode", choices=("exact", "tube"), default="exact")
+    ap.add_argument("--zncc-mode", choices=("exact", "tube"), default="exact",
+                    help="likelihood engine: 'exact' (reference parity) or 'tube' "
+                         "(precomputed-map approximation)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain versions)")
     ap.add_argument("--quiet", action="store_true")
@@ -89,9 +92,6 @@ def main(argv=None) -> int:
         sys.stderr.write("several input stacks (batch serving) are not yet ported "
                          "to pnr_tpu_torch (see ROADMAP.md)\n")
         return 2
-    if args.zncc_mode != "exact":
-        sys.stderr.write("--zncc-mode tube is not yet ported to pnr_tpu_torch (see ROADMAP.md)\n")
-        return 2
     if args.params is None or len(args.params) != 11:
         sys.stderr.write("\nNeeds 11 input parameters.\n\n")
         print_help_params()
@@ -101,6 +101,7 @@ def main(argv=None) -> int:
     except ValueError as e:
         sys.stderr.write(f"{e}\n")
         return 1
+    cfg = dataclasses.replace(cfg, zncc_mode=args.zncc_mode)
 
     from pnr_tpu_torch.pipeline import reconstruction_func
     from pnr_tpu_torch.utils.runtime import require_cuda
@@ -115,7 +116,7 @@ def main(argv=None) -> int:
     if verbose:
         print("-------------  PNR (PyTorch/CUDA port)  -------------")
         for k in ("sigmas", "somaradius", "tolerance", "znccth", "kappa", "step",
-                  "ni", "np", "zdist", "nodepervol", "vol"):
+                  "ni", "np", "zdist", "nodepervol", "vol", "zncc_mode"):
             print(f"{k} = {getattr(cfg, k)}")
         print(f"device = {device}")
         print("-----------------------------------------------------")

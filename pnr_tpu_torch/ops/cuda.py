@@ -45,6 +45,8 @@ _SIGNATURES = {
         _P, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
     ),
     "pnr_exact_sums": (_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P),
+    "pnr_hat_sample_patch": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P),
+    "pnr_hat_sample_field": (_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P),
 }
 
 

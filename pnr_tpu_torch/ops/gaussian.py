@@ -1,10 +1,18 @@
 """Separable Gaussian smoothing with edge-replicated borders.
 
-Port of pnr_tpu/ops/gaussian.py (`gaussian_kernel`, `imgaussian3d`;
-parity target `Frangi::imgaussian`, pnr-vaa3d/frangi.cpp:563-877):
-normalized sampled 1-D kernels of half-width ceil(3*sigma), applied as
-correlations along x, then y, then z, where z uses sigma/zdist. This is
-the plain PyTorch chain that K1 (ops/frangi_fused.py) is held to.
+Port of pnr_tpu/ops/gaussian.py (`gaussian_kernel`, `conv1d_along_axis`,
+`imgaussian3d`; parity target `Frangi::imgaussian`,
+pnr-vaa3d/frangi.cpp:563-877): normalized sampled 1-D kernels of
+half-width ceil(3*sigma), applied as correlations along x, then y, then
+z, where z uses sigma/zdist.
+
+`conv1d_along_axis` is the 1-D correlation of the tube map build
+(ops/zncc_fast.py), which JAX runs as an XLA shift-and-add: a CPU tensor
+runs that shift-and-add (`conv1d_along_axis_plain`), a CUDA tensor runs
+`pnr_gauss1d` (csrc/frangi_fused.cu, the Gaussian pass of K1: arbitrary
+taps, uint8 or float32 input, one launch per axis) or raises.
+`imgaussian3d` is the plain PyTorch chain that K1 (ops/frangi_fused.py)
+is held to, so it always runs the shift-and-add.
 """
 
 from __future__ import annotations
@@ -13,6 +21,13 @@ import math
 
 import numpy as np
 import torch
+
+from pnr_tpu_torch.ops import cuda
+
+#: CUDA launches of `conv1d_along_axis` (the tube map build's 1-D
+#: correlations; K1 launches `pnr_gauss1d` itself and counts them in
+#: frangi_fused.LAUNCHES)
+LAUNCHES = 0
 
 
 def gaussian_kernel(sigma: float) -> np.ndarray:
@@ -24,15 +39,43 @@ def gaussian_kernel(sigma: float) -> np.ndarray:
 
 
 def conv1d_along_axis(vol: torch.Tensor, kernel, axis: int) -> torch.Tensor:
-    """Correlate `vol` with a 1-D `kernel` along `axis`, edge-replicated
-    borders, summing the taps in order (one product and one add per tap,
-    as the JAX shift-and-add does)."""
+    """Correlate a (Z, Y, X) `vol` with a 1-D `kernel` along `axis`,
+    edge-replicated borders; float32 out."""
+    if vol.device.type == "cpu":
+        return conv1d_along_axis_plain(vol, kernel, axis)
+    return _conv1d_cuda(vol, kernel, axis)
+
+
+def _conv1d_cuda(vol, kernel, axis):
+    global LAUNCHES
+    if vol.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"vol must be uint8 or float32, got {vol.dtype}")
+    cuda.require_cuda_tensor(vol, "vol", vol.dtype, 3)
+    if axis not in (0, 1, 2):
+        raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
+    taps = torch.from_numpy(np.ascontiguousarray(kernel, np.float32)).to(vol.device)
+    z, y, x = (int(s) for s in vol.shape)
+    out = torch.empty((z, y, x), dtype=torch.float32, device=vol.device)
+    cuda.check(
+        cuda.library().pnr_gauss1d(
+            vol.data_ptr(), int(vol.dtype == torch.uint8), out.data_ptr(), z, y, x, axis,
+            taps.data_ptr(), int(taps.numel()), cuda.stream_of(vol),
+        ),
+        "pnr_gauss1d",
+    )
+    LAUNCHES += 1
+    return out
+
+
+def conv1d_along_axis_plain(vol: torch.Tensor, kernel, axis: int) -> torch.Tensor:
+    """The plain version: shift-and-add in tap order (one product and one
+    add per tap, as the JAX shift-and-add does)."""
     kernel = np.asarray(kernel, np.float32)
     k = kernel.shape[0]
     half = k // 2
     n = vol.shape[axis]
     idx = torch.arange(-half, n + half, device=vol.device).clamp_(0, n - 1)
-    xp = vol.index_select(axis, idx)
+    xp = vol.to(torch.float32).index_select(axis, idx)
     out = None
     for j in range(k):
         term = float(kernel[j]) * xp.narrow(axis, j, n)
@@ -46,8 +89,8 @@ def imgaussian3d(vol: torch.Tensor, sigma: float, zdist: float) -> torch.Tensor:
     x and y use sigma; z uses sigma/zdist. Returns float32."""
     v = vol.to(torch.float32)
     kxy = gaussian_kernel(sigma)
-    v = conv1d_along_axis(v, kxy, axis=2)
-    v = conv1d_along_axis(v, kxy, axis=1)
+    v = conv1d_along_axis_plain(v, kxy, axis=2)
+    v = conv1d_along_axis_plain(v, kxy, axis=1)
     if v.shape[0] > 1:
-        v = conv1d_along_axis(v, gaussian_kernel(float(sigma) / float(zdist)), axis=0)
+        v = conv1d_along_axis_plain(v, gaussian_kernel(float(sigma) / float(zdist)), axis=0)
     return v

@@ -1,15 +1,18 @@
 """End-to-end single-stack reconstruction: uint8 volume -> SWC node graph.
 
 Port of pnr_tpu/pipeline/reconstruct.py (parity target
-`reconstruction_func`, pnr-vaa3d/Advantra_plugin.cpp:2183-2731) for the
-main path: Frangi (K1) -> J8 -> native host seed flood -> exact-ZNCC seed
-scoring (K2) -> SMC tracing in waves with the in-order FCFS commit
-wavefront -> graph post-processing. Soma extraction and 2-D stacks are
-not ported yet and raise NotImplementedError.
+`reconstruction_func`, pnr-vaa3d/Advantra_plugin.cpp:2183-2731) for one
+3-D stack: Frangi (K1) -> J8 -> native host seed flood -> the likelihood
+field (the volume in exact mode, the tube map stack in tube mode) -> seed
+scoring (K2 in exact mode, K6 in tube mode) -> SMC tracing in waves with
+the in-order FCFS commit wavefront (K2, or K5 in tube mode) -> graph
+post-processing. Soma extraction and 2-D stacks are not ported yet and
+raise NotImplementedError.
 
 Every entry point takes an explicit `device`. The volume, the Frangi
-outputs and the tracer state live on it; the seed flood, the commit
-wavefront (shared `TraceCommitter`) and the graph stages run on the host.
+outputs, the field and the tracer state live on it; the seed flood, the
+commit wavefront (shared `TraceCommitter`) and the graph stages run on
+the host.
 """
 
 from __future__ import annotations
@@ -87,9 +90,11 @@ class _StageTimer:
             print(f"{dt:.3f} sec.")
 
 
-def _score_seeds(field: torch.Tensor, pos: np.ndarray, dirs: np.ndarray, tracker, chunk=4096):
+def _score_seeds(field: torch.Tensor, pos: np.ndarray, dirs: np.ndarray, tracker):
     """Batched znccBBB over all seeds (Advantra_plugin.cpp:2561-2575):
-    one tight patch per seed, B=1, through K2."""
+    one tight window per seed, B=1, through the engine's `eval_fused`
+    (K2 in exact mode, K6 in tube mode, in chunks of 1024 as JAX's)."""
+    chunk = 1024 if tracker.tube else 4096
     corrs = np.empty(len(pos), np.float32)
     dev = field.device
     for beg in range(0, len(pos), chunk):
@@ -273,8 +278,12 @@ def _stack_front(
     tm.start("seed selection & sorting")
     if tracker is None:
         tracker = BatchedTracker(cfg, device)
+    field = tracker.prepare_field(img)
+    # tube mode: the map field replaces the volume (exact mode: the same
+    # tensor), so the volume is dropped before scoring and tracing
+    img = None
     if len(pos):
-        corr = _score_seeds(img, pos, dirs, tracker)
+        corr = _score_seeds(field, pos, dirs, tracker)
         keep = corr >= cfg.znccth
         pos, dirs, corr = pos[keep], dirs[keep], corr[keep]
         order = np.argsort(-corr, kind="stable")
@@ -286,7 +295,7 @@ def _stack_front(
         print(f"{len(pos) / 1000.0}k seeds after selection")
 
     return _StackFront(
-        nodes=nodes, j8_np=j8_np, pos=pos, dirs=dirs, corr=corr, field=img,
+        nodes=nodes, j8_np=j8_np, pos=pos, dirs=dirs, corr=corr, field=field,
         tracker=tracker, timings=tm.timings, n_raw_seeds=n_raw_seeds,
     )
 

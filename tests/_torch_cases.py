@@ -171,3 +171,34 @@ def queries(shape, seed=0):
     d = rng.normal(size=(T, B, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return pos.astype(np.float32), d.astype(np.float32)
+
+
+# tube mode
+
+TUBE_T, TUBE_N = 6, 15
+
+
+def noisy_tube(shape=(24, 64, 96), radius=2.5, seed=3):
+    """tests/test_zncc.py's make_noisy_tube."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
+    d2 = (y - shape[1] / 2.0) ** 2 + ((z - shape[0] / 2.0) * ZDIST) ** 2
+    vol = 200.0 * np.exp(-d2 / (2 * radius**2)) + rng.normal(0, 4, shape)
+    return np.clip(vol, 0, 255).astype(np.uint8)
+
+
+def tube_queries(shape, t=TUBE_T, n=TUBE_N, seed=0, edges=False):
+    """t trace clouds of n particles within 4 voxels of centres spread
+    over the volume (with `edges`, pinned to its corners and faces)."""
+    rng = np.random.default_rng(seed)
+    l, h, w = shape
+    centre = np.stack(
+        [rng.uniform(0, w - 1, t), rng.uniform(0, h - 1, t), rng.uniform(0, l - 1, t)], -1
+    )
+    if edges:
+        for i in range(t):
+            centre[i] = [(w - 1) * (i % 2), (h - 1) * ((i // 2) % 2), (l - 1) * ((i // 4) % 2)]
+    pos = centre[:, None, :] + rng.uniform(-4, 4, (t, n, 3))
+    d = rng.normal(size=(t, n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return pos.astype(np.float32), d.astype(np.float32)

@@ -24,6 +24,8 @@ PORT_MODULES = (
     "pnr_tpu_torch.ops.interp",
     "pnr_tpu_torch.ops.zncc",
     "pnr_tpu_torch.ops.zncc_exact",
+    "pnr_tpu_torch.ops.hat_sample",
+    "pnr_tpu_torch.ops.zncc_fast",
     "pnr_tpu_torch.seeds.extract",
     "pnr_tpu_torch.smc.tracker",
     "pnr_tpu_torch.graph.refine",
@@ -75,3 +77,22 @@ def test_cuda_wrappers_reject_cpu_tensors_on_the_kernel_route():
     qs = torch.zeros((1, 1, 16))
     with pytest.raises(ValueError, match="CUDA tensor"):
         zncc_exact._exact_sums_cuda(vol, corner, qs, tables)
+
+
+def test_tube_wrappers_reject_cpu_tensors_on_the_kernel_route():
+    """K5, K6 and the map build's 1-D correlation validate their inputs on
+    the CUDA route instead of falling back to the plain versions."""
+    from pnr_tpu_torch.ops import gaussian, hat_sample
+
+    patches = torch.zeros((1, 1, 4, 4, 12))
+    rel = torch.zeros((1, 1, 5, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hat_sample._hat_sample_patch_cuda(patches, rel)
+    maps = torch.zeros((1, 8, 8, 24))
+    corners = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hat_sample._hat_sample_field_cuda(maps, corners, rel[0], (4, 4, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gaussian._conv1d_cuda(torch.zeros((4, 4, 4)), np.ones(3, np.float32), 0)
+    with pytest.raises(TypeError, match="uint8 or float32"):
+        gaussian._conv1d_cuda(torch.zeros((4, 4, 4), dtype=torch.float64), np.ones(3), 0)

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card:
+K1 (Frangi), K2 (exact ZNCC sums), the tube map build's 1-D correlation,
+K5 and K6 (tube-map hat sampling), and both main paths on a small stack.
 
 Every test here needs a CUDA device (the kernels have no CPU mode): they
 carry the `cuda` marker and skip without one. The file imports no jax, so
@@ -22,11 +24,14 @@ from _torch_cases import (
     ZDIST,
     ZNCC_VOLUMES,
     as_numpy,
+    noisy_tube,
     queries,
     tube,
+    tube_queries,
 )
+from pnr_tpu.ops.zncc_model import TubeZnccModel
 from pnr_tpu_torch import PNRConfig
-from pnr_tpu_torch.ops import frangi_fused, zncc_exact
+from pnr_tpu_torch.ops import frangi_fused, gaussian, hat_sample, zncc_exact
 from pnr_tpu_torch.ops.frangi import frangi3d as plain_frangi3d
 from pnr_tpu_torch.ops.zncc_exact import (
     ExactPatchEngine,
@@ -34,6 +39,11 @@ from pnr_tpu_torch.ops.zncc_exact import (
     exact_corr_from_sums,
     exact_sums,
     exact_sums_plain,
+)
+from pnr_tpu_torch.ops.zncc_fast import (
+    TubePatchEngine,
+    build_tube_maps_packed,
+    build_tube_maps_packed_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -85,22 +95,43 @@ def test_exact_sums_kernel_matches_plain(dev, vol_name, b):
     assert float((sk == sp).float().mean()) > 0.97
 
 
-def test_main_path_on_card_matches_plain_and_launches_kernels(dev):
-    from pnr_tpu_torch.pipeline import reconstruction_func
-
+def small_stack():
     rng = np.random.default_rng(7)
     shape = (24, 64, 96)
     z, y, x = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
     d2 = (y - 32) ** 2 + ((z - 12) * 2.0) ** 2
-    vol = np.clip(
+    return np.clip(
         200.0 * np.exp(-d2 / 18.0) * (0.7 + 0.3 * np.sin(x / 4.0)) + rng.normal(0, 5, shape),
         0, 255,
     ).astype(np.uint8)
+
+
+#: the launch counters each path must raise
+PATH_COUNTERS = {
+    "exact": ((frangi_fused, "LAUNCHES"), (zncc_exact, "LAUNCHES")),
+    "tube": ((frangi_fused, "LAUNCHES"), (gaussian, "LAUNCHES"),
+             (hat_sample, "PATCH_LAUNCHES"), (hat_sample, "FIELD_LAUNCHES")),
+}
+
+
+def test_main_path_on_card_matches_plain_and_launches_kernels(dev):
+    _small_stack_on_card(dev, "exact")
+
+
+def test_tube_path_on_card_matches_plain_and_launches_kernels(dev):
+    _small_stack_on_card(dev, "tube")
+
+
+def _small_stack_on_card(dev, mode):
+    from pnr_tpu_torch.pipeline import reconstruction_func
+
+    vol = small_stack()
     cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2,
-                    ni=60, np=20, zdist=2.0, nodepervol=4, vol=9)
-    k1, k2 = frangi_fused.LAUNCHES, zncc_exact.LAUNCHES
+                    ni=60, np=20, zdist=2.0, nodepervol=4, vol=9, zncc_mode=mode)
+    counters = PATH_COUNTERS[mode]
+    before = [getattr(m, a) for m, a in counters]
     gpu = reconstruction_func(vol, cfg, verbose=False, device="cuda")
-    assert frangi_fused.LAUNCHES > k1 and zncc_exact.LAUNCHES > k2
+    assert all(getattr(m, a) > b for (m, a), b in zip(counters, before))
     cpu = reconstruction_func(vol, cfg, verbose=False, device="cpu")
     sg = {tuple(p) for p in gpu.seeds_pos.astype(int).tolist()}
     sc = {tuple(p) for p in cpu.seeds_pos.astype(int).tolist()}
@@ -108,3 +139,82 @@ def test_main_path_on_card_matches_plain_and_launches_kernels(dev):
     assert len(gpu.tree) > 10
     assert abs(np.median(gpu.tree.y[1:]) - 32) < 2.5
     assert abs(np.median(gpu.tree.y[1:]) - np.median(cpu.tree.y[1:])) < 2.0
+
+
+# tube mode: the map build (pnr_gauss1d), K5 and K6 against their plain
+# versions on the card (bars of chip_smoke.py: sums within 1e-5 of each
+# column's scale, corr max|d| < 1e-4, sigma agreement > 0.99)
+
+TUBE_CASES = {
+    "reuse1": ((24, 64, 96), (2.0, 3.0), 1, False),
+    "reuse3_edges": ((24, 64, 96), (2.0, 3.0), 3, True),
+    "sigmas_2_4_6": ((24, 64, 96), (2.0, 4.0, 6.0), 1, False),
+    "degenerate": ((20, 12, 14), (2.0, 3.0), 1, False),
+}
+
+
+def check_samples(kern, plain):
+    for c in range(3):
+        scale = max(float(plain[..., c].abs().max()), 1.0)
+        assert float((kern[..., c] - plain[..., c]).abs().max()) <= 1e-5 * scale
+
+
+def check_corr(a, b):
+    assert float((a[0] - b[0]).abs().max()) < 1e-4
+    assert float((a[1] == b[1]).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("sigmas", [(2.0, 3.0), (2.0, 4.0, 6.0)])
+def test_map_build_kernel_matches_plain(dev, sigmas):
+    vol = torch.from_numpy(noisy_tube()).to(dev)
+    model = TubeZnccModel(sigmas, False)
+    n = gaussian.LAUNCHES
+    kern = build_tube_maps_packed(vol, model)
+    assert gaussian.LAUNCHES == n + 9 * len(sigmas)
+    check_samples(kern.reshape(*kern.shape[:3], -1, 3), build_tube_maps_packed_plain(
+        vol, model).reshape(*kern.shape[:3], -1, 3))
+
+
+@pytest.mark.parametrize("case", list(TUBE_CASES))
+def test_hat_sample_kernels_match_plain(dev, case):
+    shape, sigmas, reuse, edges = TUBE_CASES[case]
+    model = TubeZnccModel(sigmas, False)
+    field = build_tube_maps_packed(torch.from_numpy(noisy_tube(shape)).to(dev), model)
+    eng = TubePatchEngine(model, STEP, ZDIST, reuse=reuse, device=dev)
+    pos, d = (torch.from_numpy(a).to(dev) for a in tube_queries(shape, edges=edges))
+    t, n = pos.shape[:2]
+    # K5 on the tracer's group windows
+    patches, corners = eng.extract(field, pos.mean(dim=1))
+    vk, vp = [], []
+    for pat, corner, (g0, g1, pdims) in zip(patches, corners, eng.groups(shape)):
+        rel = eng.rel_coords(shape, pdims, corner, pos, d, g0, g1)
+        vk.append(hat_sample.hat_sample_patch(pat, rel)[..., :3])
+        vp.append(hat_sample.hat_sample_patch_plain(pat, rel)[..., :3])
+        check_samples(vk[-1], vp[-1])
+    patch_corr = eng.finish(torch.cat(vk, dim=1), t, n)
+    check_corr(patch_corr, eng.finish(torch.cat(vp, dim=1), t, n))
+    # K6 on one sigma_max window per query, B=1
+    p1, d1 = pos[:, :1].contiguous(), d[:, :1].contiguous()
+    pdims = eng.dims(shape)
+    corner = eng.corners(shape, p1[:, 0], pdims)
+    rel = eng.rel_coords(shape, pdims, corner, p1, d1).reshape(t, -1, 4)
+    m = hat_sample.FIELD_LAUNCHES
+    kern = hat_sample.hat_sample_field(field, corner, rel, pdims)
+    assert hat_sample.FIELD_LAUNCHES == m + 1
+    check_samples(kern, hat_sample.hat_sample_field_plain(field, corner, rel, pdims))
+    # eval_fused (K6) against extract + K5 on the same queries
+    pc, cc = eng.extract(field, p1[:, 0])
+    check_corr(eng.eval_fused(field, p1, d1), eng.corr(shape, pc, cc, p1, d1))
+
+
+def test_hat_sample_kernels_reject_what_they_cannot_take(dev):
+    pat = torch.zeros((1, 1, 1, 4, 12), device=dev)
+    with pytest.raises(ValueError, match=">= 2"):
+        hat_sample.hat_sample_patch(pat, torch.zeros((1, 1, 3, 4), device=dev))
+    maps = torch.zeros((2, 8, 8, 24), device=dev)
+    corner = torch.zeros((1, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        hat_sample.hat_sample_field(maps.to(torch.bfloat16), corner,
+                                    torch.zeros((1, 6, 4), device=dev), (4, 4, 4))
+    with pytest.raises(ValueError, match="bad shapes"):
+        hat_sample.hat_sample_field(maps, corner, torch.zeros((1, 5, 4), device=dev), (4, 4, 4))

@@ -1,10 +1,11 @@
-"""The port's main path as a whole against the JAX package, on the CPU.
+"""The port's pipeline as a whole against the JAX package, on the CPU.
 
 The branching-neuron phantom of tests/test_phantom_neuron.py runs
 through `pnr_tpu.pipeline.reconstruction_func` and through the port's,
-exact mode, same config and keys. The seed sets must agree, the port must
-pass the JAX package's exact-mode quality gate, and the two F1 scores
-are held to each other as a paired difference on the same phantom.
+in exact mode and in tube mode (the phantom gate's own config), same
+config and keys. The seed sets must agree, the port must pass the JAX
+package's quality gate for the mode, and the two F1 scores are held to
+each other as a paired difference on the same phantom.
 """
 
 import dataclasses
@@ -33,19 +34,28 @@ def _score(res, gold, path):
     return compare_swc(read_swc(path), gold, dist=4.0, resample=1.0)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _both(cfg, tmp_path_factory):
     from pnr_tpu.pipeline import reconstruction_func as jax_reconstruction
     from pnr_tpu_torch.pipeline import reconstruction_func as port_reconstruction
 
     vol, gold = phantom.branching_neuron_phantom()
     tmp = tmp_path_factory.mktemp("swc")
-    port = port_reconstruction(vol, CFG, verbose=False, device="cpu")
-    ref = jax_reconstruction(vol, CFG, verbose=False)
+    port = port_reconstruction(vol, cfg, verbose=False, device="cpu")
+    ref = jax_reconstruction(vol, cfg, verbose=False)
     return {
         "port": (port, _score(port, gold, str(tmp / "port.swc"))),
         "jax": (ref, _score(ref, gold, str(tmp / "jax.swc"))),
     }
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return _both(CFG, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def tube_runs(tmp_path_factory):
+    return _both(phantom.CFG, tmp_path_factory)
 
 
 def test_seed_sets_match(runs):
@@ -71,6 +81,42 @@ def test_f1_paired_with_jax(runs):
     )
 
 
+def test_tube_seed_sets_identical(tube_runs):
+    port, ref = tube_runs["port"][0], tube_runs["jax"][0]
+    assert port.zncc_mode == ref.zncc_mode == "tube"
+    sp = {tuple(p) for p in port.seeds_pos.astype(int).tolist()}
+    sj = {tuple(p) for p in ref.seeds_pos.astype(int).tolist()}
+    assert sp == sj and len(sp) > 0
+
+
+def test_tube_port_passes_phantom_gate(tube_runs):
+    """tests/test_phantom_neuron.py's tube-mode gate."""
+    score = tube_runs["port"][1]
+    assert score.f1 > 0.88, score
+    assert score.precision > 0.9, score
+
+
+def test_tube_f1_paired_with_jax(tube_runs):
+    assert abs(tube_runs["port"][1].f1 - tube_runs["jax"][1].f1) <= 0.05, (
+        tube_runs["port"][1], tube_runs["jax"][1],
+    )
+
+
+def test_tube_low_signal_warning(capsys):
+    """At SNR 3.8 the tube likelihood rejects every candidate: the shared
+    diagnostic flags the tube engine, as it does for pnr_tpu."""
+    from pnr_tpu.utils.exporters import low_signal_diagnostic
+    from pnr_tpu_torch.pipeline import reconstruction_func
+
+    vol, _gold, snr = phantom.snr_phantom(40)
+    assert snr < 4.5
+    res = reconstruction_func(vol, phantom.CFG, verbose=False, device="cpu")
+    warn = low_signal_diagnostic(res)
+    assert warn is not None and warn["engine"] == "tube"
+    assert warn["raw_maxima"] > 0 and warn["committed_nodes"] == 0
+    assert "WARNING low-signal" in capsys.readouterr().err
+
+
 def test_non_blurring_matches_jax():
     from pnr_tpu.graph.refine import non_blurring as jax_non_blurring
 
@@ -84,7 +130,7 @@ def test_non_blurring_matches_jax():
         np.testing.assert_allclose(getattr(got, axis), getattr(want, axis), atol=1e-4)
 
 
-def test_cli_round_trip(tmp_path):
+def _cli_round_trip(tmp_path, mode):
     vol = phantom.branching_neuron_phantom()[0]
     src = tmp_path / "stack.npy"
     np.save(src, vol)
@@ -94,11 +140,12 @@ def test_cli_round_trip(tmp_path):
         [
             sys.executable, "-m", "pnr_tpu_torch", "-i", str(src),
             "-p", "2,3", "0", "10", "0.5", "2", "2", "20", "16", "2", "4", "9",
-            "-o", str(out), "--metrics", str(metrics), "--quiet", "--device", "cpu",
+            "-o", str(out), "--metrics", str(metrics), "--device", "cpu", "--zncc-mode", mode,
         ],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
+    assert f"zncc_mode = {mode}" in proc.stdout
     swc = read_swc(str(out))
     assert len(swc) > 10
     assert abs(np.median(swc[:, 3]) - 36) < 8  # the phantom's trunk row
@@ -106,9 +153,15 @@ def test_cli_round_trip(tmp_path):
     assert entry["tree_nodes"] == len(swc)
 
 
-@pytest.mark.parametrize(
-    "flag", ["--watch", "--checkpoint=c.npz", "--save-midres", "--mesh=2", "--zncc-mode=tube"]
-)
+def test_cli_round_trip(tmp_path):
+    _cli_round_trip(tmp_path, "exact")
+
+
+def test_cli_tube_round_trip(tmp_path):
+    _cli_round_trip(tmp_path, "tube")
+
+
+@pytest.mark.parametrize("flag", ["--watch", "--checkpoint=c.npz", "--save-midres", "--mesh=2"])
 def test_cli_unported_options_exit_nonzero(flag, capsys):
     rc = cli.main(["-i", "x.npy", "-p", *["1"] * 11, flag, "--device", "cpu"])
     assert rc != 0

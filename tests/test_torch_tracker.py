@@ -1,12 +1,14 @@
 """The port's tracer (pnr_tpu_torch/smc/tracker.py) against the JAX
-`BatchedTracker` in exact mode: identical tables, bitwise identical
-random streams, and the same early particle paths from the same keys."""
+`BatchedTracker` in exact and tube mode: identical tables, bitwise
+identical random streams, and the same early particle paths from the same
+keys."""
 
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pnr_tpu.config import PNRConfig
@@ -112,3 +114,56 @@ def test_trace_init_and_stage_track_jax():
     for col in (6, 8):  # [pos(3), dir(3), sig, corr, valid]
         assert np.array_equal(est0[:, col], est0_j[:, col])
         assert np.array_equal(packed[..., col], packed_j[..., col])
+
+
+@pytest.mark.parametrize("reuse", [1, 2])
+def test_tube_trace_init_and_stage_track_jax(reuse):
+    """Tube mode on the JAX tracer's own field (the port's engine, not its
+    map build, is under test), with the same keys: all packed columns of
+    iteration 0 and of a 7-iteration stage within 1e-3 (measured ~1e-5),
+    sig and valid equal. At patch_reuse 2 the stage's reuse groups must
+    match JAX's for this to hold."""
+    from pnr_tpu_torch.ops.zncc_fast import field_from_numpy
+
+    cfg = dataclasses.replace(CFG, zncc_mode="tube", patch_reuse=reuse)
+    vol = tube_volume()
+    sp = np.array([[10.0, 24.0, 8.0], [30.0, 24.0, 8.0], [50.0, 20.0, 5.0]], np.float32)
+    sd = np.array([[1.0, 0, 0], [-1.0, 0, 0], [0.6, 0.8, 0]], np.float32)
+    keys = trace_keys(tf.key_from_seed(0), [0, 1, 2])
+
+    jt = JaxTracker(cfg, False)
+    f = jt.prepare_field(jnp.asarray(vol))
+    keys_j = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(0), i))(
+        jnp.arange(3, dtype=jnp.uint32)
+    )
+    carry_j, est0_j = jt._trace_init(f, jnp.asarray(sp), jnp.asarray(sd), keys_j)
+    _, packed_j = jt._trace_stage(f, keys_j, carry_j, jnp.arange(1, 8), jnp.zeros(3, jnp.bool_))
+
+    port = BatchedTracker(cfg, "cpu")
+    assert port.STAGE_ITERS == jt.STAGE_ITERS == 16
+    field = field_from_numpy(np.asarray(f), "cpu")
+    carry, est0 = port.trace_init(field, sp, sd, keys)
+    _, packed = port.trace_stage(field, keys, carry, 1, 7, torch.zeros(3, dtype=torch.bool))
+    est0, packed = est0.numpy(), packed.numpy()
+    est0_j, packed_j = np.asarray(est0_j), np.asarray(packed_j)
+
+    assert packed.shape == (3, 7, 9) and packed[..., 8].any()
+    np.testing.assert_allclose(est0, est0_j, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(packed, packed_j, rtol=0, atol=1e-3)
+    for col in (6, 8):  # [pos(3), dir(3), sig, corr, valid]
+        assert np.array_equal(est0[:, col], est0_j[:, col])
+        assert np.array_equal(packed[..., col], packed_j[..., col])
+
+
+def test_tube_field_routing_follows_jax():
+    """prepare_field: bf16 when forced, float32 (monolithic) otherwise at
+    this size; the true volume dims come from the packed field."""
+    vol = torch.from_numpy(tube_volume())
+    for dt, want in (("auto", torch.float32), ("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tracker = BatchedTracker(dataclasses.replace(CFG, zncc_mode="tube", tube_map_dtype=dt), "cpu")
+        field = tracker.prepare_field(vol)
+        assert field.dtype == want
+        assert tuple(field.shape) == (2, 16, 48, 3 * 64)
+        assert tracker.vol_dims(field) == (16, 48, 64)
+    exact = BatchedTracker(CFG, "cpu")
+    assert exact.prepare_field(vol) is vol and exact.STAGE_ITERS == 8
