@@ -7,46 +7,63 @@ Run from the root of a checkout on a machine with a CUDA device and nvcc.
 Phases, each of which exits non-zero on failure:
 
 1. device: a CUDA device is present; prints the card's name and power limit;
-2. build: compiles pnr_tpu_torch/csrc/*.cu and launches each kernel once
-   (K1, K2, the map build's 1-D correlation, K5, K6) at a tiny shape;
+2. build: compiles pnr_tpu_torch/csrc/*.cu, runs K7's check
+   (`ops.cuda.self_check`: pnr_probe doubles an (8, 128) block) and
+   launches each kernel once (K1, K2, K3, K4, the map build's 1-D
+   correlation, K5, K6) at a tiny shape;
 3. K1 (frangi3d_fused) against its plain PyTorch version on the card:
    clean and noisy tube volumes (64, 256, 256) and the main path's
    (128, 640, 640) stack at sigmas (2, 4, 6), then both timed (CUDA
    events, warm-up, median of 5) on that stack;
-4. K2 (exact_sums) against its plain version at sigmas (2, 4, 6), step 2:
+4. K3 (conv1d_axis) and K4 (conv_yx) against their plain versions on the
+   main stack, as float32 and as uint8, along each axis, with the taps of
+   the unfused filter: max|kernel - plain| / max|plain| < 1e-5; both timed
+   with their plain versions and a cuDNN conv3d (TF32 off);
+5. unfused: `frangi3d` on the card (K4, K3) against `frangi3d_plain` at
+   K1's bars on the tube volumes and the main stack, timed next to K1, with
+   the peak device bytes per voxel of K1, the unfused and the tiled route;
+   tiled: `frangi3d_tiled` at (32, 160) and (48, 200) and
+   `frangi3d_blocked` at 32 bitwise the monolithic `frangi3d`;
+6. K2 (exact_sums) against its plain version at sigmas (2, 4, 6), step 2:
    on a (64, 256, 256) tube volume a 128-seed wave (T=256 traces x B=20
    particles) and B=1 seed scoring, on the main path's stack one tracer
    chunk (T=128, B=20) and 173-seed scoring (B=1), with queries along the
    tube axis; both versions timed at T=256, B=20;
-5. tube map build on the main path's stack at sigmas (2, 4, 6): the
+7. tube map build on the main path's stack at sigmas (2, 4, 6): the
    packed field through `pnr_gauss1d` against the plain shift-and-add
    (per channel max|d| / max(|plain|, 1) < 1e-5), both timed;
-6. K5 (hat_sample_patch) against its plain version on that field: one
+8. K5 (hat_sample_patch) against its plain version on that field: one
    tracer chunk (T=128, N=20) with queries around the tube axis, a quarter
    anywhere; K6 (hat_sample_field) against its plain version and against
    the extract + K5 route on 173 B=1 seeds along the axis and T=512 B=1
    anywhere. Bars: samples within 1e-5 of each column's scale, corr
-   max|d| < 1e-4, sigma agreement > 0.99; K5 and K6 timed;
-7. bf16 field: a forced bfloat16 field on a (64, 256, 256) noisy tube
+   max|d| < 1e-4, sigma agreement > 0.99; K5 and K6 timed, with
+   `grid_sample` on the same windows as the library yardstick;
+9. bf16 field: a forced bfloat16 field on a (64, 256, 256) noisy tube
    against the float32 field: corr max error < 8e-3, sigma flips < 3%;
-8. main paths: the 52.4-Mvox (128, 640, 640) stack of bench.py's
+10. main paths: the 52.4-Mvox (128, 640, 640) stack of bench.py's
    make_volume through the port's CLI in-process with
    `-p 2,4,6 0 10 0.5 3 2 100 20 2 4 9 --device cuda`, twice in exact mode
-   and twice with `--zncc-mode tube`. Each SWC must lie on the tube axis,
-   and the kernels of each path must have been launched by its first run
-   (launch counts set to 0 just before it and read just after);
-9. profile: one more run of each path under torch.profiler; prints the
+   and twice with `--zncc-mode tube`, and through `reconstruction_func`
+   twice with `fused_frangi=False` (the unfused filter on K4 and K3), then
+   once more with the unfused cap lowered so the tiled engine runs (its J8
+   and seeds must be the monolithic run's). Each SWC must lie on the tube
+   axis, and the kernels of each path must have been launched by its first
+   run (launch counts set to 0 just before it and read just after);
+11. profile: one more run of each path under torch.profiler; prints the
    card's busy time, its idle share, each kernel's device time and the
    host's kernel-launch calls;
-10. both paths on a small stack on the card and on the CPU (plain
-   versions) must agree.
+12. the exact and tube paths on a small stack on the card and on the CPU
+   (plain versions) must agree; no module of jax or of pnr_tpu was loaded.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object describing each kernel (its
+launches on its path, error, times, bound and library time); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -65,6 +82,21 @@ MAIN_SHAPE = (128, 640, 640)
 MAIN_PARAMS = ["2,4,6", "0", "10", "0.5", "3", "2", "100", "20", "2", "4", "9"]
 #: the device every phase runs on (the kernels need a CUDA device)
 DEVICE = "cuda"
+#: the card's published peaks (H100 SXM, NVIDIA's data sheet): device
+#: memory bytes/s and float32 FLOP/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+#: FLOP-equivalents per voxel and sigma of the eigensolve, vesselness and
+#: merge (~150 arithmetic FLOPs plus acos, two cos, five sqrt, three exp
+#: and a dozen divisions at ~8 each)
+EIG_FLOPS = 250
+#: FLOPs of one K2 template sample: its patch coordinate (8 fused
+#: multiply-adds, clamps, floors), the trilinear sample (7 lerps) and the
+#: three sums
+K2_SAMPLE_FLOPS = 60
+#: FLOPs of one K5/K6 row: six hat weights, four z-y weight products, 24
+#: fused multiply-adds and the x contraction of three channels
+HAT_ROW_FLOPS = 85
 
 
 def check(cond, msg):
@@ -108,6 +140,26 @@ def time_ms(torch, fn, reps=5):
     return statistics.median(times)
 
 
+def bound(nbytes, flops):
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the FLOPs over the float32 rate, and which of
+    the two sets it."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = flops / PEAK_F32_FLOP_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def frangi_flops(n, sigmas, zdist):
+    """FLOPs of the multi-scale Frangi on n voxels: 2 per Gaussian tap
+    (x, y and z passes), 2 per difference pass (9 per sigma), EIG_FLOPS."""
+    from pnr_tpu_torch.ops.gaussian import gaussian_kernel
+
+    per = sum(2 * (2 * len(gaussian_kernel(s)) + len(gaussian_kernel(s / zdist))) + 9 * 2
+              + EIG_FLOPS for s in sigmas)
+    return n * per
+
+
 def phase_device(torch):
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -123,8 +175,12 @@ def phase_device(torch):
 
 
 def phase_build(torch):
-    from pnr_tpu_torch.ops import cuda
+    """Build the kernels, run K7's check, launch every kernel once at a tiny
+    shape; returns K7's launches (its path is this phase: the pipeline
+    routes by the tensor's device and never probes)."""
+    from pnr_tpu_torch.ops import conv, cuda
     from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
+    from pnr_tpu_torch.ops.gaussian import gaussian_kernel
     from pnr_tpu_torch.ops.zncc_exact import ExactPatchEngine, ZnccTemplates
     from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine, TubeZnccModel, build_tube_maps_packed
 
@@ -133,8 +189,14 @@ def phase_build(torch):
     cuda.library()
     print(f"[build] {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.3f} s", flush=True)
     dev = torch.device(DEVICE)
+    cuda.PROBE_LAUNCHES = 0
+    cuda.self_check(dev)
+    probe_launches = cuda.PROBE_LAUNCHES
+    print("[build] K7's check: pnr_probe doubled an (8, 128) block, every value 2.0", flush=True)
     vol = torch.from_numpy(tube((8, 24, 24), noise=20)).to(dev)
     frangi3d_fused(vol, (2.0,), ZDIST)
+    conv.conv1d_axis(vol, (-0.5, 0.0, 0.5), 0, grad_border=True)  # K3
+    conv.conv_yx(vol, gaussian_kernel(2.0), gaussian_kernel(2.0))  # K4
     eng = ExactPatchEngine(ZnccTemplates((2.0,), False), 2, dev)
     pos = torch.tensor([[[12.0, 12.0, 4.0]]], device=dev)
     dirs = torch.tensor([[[1.0, 0.0, 0.0]]], device=dev)
@@ -145,7 +207,14 @@ def phase_build(torch):
     teng.eval_fused(field, pos, dirs)  # K6
     teng.corr(tuple(vol.shape), *teng.extract(field, pos[:, 0]), pos, dirs)  # K5
     torch.cuda.synchronize()
-    print("[build] K1, K2, the map build, K5 and K6 launched at a tiny shape", flush=True)
+    print("[build] K1, K2, K3, K4, the map build, K5 and K6 launched at a tiny shape", flush=True)
+    x = torch.from_numpy(np.random.default_rng(1).random((8, 128), np.float32)).to(dev)
+    k7 = {"max_abs_err": float((cuda.probe(x) - cuda.probe_plain(x)).abs().max()),
+          "ms": time_ms(torch, lambda: cuda.probe(x)),
+          "plain_ms": time_ms(torch, lambda: cuda.probe_plain(x)),
+          "library_ms": time_ms(torch, lambda: torch.mul(x, 2.0)),
+          **bound(2 * x.numel() * 4, x.numel())}
+    return probe_launches, k7
 
 
 def dirs_aligned(torch, j_ref, jmax, va, vb):
@@ -160,14 +229,15 @@ def dirs_aligned(torch, j_ref, jmax, va, vb):
     return float(dot.median()), float((dot > 0.9).float().mean())
 
 
-def k1_compare(torch, label, vol):
-    """K1 against the plain chain on the card; returns the numbers and the
-    J8 difference."""
-    from pnr_tpu_torch.ops.frangi import frangi3d, normalize_to_u8
+def k1_compare(torch, label, vol, tag="K1"):
+    """K1 (or, with tag "unfused", the unfused `frangi3d` on K4 and K3)
+    against the plain chain on the card; returns the numbers and the J8
+    difference."""
+    from pnr_tpu_torch.ops.frangi import frangi3d, frangi3d_plain, normalize_to_u8
     from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
 
-    k = frangi3d_fused(vol, SIGMAS, ZDIST)
-    p = frangi3d(vol, SIGMAS, ZDIST)
+    k = (frangi3d_fused if tag == "K1" else frangi3d)(vol, SIGMAS, ZDIST)
+    p = frangi3d_plain(vol, SIGMAS, ZDIST)
     scale = max(float(p[2]), 1e-12)
     max_abs = float((k[0] - p[0]).abs().max())
     r = {
@@ -179,42 +249,189 @@ def k1_compare(torch, label, vol):
     r["med"], r["frac"] = dirs_aligned(torch, p[0], p[2], p[3:], k[3:])
     d8 = (normalize_to_u8(*k[:3]).int() - normalize_to_u8(*p[:3]).int()).abs()
     r["j8_max"], r["j8_mis"] = int(d8.max()), float((d8 > 0).float().mean())
-    print(f"[K1] {label} {tuple(vol.shape)}: max|dJ| {max_abs:.3e}, max|dJ|/Jmax "
+    print(f"[{tag}] {label} {tuple(vol.shape)}: max|dJ| {max_abs:.3e}, max|dJ|/Jmax "
           f"{r['rel']:.3e}, Jmin {float(k[1]):.6g} vs {float(p[1]):.6g}, Jmax "
           f"{float(k[2]):.6g} vs {float(p[2]):.6g}, J8 max diff {r['j8_max']} mismatch "
           f"{r['j8_mis']:.3e}, dir median {r['med']:.5f} frac {r['frac']:.5f}", flush=True)
     return r
 
 
-def phase_k1(torch, card, main_vol):
-    from pnr_tpu_torch.ops.frangi import frangi3d
-    from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
-
+def frangi_bars(torch, main_vol, tag):
+    """K1's bars, for K1 or the unfused filter, on the tube volumes and the
+    main stack; returns the main stack's max|dJ|."""
     dev = torch.device(DEVICE)
-    r = k1_compare(torch, "clean tube", torch.from_numpy(tube((64, 256, 256))).to(dev))
-    check(r["rel"] < 1e-4, "K1 clean tube max|dJ|/Jmax < 1e-4")
-    check(r["jmin"] < 1e-4 and r["jmax"] < 1e-4, "K1 clean tube Jmin and Jmax")
-    check(r["med"] > 0.99 and r["frac"] == 1.0, "K1 clean tube directions")
+    r = k1_compare(torch, "clean tube", torch.from_numpy(tube((64, 256, 256))).to(dev), tag)
+    check(r["rel"] < 1e-4, f"{tag} clean tube max|dJ|/Jmax < 1e-4")
+    check(r["jmin"] < 1e-4 and r["jmax"] < 1e-4, f"{tag} clean tube Jmin and Jmax")
+    check(r["med"] > 0.99 and r["frac"] == 1.0, f"{tag} clean tube directions")
 
-    r = k1_compare(torch, "noisy tube", torch.from_numpy(tube((64, 256, 256), noise=40)).to(dev))
-    check(r["j8_max"] <= 8 and r["j8_mis"] < 0.01, "K1 noisy tube J8 bars")
-    check(r["med"] > 0.99 and r["frac"] > 0.95, "K1 noisy tube directions")
+    r = k1_compare(torch, "noisy tube", torch.from_numpy(tube((64, 256, 256), noise=40)).to(dev),
+                   tag)
+    check(r["j8_max"] <= 8 and r["j8_mis"] < 0.01, f"{tag} noisy tube J8 bars")
+    check(r["med"] > 0.99 and r["frac"] > 0.95, f"{tag} noisy tube directions")
 
     # the main path's stack: the J bars of the clean tube, and (make_volume
     # carries Gaussian noise) the J8 and direction bars of the noisy one
-    r = k1_compare(torch, "main stack", main_vol)
-    check(r["rel"] < 1e-4, "K1 main stack max|dJ|/Jmax < 1e-4")
-    check(r["jmin"] < 1e-4 and r["jmax"] < 1e-4, "K1 main stack Jmin and Jmax")
-    check(r["j8_max"] <= 8 and r["j8_mis"] < 0.01, "K1 main stack J8 bars")
-    check(r["med"] > 0.99 and r["frac"] > 0.95, "K1 main stack directions")
-    max_abs = r["max_abs"]
+    r = k1_compare(torch, "main stack", main_vol, tag)
+    check(r["rel"] < 1e-4, f"{tag} main stack max|dJ|/Jmax < 1e-4")
+    check(r["jmin"] < 1e-4 and r["jmax"] < 1e-4, f"{tag} main stack Jmin and Jmax")
+    check(r["j8_max"] <= 8 and r["j8_mis"] < 0.01, f"{tag} main stack J8 bars")
+    check(r["med"] > 0.99 and r["frac"] > 0.95, f"{tag} main stack directions")
+    return r["max_abs"]
 
+
+def phase_k1(torch, card, main_vol):
+    from pnr_tpu_torch.ops.frangi import frangi3d_plain
+    from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
+
+    max_abs = frangi_bars(torch, main_vol, "K1")
     ms = time_ms(torch, lambda: frangi3d_fused(main_vol, SIGMAS, ZDIST))
-    plain_ms = time_ms(torch, lambda: frangi3d(main_vol, SIGMAS, ZDIST))
+    plain_ms = time_ms(torch, lambda: frangi3d_plain(main_vol, SIGMAS, ZDIST))
     mvox = main_vol.numel() / 1e6
     print(f"[K1] {MAIN_SHAPE} sigmas {SIGMAS}: kernel {ms:.3f} ms ({mvox / ms * 1e3:.1f} Mvox/s), "
           f"plain {plain_ms:.3f} ms [{card}]", flush=True)
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    n = main_vol.numel()
+    # u8 in; f32 J and three u8 directions out
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **bound(n * (1 + 4 + 3), frangi_flops(n, SIGMAS, ZDIST))}
+
+
+def conv_err(k, p):
+    return float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+
+
+def phase_k3_k4(torch, card, main_vol):
+    """K3 and K4 against their plain versions on the main stack, as f32
+    and as u8, with the unfused filter's taps; timed with their plain
+    versions and a cuDNN conv3d of the replicate-padded volume."""
+    import torch.nn.functional as F
+
+    from pnr_tpu_torch.ops import conv
+    from pnr_tpu_torch.ops.gaussian import gaussian_kernel
+
+    torch.backends.cudnn.allow_tf32 = False
+    vol_f = main_vol.to(torch.float32)
+    n = main_vol.numel()
+    s2 = SIGMAS[-1] ** 2
+    taps = {"gauss6 (37)": (gaussian_kernel(SIGMAS[-1]), False),
+            "z gauss6/2 (19)": (gaussian_kernel(SIGMAS[-1] / ZDIST), False),
+            "g1": ((-0.5, 0.0, 0.5), True),
+            "g2 (sigma 6)": ((-0.5 * s2, 0.0, 0.5 * s2), True)}
+    worst3 = 0.0
+    for name, (k, grad) in taps.items():
+        for dt, v in (("f32", vol_f), ("u8", main_vol)):
+            errs = [conv_err(conv.conv1d_axis(v, k, a, grad), conv.conv1d_axis_plain(v, k, a, grad))
+                    for a in (0, 1, 2)]
+            kms = [time_ms(torch, lambda a=a: conv.conv1d_axis(v, k, a, grad)) for a in (0, 1, 2)]
+            print(f"[K3] {name} {dt}: max|d|/max|plain| along z, y, x "
+                  f"{', '.join(f'{e:.3e}' for e in errs)}; kernel ms "
+                  f"{', '.join(f'{m:.4f}' for m in kms)} [{card}]", flush=True)
+            check(max(errs) < 1e-5, f"K3 {name} {dt}: within 1e-5 of max|plain|")
+            worst3 = max(worst3, max(errs))
+    # the timed case: the main path's z Gaussian pass at sigma 6 on f32
+    kz = gaussian_kernel(SIGMAS[-1] / ZDIST)
+    hz = len(kz) // 2
+    wz = torch.from_numpy(kz).to(main_vol.device).view(1, 1, -1, 1, 1)
+
+    def lib3():
+        return F.conv3d(F.pad(vol_f[None, None], (0, 0, 0, 0, hz, hz), mode="replicate"), wz)
+
+    lerr = conv_err(lib3()[0, 0], conv.conv1d_axis_plain(vol_f, kz, 0))
+    k3 = {"max_abs_err": worst3,
+          "ms": time_ms(torch, lambda: conv.conv1d_axis(vol_f, kz, 0)),
+          "plain_ms": time_ms(torch, lambda: conv.conv1d_axis_plain(vol_f, kz, 0)),
+          "library_ms": time_ms(torch, lib3),
+          **bound(n * 8, n * 2 * len(kz))}
+    print(f"[K3] z pass, {len(kz)} taps, f32 {MAIN_SHAPE}: kernel {k3['ms']:.4f} ms, plain "
+          f"{k3['plain_ms']:.3f} ms, conv3d (pad + conv, TF32 off; max|d|/max|plain| "
+          f"{lerr:.3e}) {k3['library_ms']:.3f} ms, bound {k3['bound_ms']:.4f} ms "
+          f"({k3['bound_by']}) [{card}]", flush=True)
+
+    kxy = gaussian_kernel(SIGMAS[-1])
+    worst4 = 0.0
+    for dt, v in (("u8", main_vol), ("f32", vol_f)):
+        e = conv_err(conv.conv_yx(v, kxy, kxy), conv.conv_yx_plain(v, kxy, kxy))
+        print(f"[K4] sigma 6 ({len(kxy)} + {len(kxy)} taps) {dt}: max|d|/max|plain| {e:.3e}",
+              flush=True)
+        check(e < 1e-5, f"K4 {dt}: within 1e-5 of max|plain|")
+        worst4 = max(worst4, e)
+    h = len(kxy) // 2
+    w2 = torch.from_numpy(np.outer(kxy, kxy).astype(np.float32)).to(main_vol.device)[None, None, None]
+
+    def lib4():
+        return F.conv3d(F.pad(vol_f[None, None], (h, h, h, h, 0, 0), mode="replicate"), w2)
+
+    lerr = conv_err(lib4()[0, 0], conv.conv_yx_plain(main_vol, kxy, kxy))
+    k4 = {"max_abs_err": worst4,
+          "ms": time_ms(torch, lambda: conv.conv_yx(main_vol, kxy, kxy)),
+          "plain_ms": time_ms(torch, lambda: conv.conv_yx_plain(main_vol, kxy, kxy)),
+          "library_ms": time_ms(torch, lib4),
+          **bound(n * (1 + 4), n * 2 * 2 * len(kxy))}
+    print(f"[K4] sigma 6, u8 {MAIN_SHAPE}: kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.3f} ms, "
+          f"conv3d of the f32 stack ({len(kxy)}x{len(kxy)} outer-product weight, TF32 off; "
+          f"max|d|/max|plain| {lerr:.3e}) {k4['library_ms']:.3f} ms, bound {k4['bound_ms']:.4f} ms "
+          f"({k4['bound_by']}) [{card}]", flush=True)
+    return k3, k4
+
+
+def peak_bytes_per_voxel(torch, fn, n):
+    """Peak device bytes per voxel that `fn` allocates above what is
+    resident when it starts."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / n
+
+
+def phase_unfused(torch, card, main_vol):
+    """The unfused filter on the card against the plain chain at K1's bars,
+    timed next to K1; each route's peak memory; the tiled engines bitwise
+    the monolithic filter on the main stack."""
+    from pnr_tpu_torch.ops.frangi import frangi3d
+    from pnr_tpu_torch.ops.frangi_blocked import frangi3d_blocked, frangi3d_tiled, pick_blocks
+    from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
+
+    frangi_bars(torch, main_vol, "unfused")
+    ms = time_ms(torch, lambda: frangi3d(main_vol, SIGMAS, ZDIST))
+    k1_ms = time_ms(torch, lambda: frangi3d_fused(main_vol, SIGMAS, ZDIST))
+    print(f"[unfused] {MAIN_SHAPE} sigmas {SIGMAS}: frangi3d (K4, K3) {ms:.3f} ms, K1 {k1_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    n = main_vol.numel()
+    blocks = pick_blocks(MAIN_SHAPE, SIGMAS, ZDIST)
+    peaks = {
+        "K1": peak_bytes_per_voxel(torch, lambda: frangi3d_fused(main_vol, SIGMAS, ZDIST), n),
+        "unfused": peak_bytes_per_voxel(torch, lambda: frangi3d(main_vol, SIGMAS, ZDIST), n),
+        f"tiled {blocks}": peak_bytes_per_voxel(
+            torch, lambda: frangi3d_tiled(main_vol, SIGMAS, ZDIST, block_z=blocks[0],
+                                          block_y=blocks[1]), n),
+    }
+    print(f"[unfused] peak device bytes per voxel above the resident u8 stack: "
+          f"{json.dumps({k: round(v, 3) for k, v in peaks.items()})} [{card}]", flush=True)
+
+    mono = frangi3d(main_vol, SIGMAS, ZDIST)
+    for label, fn in (
+        ("tiled (32, 160)", lambda: frangi3d_tiled(main_vol, SIGMAS, ZDIST, block_z=32, block_y=160)),
+        ("tiled (48, 200)", lambda: frangi3d_tiled(main_vol, SIGMAS, ZDIST, block_z=48, block_y=200)),
+        ("blocked 32", lambda: frangi3d_blocked(main_vol, SIGMAS, ZDIST, block_z=32)),
+    ):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        same = [bool(torch.equal(got[i], mono[i])) for i in (0, 3, 4, 5)]
+        jmin_eq = float(got[1]) == float(mono[1])
+        jmax_rel = abs(float(got[2]) - float(mono[2])) / max(abs(float(mono[2])), 1e-30)
+        print(f"[tiled] {label}: J, Vx, Vy, Vz bitwise {same}, Jmin bitwise {jmin_eq}, Jmax rel "
+              f"{jmax_rel:.3e}; {dt * 1e3:.3f} ms [{card}]", flush=True)
+        check(all(same) and jmin_eq and jmax_rel <= 1e-6,
+              f"{label}: bitwise the monolithic frangi3d (Jmax within rtol 1e-6)")
+    return {"unfused_ms": ms, "k1_ms": k1_ms, "peaks": peaks}
 
 
 def k2_queries(rng, shape, t, b, axis_sd):
@@ -271,14 +488,21 @@ def phase_k2(torch, card, main_vol):
         check(cerr < 3e-4 and agree > 0.97,
               f"K2 {label} T={t} B={b}: corr atol 3e-4 and sigma agreement > 97%")
         if timing is None:
+            # the u8 windows the queries need (at most the volume), the
+            # query rows, the templates and the sums; K2_SAMPLE_FLOPS per
+            # template sample
+            nbytes = (min(t * dims[0] * dims[1] * dims[2], vol.numel()) + qs.numel() * 4
+                      + corner.numel() * 4 + eng.tables.tab.numel() * 4 + sk.numel() * 4)
+            samples = t * b * int(eng.tables.cnt.sum())
             timing = (
                 time_ms(torch, lambda: exact_sums(vol, corner, qs, eng.tables, dims)),
                 time_ms(torch, lambda: exact_sums_plain(vol, corner, qs, eng.tables, dims)),
+                bound(nbytes, samples * K2_SAMPLE_FLOPS),
             )
-    ms, plain_ms = timing
-    print(f"[K2] tube T=256 B=20 sigmas {SIGMAS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"[{card}]", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    ms, plain_ms, b = timing
+    print(f"[K2] tube T=256 B=20 sigmas {SIGMAS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
 
 
 def tube_queries(rng, shape, t, b, axis_sd, anywhere=0.25):
@@ -290,6 +514,21 @@ def tube_queries(rng, shape, t, b, axis_sd, anywhere=0.25):
                       rng.uniform(0, l - 1, t)], -1) - pos.mean(axis=1)
     pos[move] += shift[move][:, None, :].astype(np.float32)
     return pos, d
+
+
+def hat_touched_bytes(torch, rel, origin, pdims, zpitch, ypitch):
+    """Distinct float32 bytes that K5/K6 rows read: per row (rz, ry, rx, _)
+    the two z and two y taps' runs of six floats (two x taps, three
+    channels) from the row's window origin `origin` (element offsets, one
+    per row), with the kernels' tap clamping."""
+    r = rel.reshape(-1, 4)
+    taps = [torch.clamp(torch.floor(r[:, i]).long(), 0, pdims[i] - 2) for i in range(3)]
+    start = origin.reshape(-1) + taps[0] * zpitch + taps[1] * ypitch + 3 * taps[2]
+    dev = rel.device
+    offs = (torch.arange(2, device=dev)[:, None, None] * zpitch
+            + torch.arange(2, device=dev)[None, :, None] * ypitch
+            + torch.arange(6, device=dev)[None, None, :]).reshape(-1)
+    return int(torch.unique(start[:, None] + offs[None, :]).numel()) * 4
 
 
 def col_errs(k, p):
@@ -356,12 +595,45 @@ def phase_k5_k6(torch, card, field):
     check(max(errs) < 1e-5, "K5: samples within 1e-5 of each column's scale")
     worst5 = corr_check("K5", eng.finish(torch.cat([v[..., :3] for v in vk], 1), t, n),
                         eng.finish(torch.cat([v[..., :3] for v in vp], 1), t, n))
+    # the library yardstick: grid_sample (5-D, trilinear, align_corners)
+    # on the same windows, one call per group
+    import torch.nn.functional as F
+
+    def window_grid(r, p3):
+        """(..., 4) zyx window coordinates -> grid_sample's (x, y, z) in [-1, 1]."""
+        return torch.stack([r[..., 2 - i] / (p3[2 - i] - 1) * 2.0 - 1.0 for i in range(3)], -1)
+
+    lib_in = []
+    for p, r in zip(patches, rels):
+        tt, gs, pz, py, px3 = p.shape
+        inp = p.view(tt * gs, pz, py, px3 // 3, 3).permute(0, 4, 1, 2, 3)
+        lib_in.append((inp, window_grid(r, (pz, py, px3 // 3)).view(tt * gs, 1, 1, -1, 3)))
+
+    def lib5():
+        return [F.grid_sample(i, g, mode="bilinear", padding_mode="border", align_corners=True)
+                for i, g in lib_in]
+
+    lerr = max(max(col_errs(o.view(v.shape[0], v.shape[1], 3, -1).transpose(2, 3), v[..., :3]))
+               for o, v in zip(lib5(), vp))
+    print(f"[K5] grid_sample on the same windows: max|d|/max(|plain|,1) {lerr:.3e}", flush=True)
+    check(lerr < 1e-3, "grid_sample samples the windows as the plain version does")
+    # the patch floats the rows touch, the rows in and the samples out
+    k5_bytes = 0
+    for p, r in zip(patches, rels):
+        tt, gs, pz, py, px3 = p.shape
+        origin = (torch.arange(tt * gs, device=dev) * (pz * py * px3))[:, None].expand(
+            -1, r.shape[2])
+        k5_bytes += (hat_touched_bytes(torch, r, origin, (pz, py, px3 // 3), py * px3, px3)
+                     + 2 * r.numel() * 4)
     k5 = {"max_abs_err": worst5,
           "ms": time_ms(torch, lambda: [hs.hat_sample_patch(p, r) for p, r in zip(patches, rels)]),
           "plain_ms": time_ms(torch, lambda: [hs.hat_sample_patch_plain(p, r)
-                                              for p, r in zip(patches, rels)])}
+                                              for p, r in zip(patches, rels)]),
+          "library_ms": time_ms(torch, lib5),
+          **bound(k5_bytes, sum(r.numel() // 4 for r in rels) * HAT_ROW_FLOPS)}
     print(f"[K5] T=128 N=20, the three group launches of one iteration: kernel {k5['ms']:.3f} ms, "
-          f"plain {k5['plain_ms']:.3f} ms [{card}]", flush=True)
+          f"plain {k5['plain_ms']:.3f} ms, grid_sample {k5['library_ms']:.3f} ms, bound "
+          f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}) [{card}]", flush=True)
 
     # K6: B=1 seed scoring, along the axis and anywhere
     worst6, timing = 0.0, None
@@ -385,12 +657,39 @@ def phase_k5_k6(torch, card, field):
         pc, cc = eng.extract(field, pos[:, 0])
         corr_check(f"K6 {label} vs extract + K5", eng.eval_fused(field, pos, d),
                    eng.corr(dims, pc, cc, pos, d))
+        # grid_sample over the whole field, one batch entry per sigma, at
+        # each row's global coordinate corner + rel
+        s_, z_, y_, x3_ = field.shape
+        fin = field.view(s_, z_, y_, x3_ // 3, 3).permute(0, 4, 1, 2, 3)
+        glob = rel.reshape(t, s_, m, 4)[..., :3] + corner.view(t, 1, 1, 3).to(torch.float32)
+        grid = window_grid(glob, (z_, y_, x3_ // 3)).permute(1, 0, 2, 3).reshape(s_, 1, 1, -1, 3)
+
+        def lib6():
+            return F.grid_sample(fin, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+
+        want = plain.view(t, s_, m, 4)[..., :3].permute(1, 0, 2, 3).reshape(s_, -1, 3)
+        lerr = max(col_errs(lib6().view(s_, 3, -1).transpose(1, 2), want))
+        print(f"[K6] {label}: grid_sample on the field max|d|/max(|plain|,1) {lerr:.3e}", flush=True)
+        check(lerr < 1e-3, "grid_sample samples the field as the plain version does")
+        # the field floats the rows touch, the rows in and out, the corners
+        dims3 = (z_, y_, x3_ // 3)
+        cl = torch.stack([torch.clamp(corner[:, i].long(), 0, dims3[i] - pdims[i])
+                          for i in range(3)], -1)
+        sig = torch.arange(s_, device=dev).repeat_interleave(m)
+        origin = (((sig[None, :] * z_ + cl[:, :1]) * y_ + cl[:, 1:2]) * x3_ + 3 * cl[:, 2:])
+        nbytes = (hat_touched_bytes(torch, rel, origin, pdims, y_ * x3_, x3_)
+                  + 2 * rel.numel() * 4 + corner.numel() * 4)
         timing = (
             time_ms(torch, lambda: hs.hat_sample_field(field, corner, rel, pdims)),
             time_ms(torch, lambda: hs.hat_sample_field_plain(field, corner, rel, pdims)),
+            time_ms(torch, lib6),
+            bound(nbytes, rel.numel() // 4 * HAT_ROW_FLOPS),
         )
-    k6 = {"max_abs_err": worst6, "ms": timing[0], "plain_ms": timing[1]}
-    print(f"[K6] T=512 B=1: kernel {k6['ms']:.3f} ms, plain {k6['plain_ms']:.3f} ms [{card}]",
+    k6 = {"max_abs_err": worst6, "ms": timing[0], "plain_ms": timing[1], "library_ms": timing[2],
+          **timing[3]}
+    print(f"[K6] T=512 B=1: kernel {k6['ms']:.3f} ms, plain {k6['plain_ms']:.3f} ms, grid_sample "
+          f"{k6['library_ms']:.3f} ms, bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}) [{card}]",
           flush=True)
     return k5, k6
 
@@ -431,21 +730,34 @@ def cli_argv(src, workdir, tag, mode):
 
 def counters():
     """Every kernel launch counter of the port, by name."""
-    from pnr_tpu_torch.ops import frangi_fused, gaussian, hat_sample, zncc_exact
+    from pnr_tpu_torch.ops import conv, cuda, frangi_fused, gaussian, hat_sample, zncc_exact
 
     return {
         "frangi3d_fused": (frangi_fused, "LAUNCHES"),
         "exact_sums": (zncc_exact, "LAUNCHES"),
+        "conv1d_axis": (conv, "CONV1D_LAUNCHES"),
+        "conv_yx": (conv, "CONV_YX_LAUNCHES"),
         "conv1d_along_axis": (gaussian, "LAUNCHES"),
         "hat_sample_patch": (hat_sample, "PATCH_LAUNCHES"),
         "hat_sample_field": (hat_sample, "FIELD_LAUNCHES"),
+        "self_check": (cuda, "PROBE_LAUNCHES"),
     }
+
+
+def reset_counters():
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counters():
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
 #: the kernels each path must launch
 PATH_KERNELS = {
     "exact": ("frangi3d_fused", "exact_sums"),
     "tube": ("frangi3d_fused", "conv1d_along_axis", "hat_sample_patch", "hat_sample_field"),
+    "unfused": ("conv1d_axis", "conv_yx", "exact_sums"),
 }
 
 
@@ -456,15 +768,14 @@ def phase_main(torch, card, src, workdir, mode):
     for run in (1, 2):
         tag = f"{mode}{run}"
         if run == 1:
-            for mod, attr in counters().values():
-                setattr(mod, attr, 0)
+            reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(cli_argv(src, workdir, tag, mode))
         torch.cuda.synchronize()
         e2e = time.perf_counter() - t0
         if run == 1:
-            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+            launches = read_counters()
         check(rc == 0, f"{mode} CLI run {run} exited {rc}")
         rows = np.loadtxt(os.path.join(workdir, f"{tag}.swc"), comments="#", ndmin=2)
         entry = json.load(open(os.path.join(workdir, f"{tag}.json")))["stacks"][0]
@@ -484,32 +795,79 @@ def phase_main(torch, card, src, workdir, mode):
     return launches, wall
 
 
+def phase_main_unfused(torch, card, main_np):
+    """The slice's path: `reconstruction_func` with fused_frangi=False on
+    the main stack, twice; then once with the unfused cap lowered, so the
+    tiled engine streams the stack: its J8 and seeds must be the
+    monolithic run's."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.pipeline import reconstruct
+
+    cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), fused_frangi=False)
+
+    def run(label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = reconstruct.reconstruction_func(main_np, cfg, verbose=False, device=DEVICE)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        ys, zs = np.asarray(res.tree.y[1:]), np.asarray(res.tree.z[1:])
+        print(f"[main unfused] {label}: {e2e:.3f} s end to end, {len(ys)} SWC nodes, median y "
+              f"{np.median(ys):.3f} z {np.median(zs):.3f}, seeds {res.n_raw_seeds} raw / "
+              f"{len(res.seeds_pos)} selected, {res.trace_count} traces [{card}]", flush=True)
+        print(f"[main unfused] {label} stages (s): {json.dumps(res.timings)}", flush=True)
+        check(len(ys) > 10, f"unfused path ({label}) SWC has more than 10 nodes")
+        check(abs(np.median(ys) - MAIN_SHAPE[1] / 2) <= 3, f"unfused ({label}): median y near 320")
+        check(abs(np.median(zs) - MAIN_SHAPE[0] / 2) <= 3, f"unfused ({label}): median z near 64")
+        return res, e2e
+
+    reset_counters()
+    mono, _ = run("run 1")
+    launches = read_counters()
+    print(f"[main unfused] kernel launches during run 1: {json.dumps(launches)}", flush=True)
+    check(all(launches[k] > 0 for k in PATH_KERNELS["unfused"]) and launches["frangi3d_fused"] == 0,
+          "the unfused path launched K3, K4 and K2, and not K1")
+    _, run2_s = run("run 2")
+    cap = reconstruct.UNFUSED_MAX_VOXELS
+    reconstruct.UNFUSED_MAX_VOXELS = 0
+    try:
+        tiled, _ = run(f"tiled route (unfused cap 0, blocks {reconstruct.pick_blocks(MAIN_SHAPE, SIGMAS, ZDIST)})")
+    finally:
+        reconstruct.UNFUSED_MAX_VOXELS = cap
+    same_seeds = ({tuple(p) for p in tiled.seeds_pos.tolist()}
+                  == {tuple(p) for p in mono.seeds_pos.tolist()})
+    print(f"[main unfused] tiled route vs monolithic: J8 bitwise {np.array_equal(tiled.j8, mono.j8)}, "
+          f"seed sets equal {same_seeds}", flush=True)
+    check(np.array_equal(tiled.j8, mono.j8) and same_seeds,
+          "the tiled route's J8 and seeds are the monolithic route's")
+    return launches, run2_s
+
+
 #: kernel names (substrings) in the profiler's device events
 PROFILE_KERNELS = {
     "K1 (frangi_scale, decode_stats)": ("frangi_scale_kernel", "decode_stats_kernel"),
     "gauss1d (K1's passes and the map build)": ("gauss1d_kernel",),
+    "K3": ("conv1d_axis_kernel",),
+    "K4": ("conv_yx_kernel",),
     "K2": ("exact_sums_kernel",),
     "K5": ("hat_patch_kernel",),
     "K6": ("hat_field_kernel",),
 }
 
 
-def phase_profile(torch, card, src, workdir, mode, unprofiled_s):
-    """One more run of a path under torch.profiler: the card's busy time
-    (union of its kernel and copy spans), idle share, per-kernel device
-    time and the host's kernel-launch calls."""
+def phase_profile(torch, card, mode, run, unprofiled_s):
+    """One more run of a path (`run()`) under torch.profiler: the card's
+    busy time (union of its kernel and copy spans), idle share, per-kernel
+    device time and the host's kernel-launch calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from pnr_tpu_torch import cli
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rc = cli.main(cli_argv(src, workdir, f"{mode}3", mode))
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(rc == 0, f"profiled {mode} CLI run exited {rc}")
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not e.name.startswith("Activity Buffer")]
@@ -535,7 +893,8 @@ def phase_profile(torch, card, src, workdir, mode, unprofiled_s):
         + f"; {len(dev)} device ops; {len(host_launch)} host kernel-launch calls taking "
           f"{launch_ms:.3f} ms", flush=True)
     want = {"exact": ("K1 (frangi_scale, decode_stats)", "K2"),
-            "tube": ("K1 (frangi_scale, decode_stats)", "K5", "K6")}[mode]
+            "tube": ("K1 (frangi_scale, decode_stats)", "K5", "K6"),
+            "unfused": ("K3", "K4", "K2")}[mode]
     check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {mode} path")
     top = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
     print(f"[profile {mode}] top device ops:\n" + top, flush=True)
@@ -572,14 +931,19 @@ def main() -> int:
         print("chip_smoke: run from the root of a pnr-tpu checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from pnr_tpu_torch import PNRConfig, cli
+    from pnr_tpu_torch.pipeline import reconstruction_func
+
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build(torch)
+    probe_launches, k7 = phase_build(torch)
     t0 = time.perf_counter()
     main_np = make_volume(MAIN_SHAPE)
     print(f"[main] built the {MAIN_SHAPE} stack in {time.perf_counter() - t0:.3f} s", flush=True)
     main_vol = torch.from_numpy(main_np).to(DEVICE)
     k1 = phase_k1(torch, card, main_vol)
+    k3, k4 = phase_k3_k4(torch, card, main_vol)
+    unfused = phase_unfused(torch, card, main_vol)
     k2 = phase_k2(torch, card, main_vol)
     field, maps = phase_maps(torch, card, main_vol)
     k5, k6 = phase_k5_k6(torch, card, field)
@@ -593,15 +957,27 @@ def main() -> int:
         np.save(src, main_np)
         for mode in ("exact", "tube"):
             launches[mode], run2_s = phase_main(torch, card, src, workdir, mode)
-            phase_profile(torch, card, src, workdir, mode, run2_s)
+
+            def run(mode=mode):
+                rc = cli.main(cli_argv(src, workdir, f"{mode}3", mode))
+                check(rc == 0, f"profiled {mode} CLI run exited {rc}")
+
+            phase_profile(torch, card, mode, run, run2_s)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    launches["unfused"], run2_s = phase_main_unfused(torch, card, main_np)
+    cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), fused_frangi=False)
+    phase_profile(torch, card, "unfused",
+                  lambda: reconstruction_func(main_np, cfg, verbose=False, device=DEVICE), run2_s)
     for mode in ("exact", "tube"):
         phase_small_agreement(torch, mode)
-    check("jax" not in sys.modules, "no jax was imported")
+    loaded = sorted(m for m in sys.modules
+                    if m in ("jax", "pnr_tpu") or m.startswith(("jax.", "pnr_tpu.")))
+    check(not loaded, f"no module of jax or of pnr_tpu was imported (found {loaded})")
     print(f"[maps] the tube map build (not a TPU kernel: JAX runs an XLA shift-and-add): "
           f"{json.dumps(maps)}; launches in the tube path's run 1 "
           f"{launches['tube']['conv1d_along_axis']}", flush=True)
+    print(f"[unfused] {json.dumps(unfused)}", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.3f} s in all [{card}]", flush=True)
     kernels = [
         {"name": "frangi3d_fused", "route": "cuda",
@@ -620,6 +996,20 @@ def main() -> int:
          "source": "pnr_tpu_torch/csrc/hat_sample.cu",
          "replaces": "pnr_tpu/ops/pallas_sample.py:145",
          "launches": launches["tube"]["hat_sample_field"], **k6},
+        {"name": "conv1d_axis", "route": "cuda",
+         "source": "pnr_tpu_torch/csrc/conv.cu",
+         "replaces": "pnr_tpu/ops/pallas_conv.py:41",
+         "launches": launches["unfused"]["conv1d_axis"], **k3},
+        {"name": "conv_yx", "route": "cuda",
+         "source": "pnr_tpu_torch/csrc/conv.cu",
+         "replaces": "pnr_tpu/ops/pallas_conv.py:227",
+         "launches": launches["unfused"]["conv_yx"], **k4},
+        # K7 is on no main path (the pipeline routes by device and never
+        # probes): its launches are those of the build phase
+        {"name": "self_check", "route": "cuda",
+         "source": "pnr_tpu_torch/csrc/probe.cu",
+         "replaces": "pnr_tpu/ops/pallas_conv.py:155",
+         "launches": probe_launches, **k7},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

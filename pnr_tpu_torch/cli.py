@@ -18,10 +18,10 @@ import dataclasses
 import json
 import sys
 
-from pnr_tpu.config import PNRConfig
-from pnr_tpu.io.swc import save_nodelist
-from pnr_tpu.io.volume import load_volume
-from pnr_tpu.utils.exporters import metrics_entry
+from pnr_tpu_torch.config import PNRConfig
+from pnr_tpu_torch.io.swc import save_nodelist
+from pnr_tpu_torch.io.volume import load_volume
+from pnr_tpu_torch.utils.exporters import metrics_entry
 
 #: options of pnr_tpu's CLI whose engines are not ported yet (ROADMAP.md)
 _NOT_PORTED = (

@@ -1,1 +1,1 @@
-"""Node-graph refinement."""
+"""Neuron graph layer: nodes, trace commits, trees and refinement."""

@@ -1,1 +1,1 @@
-"""Dense operators and the two hand-written CUDA kernels (K1, K2)."""
+"""Dense operators and the wrappers of the hand-written CUDA kernels (csrc/)."""

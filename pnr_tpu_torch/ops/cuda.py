@@ -47,7 +47,14 @@ _SIGNATURES = {
     "pnr_exact_sums": (_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P),
     "pnr_hat_sample_patch": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P),
     "pnr_hat_sample_field": (_P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P),
+    "pnr_conv1d_axis": (_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P),
+    "pnr_conv_yx": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P),
+    "pnr_probe": (_P, _P, _I, _P),
 }
+
+#: CUDA launches of K7's counterpart (`pnr_probe`, through `probe` and
+#: `self_check`)
+PROBE_LAUNCHES = 0
 
 
 def _sources():
@@ -99,6 +106,38 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def probe(x: torch.Tensor) -> torch.Tensor:
+    """K7's kernel: 2 * x for a 2-D float32 `x`. A CPU tensor runs the
+    plain version (`probe_plain`), a CUDA tensor `pnr_probe` or raises."""
+    if x.device.type == "cpu":
+        return probe_plain(x)
+    return _probe_cuda(x)
+
+
+def _probe_cuda(x: torch.Tensor) -> torch.Tensor:
+    global PROBE_LAUNCHES
+    require_cuda_tensor(x, "x", torch.float32, 2)
+    out = torch.empty_like(x)
+    check(library().pnr_probe(x.data_ptr(), out.data_ptr(), x.numel(), stream_of(x)), "pnr_probe")
+    PROBE_LAUNCHES += 1
+    return out
+
+
+def probe_plain(x: torch.Tensor) -> torch.Tensor:
+    return x * 2.0
+
+
+def self_check(device="cuda") -> None:
+    """K7's counterpart: build the library, launch `pnr_probe` on an
+    (8, 128) float32 block of ones on `device`, and raise unless every
+    value is 2.0. JAX's `mosaic_available` probe returns False and routes
+    around Pallas; this never returns False and is never caught: the
+    pipeline routes by the tensor's device and does not call it."""
+    out = _probe_cuda(torch.ones((8, 128), dtype=torch.float32, device=device))
+    if not bool((out == 2.0).all()):
+        raise RuntimeError("pnr_probe: the kernel library launched but computed wrong values")
 
 
 def check(err: int, name: str) -> None:

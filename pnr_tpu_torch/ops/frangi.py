@@ -11,8 +11,12 @@ zeroed where l2>0 or l3>0 (bright ridges, blackwhite=False), NaN->0. A
 later sigma wins only where it is strictly greater; its lambda-smallest
 eigenvector is quantized to uint8 as round((v+1)/2*255).
 
-`frangi3d` here is the plain PyTorch version of K1 and the specification
-the CUDA kernel (ops/frangi_fused.py) is held to.
+`frangi3d` is the unfused filter. It runs on its input's device: on a
+card its Gaussian and difference passes run K4 and K3 (ops/gaussian.py,
+ops/hessian.py, ops/conv.py), on the CPU the plain chain; eigen,
+vesselness and merge are torch ops on either, as JAX runs them as XLA.
+`frangi3d_plain` is that plain chain on any device: the plain version
+the CUDA kernel K1 (ops/frangi_fused.py) is held to.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Sequence
 import torch
 
 from pnr_tpu_torch.ops.eig3 import eigh3x3_vessel
-from pnr_tpu_torch.ops.hessian import hessian3d
+from pnr_tpu_torch.ops.hessian import hessian3d, hessian3d_plain
 
 _FLT_MIN = 1.175494e-38
 
@@ -34,8 +38,8 @@ def _quantize_dir(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(val, 0.0, 255.0).to(torch.uint8)
 
 
-def _vesselness3d_scale(vol, sigma, zdist, alpha, beta, c, blackwhite):
-    dzz, dyy, dyz, dxx, dxy, dxz = hessian3d(vol, sigma, zdist)
+def _vesselness3d_scale(hessian, vol, sigma, zdist, alpha, beta, c, blackwhite):
+    dzz, dyy, dyz, dxx, dxy, dxz = hessian(vol, sigma, zdist)
     lam1, lam2, lam3, vx, vy, vz = eigh3x3_vessel(dxx, dyy, dzz, dxy, dxz, dyz)
     a1, a2, a3 = lam1.abs(), lam2.abs(), lam3.abs()
     ra = a2 / a3
@@ -50,6 +54,29 @@ def _vesselness3d_scale(vol, sigma, zdist, alpha, beta, c, blackwhite):
     return v, vx, vy, vz
 
 
+def _frangi3d(hessian, vol, sigmas, zdist, alpha, beta, c, blackwhite, keep_first_scale):
+    j = jmin = v1 = None
+    out_vx = out_vy = out_vz = None
+    for si, sig in enumerate(sigmas):
+        v, vx, vy, vz = _vesselness3d_scale(
+            hessian, vol, float(sig), float(zdist), alpha, beta, c, blackwhite
+        )
+        qx, qy, qz = _quantize_dir(vx), _quantize_dir(vy), _quantize_dir(vz)
+        if si == 0:
+            j, jmin = v, v.min()
+            v1 = v if keep_first_scale else None
+            out_vx, out_vy, out_vz = qx, qy, qz
+        else:
+            upd = v > j
+            j = torch.where(upd, v, j)
+            out_vx = torch.where(upd, qx, out_vx)
+            out_vy = torch.where(upd, qy, out_vy)
+            out_vz = torch.where(upd, qz, out_vz)
+    if keep_first_scale:
+        return j, jmin, j.max(), out_vx, out_vy, out_vz, v1
+    return j, jmin, j.max(), out_vx, out_vy, out_vz
+
+
 def frangi3d(
     vol: torch.Tensor,
     sigmas: Sequence[float],
@@ -58,29 +85,30 @@ def frangi3d(
     beta: float = 0.5,
     c: float = 500.0,
     blackwhite: bool = False,
+    keep_first_scale: bool = False,
 ):
-    """Multi-scale 3-D Frangi over a (Z, Y, X) volume, on `vol`'s device.
+    """Multi-scale 3-D Frangi over a (Z, Y, X) volume, on `vol`'s device
+    (K4 and K3 on a card, the plain chain on the CPU).
 
     Returns (J, Jmin, Jmax, Vx, Vy, Vz): float32 vesselness, its min over
     the first-scale response and max over the final response (0-d
-    tensors), and uint8-quantized directions."""
-    j = jmin = None
-    out_vx = out_vy = out_vz = None
-    for si, sig in enumerate(sigmas):
-        v, vx, vy, vz = _vesselness3d_scale(
-            vol, float(sig), float(zdist), alpha, beta, c, blackwhite
-        )
-        qx, qy, qz = _quantize_dir(vx), _quantize_dir(vy), _quantize_dir(vz)
-        if si == 0:
-            j, jmin = v, v.min()
-            out_vx, out_vy, out_vz = qx, qy, qz
-        else:
-            upd = v > j
-            j = torch.where(upd, v, j)
-            out_vx = torch.where(upd, qx, out_vx)
-            out_vy = torch.where(upd, qy, out_vy)
-            out_vz = torch.where(upd, qz, out_vz)
-    return j, jmin, j.max(), out_vx, out_vy, out_vz
+    tensors), and uint8-quantized directions. `keep_first_scale` appends
+    the first scale's response, which the tiled engines
+    (ops/frangi_blocked.py) reduce Jmin over."""
+    return _frangi3d(hessian3d, vol, sigmas, zdist, alpha, beta, c, blackwhite, keep_first_scale)
+
+
+def frangi3d_plain(
+    vol: torch.Tensor,
+    sigmas: Sequence[float],
+    zdist: float,
+    alpha: float = 0.5,
+    beta: float = 0.5,
+    c: float = 500.0,
+    blackwhite: bool = False,
+):
+    """`frangi3d` through the plain chain on any device (K1's plain version)."""
+    return _frangi3d(hessian3d_plain, vol, sigmas, zdist, alpha, beta, c, blackwhite, False)
 
 
 def normalize_to_u8(j: torch.Tensor, jmin: torch.Tensor, jmax: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@
 Port of pnr_tpu/ops/frangi_fused.py (`frangi3d_fused`, whose Pallas
 `_kernel` is the TPU kernel replaced). Same contract as `frangi3d`:
 (J, Jmin, Jmax, Vx, Vy, Vz). A CPU tensor runs the plain PyTorch chain
-(ops/frangi.py); a CUDA tensor runs the kernels or raises.
+(`frangi3d_plain`, ops/frangi.py); a CUDA tensor runs the kernels or raises.
 
 Per sigma the CUDA route makes three launches of an edge-replicated 1-D
 Gaussian pass (x, y, z) into f32 scratch and one per-voxel launch that
@@ -15,19 +15,26 @@ The scratch is two f32 volumes (~420 MB at 52.4 Mvox).
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from pnr_tpu_torch.ops import cuda
-from pnr_tpu_torch.ops.frangi import frangi3d
+from pnr_tpu_torch.ops.frangi import frangi3d_plain
 from pnr_tpu_torch.ops.gaussian import gaussian_kernel
 
 #: CUDA kernel launches through the CUDA route (per sigma three Gaussian
 #: passes and one scale pass, plus the Jmin/Jmax decode after the last
 #: scale), so a run can show that the main path went through the kernels
 LAUNCHES = 0
+
+
+def fused_frangi_enabled() -> bool:
+    """The PNR_TPU_FUSED_FRANGI switch (any value but "0", "" or "false"
+    forces K1 on), read as pnr_tpu's `fused_frangi_enabled` reads it."""
+    return os.environ.get("PNR_TPU_FUSED_FRANGI", "0") not in ("0", "", "false")
 
 
 def frangi3d_fused(
@@ -41,7 +48,7 @@ def frangi3d_fused(
 ):
     """Multi-scale Frangi of a (Z, Y, X) uint8 volume on its device."""
     if vol.device.type == "cpu":
-        return frangi3d(vol, sigmas, zdist, alpha, beta, c, blackwhite)
+        return frangi3d_plain(vol, sigmas, zdist, alpha, beta, c, blackwhite)
     return _frangi3d_cuda(vol, sigmas, zdist, alpha, beta, c, blackwhite)
 
 

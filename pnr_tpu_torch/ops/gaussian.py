@@ -3,16 +3,21 @@
 Port of pnr_tpu/ops/gaussian.py (`gaussian_kernel`, `conv1d_along_axis`,
 `imgaussian3d`; parity target `Frangi::imgaussian`,
 pnr-vaa3d/frangi.cpp:563-877): normalized sampled 1-D kernels of
-half-width ceil(3*sigma), applied as correlations along x, then y, then
-z, where z uses sigma/zdist.
+half-width ceil(3*sigma), applied as correlations along x, y and z, where
+z uses sigma/zdist.
+
+`imgaussian3d` routes by device, as JAX routes by backend: a CUDA tensor
+runs K4 (`conv_yx`, the y then the x pass, straight from uint8) and K3
+along z (`conv1d_axis`, ops/conv.py), the TPU branch of the JAX function;
+a CPU tensor runs `imgaussian3d_plain`, the x, y, z shift-and-add chain
+that JAX computes on the CPU and that K1 (ops/frangi_fused.py) is held to.
 
 `conv1d_along_axis` is the 1-D correlation of the tube map build
-(ops/zncc_fast.py), which JAX runs as an XLA shift-and-add: a CPU tensor
-runs that shift-and-add (`conv1d_along_axis_plain`), a CUDA tensor runs
-`pnr_gauss1d` (csrc/frangi_fused.cu, the Gaussian pass of K1: arbitrary
-taps, uint8 or float32 input, one launch per axis) or raises.
-`imgaussian3d` is the plain PyTorch chain that K1 (ops/frangi_fused.py)
-is held to, so it always runs the shift-and-add.
+(ops/zncc_fast.py), which JAX runs as an XLA shift-and-add, not as K3: a
+CPU tensor runs that shift-and-add (K3's plain version without
+`grad_border`, `conv1d_axis_plain` in ops/conv.py), a CUDA
+tensor runs `pnr_gauss1d` (csrc/frangi_fused.cu, the Gaussian pass of K1:
+arbitrary taps, uint8 or float32 input, one launch per axis) or raises.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from pnr_tpu_torch.ops import cuda
+from pnr_tpu_torch.ops.conv import conv1d_axis, conv1d_axis_plain, conv_yx
 
 #: CUDA launches of `conv1d_along_axis` (the tube map build's 1-D
 #: correlations; K1 launches `pnr_gauss1d` itself and counts them in
@@ -42,7 +48,7 @@ def conv1d_along_axis(vol: torch.Tensor, kernel, axis: int) -> torch.Tensor:
     """Correlate a (Z, Y, X) `vol` with a 1-D `kernel` along `axis`,
     edge-replicated borders; float32 out."""
     if vol.device.type == "cpu":
-        return conv1d_along_axis_plain(vol, kernel, axis)
+        return conv1d_axis_plain(vol, kernel, axis)
     return _conv1d_cuda(vol, kernel, axis)
 
 
@@ -67,30 +73,24 @@ def _conv1d_cuda(vol, kernel, axis):
     return out
 
 
-def conv1d_along_axis_plain(vol: torch.Tensor, kernel, axis: int) -> torch.Tensor:
-    """The plain version: shift-and-add in tap order (one product and one
-    add per tap, as the JAX shift-and-add does)."""
-    kernel = np.asarray(kernel, np.float32)
-    k = kernel.shape[0]
-    half = k // 2
-    n = vol.shape[axis]
-    idx = torch.arange(-half, n + half, device=vol.device).clamp_(0, n - 1)
-    xp = vol.to(torch.float32).index_select(axis, idx)
-    out = None
-    for j in range(k):
-        term = float(kernel[j]) * xp.narrow(axis, j, n)
-        out = term if out is None else out + term
-    return out
-
-
 def imgaussian3d(vol: torch.Tensor, sigma: float, zdist: float) -> torch.Tensor:
-    """3-D Gaussian smoothing of a (Z, Y, X) volume (frangi.cpp:647-784).
+    """3-D Gaussian smoothing of a (Z, Y, X) volume (frangi.cpp:647-784) on
+    its device. x and y use sigma; z uses sigma/zdist. Returns float32."""
+    if vol.device.type == "cpu":
+        return imgaussian3d_plain(vol, sigma, zdist)
+    kxy = gaussian_kernel(sigma)
+    v = conv_yx(vol, kxy, kxy)
+    if v.shape[0] > 1:
+        v = conv1d_axis(v, gaussian_kernel(float(sigma) / float(zdist)), 0)
+    return v
 
-    x and y use sigma; z uses sigma/zdist. Returns float32."""
+
+def imgaussian3d_plain(vol: torch.Tensor, sigma: float, zdist: float) -> torch.Tensor:
+    """The plain chain on any device: x, then y, then z."""
     v = vol.to(torch.float32)
     kxy = gaussian_kernel(sigma)
-    v = conv1d_along_axis_plain(v, kxy, axis=2)
-    v = conv1d_along_axis_plain(v, kxy, axis=1)
+    v = conv1d_axis_plain(v, kxy, 2)
+    v = conv1d_axis_plain(v, kxy, 1)
     if v.shape[0] > 1:
-        v = conv1d_along_axis_plain(v, gaussian_kernel(float(sigma) / float(zdist)), axis=0)
+        v = conv1d_axis_plain(v, gaussian_kernel(float(sigma) / float(zdist)), 0)
     return v

@@ -1,8 +1,8 @@
 """Local template frame of the exact ZNCC.
 
 Port of pnr_tpu/ops/zncc.py `local_frame` (tracker.cpp:1893-1917). The
-template tables themselves (`ZnccTemplates`) are shared with the JAX
-package (pnr_tpu/ops/zncc_model.py).
+template tables themselves (`ZnccTemplates`) come from ops/zncc_model.py,
+a copy of the JAX package's.
 """
 
 from __future__ import annotations

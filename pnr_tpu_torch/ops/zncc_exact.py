@@ -32,7 +32,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from pnr_tpu.ops.zncc_model import ZnccTemplates
+from pnr_tpu_torch.ops.zncc_model import ZnccTemplates
 from pnr_tpu_torch.ops import cuda
 from pnr_tpu_torch.ops.interp import trilinear
 from pnr_tpu_torch.ops.zncc import _FLT_MIN, local_frame

@@ -10,7 +10,7 @@ derives it):
 
 and corr = (T1 - gbar*T2) / sqrt((T3 - T2^2/N) * corrc), max over the
 sigmas, the earliest sigma winning ties. The constants come from the
-shared jax-free `TubeZnccModel` (pnr_tpu/ops/zncc_model.py).
+`TubeZnccModel` (ops/zncc_model.py, a copy of the JAX package's).
 
 * Map builds: `build_tube_maps` (planar (3S, Z, Y, X), for the global
   gather form), `build_tube_maps_packed` ((S, Z, Y, 3X), x-major with the
@@ -34,8 +34,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from pnr_tpu.ops.zncc_model import TubeZnccModel
-from pnr_tpu_torch.ops.gaussian import conv1d_along_axis, conv1d_along_axis_plain
+from pnr_tpu_torch.ops.zncc_model import TubeZnccModel
+from pnr_tpu_torch.ops.conv import conv1d_axis_plain
+from pnr_tpu_torch.ops.gaussian import conv1d_along_axis
 from pnr_tpu_torch.ops.hat_sample import hat_sample_field, hat_sample_patch, slice_windows
 from pnr_tpu_torch.ops.interp import trilinear
 from pnr_tpu_torch.ops.zncc import _FLT_MIN
@@ -134,7 +135,7 @@ def build_tube_maps_packed(img: torch.Tensor, model: TubeZnccModel) -> torch.Ten
 def build_tube_maps_packed_plain(img: torch.Tensor, model: TubeZnccModel) -> torch.Tensor:
     """The packed build through the plain shift-and-add on any device:
     what `build_tube_maps_packed` is held to on a card."""
-    return _packed(img, model, conv1d_along_axis_plain)
+    return _packed(img, model, conv1d_axis_plain)
 
 
 def build_tube_maps_packed_blocked(
@@ -230,11 +231,14 @@ class TubePatchEngine:
         trace centred on the mean of its queries, sampled from the field
         through K6 (a bfloat16 field goes through extract + corr, which
         widen the patches to float32)
+
+    The tables live on `device` (the card by default); given `tables`, the
+    engine takes them, and their device, as they are.
     """
 
     def __init__(
         self, model: TubeZnccModel, step: float, zdist: float = 1.0, reuse: int = 1,
-        device=None, tables: TubeTables = None,
+        device="cuda", tables: TubeTables = None,
     ):
         if model.is2d:
             raise NotImplementedError("2-D stacks are not ported yet (ROADMAP.md, port queue: 2-D)")

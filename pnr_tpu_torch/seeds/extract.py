@@ -3,7 +3,7 @@
 Port of the single-stack pieces of pnr_tpu/seeds/extract.py
 (`max_points_host`, `decode_directions_device`; parity targets
 seed.cpp's MaximumFinder and the direction decode at seed.cpp:767-771).
-The flood runs in the shared native runtime on the J8 volume fetched
+The flood runs in the native host runtime (pnr_tpu_torch/native) on the J8 volume fetched
 with `.cpu()`; the quantized Frangi directions are decoded at the seed
 voxels only, with a gather on the device.
 """
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pnr_tpu import native
+from pnr_tpu_torch import native
 
 
 def max_points_host(j8: np.ndarray, tolerance: float) -> np.ndarray:

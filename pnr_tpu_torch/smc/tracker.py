@@ -17,8 +17,8 @@ advances in lockstep, P particles each. Per iteration and particle:
 
 Random numbers are the JAX package's, bit for bit: each trace holds its
 key as a (2,) uint32 row of a (T, 2) numpy array, and each stage's
-uniforms are drawn on the host with the shared Threefry port
-(pnr_tpu/hostpath/threefry.py) and copied to the device once per stage.
+uniforms are drawn on the host with the Threefry port
+(hostpath/threefry.py, a copy of the JAX package's) and copied to the device once per stage.
 
 The likelihood is evaluated in one window per trace, centred on the
 particle cloud; the centroid's ZNCC reuses the iteration's window.
@@ -39,10 +39,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from pnr_tpu.config import PNRConfig
-from pnr_tpu.hostpath import threefry as tf
-from pnr_tpu.ops.zncc_model import TubeZnccModel, ZnccTemplates
-from pnr_tpu.smc.priors import PriorTables, build_prior_tables
+from pnr_tpu_torch.config import PNRConfig
+from pnr_tpu_torch.hostpath import threefry as tf
+from pnr_tpu_torch.ops.zncc_model import TubeZnccModel, ZnccTemplates
+from pnr_tpu_torch.smc.priors import PriorTables, build_prior_tables
 from pnr_tpu_torch.ops.zncc_exact import ExactPatchEngine, TemplateTables, template_tables
 from pnr_tpu_torch.ops.zncc_fast import (
     TubePatchEngine,

@@ -1,5 +1,9 @@
-"""The PyTorch port imports no jax, and never runs silently on the CPU."""
+"""The PyTorch port imports nothing of jax or of the JAX package, keeps its
+own copies of the JAX package's host modules, and never runs silently on
+the CPU."""
 
+import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -14,24 +18,44 @@ PORT_MODULES = (
     "pnr_tpu_torch",
     "pnr_tpu_torch.__main__",
     "pnr_tpu_torch.cli",
+    "pnr_tpu_torch.config",
     "pnr_tpu_torch.utils.runtime",
+    "pnr_tpu_torch.utils.exporters",
+    "pnr_tpu_torch.native",
+    "pnr_tpu_torch.hostpath.threefry",
+    "pnr_tpu_torch.io.volume",
+    "pnr_tpu_torch.io.pbd",
+    "pnr_tpu_torch.io.swc",
+    "pnr_tpu_torch.graph.nodes",
+    "pnr_tpu_torch.graph.build",
+    "pnr_tpu_torch.graph.trees",
+    "pnr_tpu_torch.graph.refine",
     "pnr_tpu_torch.ops.cuda",
+    "pnr_tpu_torch.ops.conv",
     "pnr_tpu_torch.ops.gaussian",
     "pnr_tpu_torch.ops.hessian",
     "pnr_tpu_torch.ops.eig3",
     "pnr_tpu_torch.ops.frangi",
     "pnr_tpu_torch.ops.frangi_fused",
+    "pnr_tpu_torch.ops.frangi_blocked",
     "pnr_tpu_torch.ops.interp",
     "pnr_tpu_torch.ops.zncc",
+    "pnr_tpu_torch.ops.zncc_model",
     "pnr_tpu_torch.ops.zncc_exact",
     "pnr_tpu_torch.ops.hat_sample",
     "pnr_tpu_torch.ops.zncc_fast",
     "pnr_tpu_torch.seeds.extract",
+    "pnr_tpu_torch.smc.directions",
+    "pnr_tpu_torch.smc.priors",
     "pnr_tpu_torch.smc.tracker",
-    "pnr_tpu_torch.graph.refine",
     "pnr_tpu_torch.pipeline",
     "pnr_tpu_torch.pipeline.reconstruct",
 )
+
+
+def _reference_module(name: str) -> bool:
+    """jax, or the JAX package (`pnr_tpu_torch` also starts with `pnr_tpu`)."""
+    return name in ("jax", "pnr_tpu") or name.startswith(("jax.", "pnr_tpu."))
 
 
 def test_port_imports_no_jax():
@@ -40,7 +64,8 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'pnr_tpu')\n"
+        "             or m.startswith(('jax.', 'pnr_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -53,10 +78,95 @@ def test_port_imports_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+@pytest.mark.parametrize("path", ["chip_smoke.py", "pnr_tpu_torch"])
+def test_sources_import_no_reference_module(path):
+    """No import statement of chip_smoke.py or the port names jax or
+    pnr_tpu, not even inside a function."""
+    root = os.path.join(REPO, path)
+    files = [root] if root.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")
+    ]
+    for fname in files:
+        with open(fname) as f:
+            tree = ast.parse(f.read(), fname)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_reference_module(n) for n in names), (fname, node.lineno, names)
+
+
+def test_config_matches_jax():
+    from pnr_tpu.config import PNRConfig as JaxConfig
+    from pnr_tpu_torch.config import PNRConfig
+
+    ours = [(f.name, f.default) for f in dataclasses.fields(PNRConfig)]
+    theirs = [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+    assert ours == theirs
+    params = ["2,4,6", "0", "10", "0.5", "3", "2", "100", "20", "2", "4", "9"]
+    assert (PNRConfig.from_cli_params(params).provenance_comment()
+            == JaxConfig.from_cli_params(params).provenance_comment())
+
+
+def _native_case(name, rng):
+    """Seeded inputs for one native entry point, as (args, kwargs)."""
+    if name == "max_finder_stack":
+        vol = rng.integers(0, 256, (4, 32, 40), dtype=np.uint8)
+        return (vol, 10.0), {}
+    if name == "commit_steps_native":
+        l, h, w = 12, 20, 24
+        steps = np.cumsum(rng.uniform(-1.5, 1.5, (40, 3)), axis=0) + (w / 2, h / 2, l / 2)
+        pos = np.clip(steps, 0, (w - 1, h - 1, l - 1))
+        offs = np.array([(dx, dy, 0) for dx in (-1, 0, 1) for dy in (-1, 0, 1)], np.int32)
+        return (np.zeros((l, h, w), np.int32), np.zeros((l, h, w), np.int32), None, offs, 4,
+                pos, np.ones(len(pos), np.uint8), 0, len(pos), 1), {}
+    if name == "mean_shift_grid":
+        p4 = np.concatenate([rng.uniform(0, 40, (300, 3)), rng.uniform(1, 3, (300, 1))], 1)
+        return (p4.astype(np.float32), 1.5, 4, 1e-4), {}
+    n = 200
+    cols = [rng.uniform(0, 30, n).astype(np.float32) for _ in range(3)]
+    sig, corr = rng.uniform(1, 3, n), rng.uniform(0, 1, n)
+    soma = (rng.random(n) < 0.02).astype(np.uint8)
+    return (*cols, sig, corr, soma, 2.0), {}
+
+
+@pytest.mark.parametrize(
+    "name", ["max_finder_stack", "commit_steps_native", "mean_shift_grid", "group_nodes"]
+)
+def test_native_copy_matches_jax_package(name):
+    from pnr_tpu import native as jax_native
+    from pnr_tpu_torch import native
+
+    assert native.have_native()
+    args_a, _ = _native_case(name, np.random.default_rng(9))
+    args_b, _ = _native_case(name, np.random.default_rng(9))
+    got = getattr(native, name)(*args_a)
+    want = getattr(jax_native, name)(*args_b)
+    if name == "commit_steps_native":  # also mutates the maps in place
+        assert got == want
+        np.testing.assert_array_equal(args_a[0], args_b[0])
+        np.testing.assert_array_equal(args_a[1], args_b[1])
+        return
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_native_builds_into_the_port_build_dir():
+    from pnr_tpu_torch import native
+
+    build = os.path.join(REPO, "pnr_tpu_torch", "_build")
+    assert os.path.dirname(native.library_path()) == build
+    assert native.have_native() and os.path.exists(native.library_path())
+
+
 def test_cuda_device_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card path cannot be exercised")
-    from pnr_tpu.config import PNRConfig
+    from pnr_tpu_torch.config import PNRConfig
     from pnr_tpu_torch.pipeline import reconstruction_func
 
     vol = np.zeros((8, 16, 16), np.uint8)
@@ -64,10 +174,27 @@ def test_cuda_device_without_card_raises():
         reconstruction_func(vol, PNRConfig(), verbose=False, device="cuda")
 
 
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card path cannot be exercised")
+    from pnr_tpu_torch.config import PNRConfig
+    from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine, tube_tables
+    from pnr_tpu_torch.ops.zncc_model import TubeZnccModel
+    from pnr_tpu_torch.pipeline import reconstruction_func
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reconstruction_func(np.zeros((8, 16, 16), np.uint8), PNRConfig(), verbose=False)
+    model = TubeZnccModel((2.0,), False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        TubePatchEngine(model, 2, 2.0)  # its tables go to the card
+    tables = tube_tables(model, "cpu")
+    assert TubePatchEngine(model, 2, 2.0, tables=tables).tables.alpha1.device.type == "cpu"
+
+
 def test_cuda_wrappers_reject_cpu_tensors_on_the_kernel_route():
     """The CUDA routes validate their inputs instead of falling back."""
     from pnr_tpu_torch.ops import frangi_fused, zncc_exact
-    from pnr_tpu.ops.zncc_model import ZnccTemplates
+    from pnr_tpu_torch.ops.zncc_model import ZnccTemplates
 
     vol = torch.zeros((8, 16, 16), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -96,3 +223,19 @@ def test_tube_wrappers_reject_cpu_tensors_on_the_kernel_route():
         gaussian._conv1d_cuda(torch.zeros((4, 4, 4)), np.ones(3, np.float32), 0)
     with pytest.raises(TypeError, match="uint8 or float32"):
         gaussian._conv1d_cuda(torch.zeros((4, 4, 4), dtype=torch.float64), np.ones(3), 0)
+
+
+def test_conv_wrappers_reject_cpu_tensors_on_the_kernel_route():
+    """K3, K4 and K7's check validate their inputs on the CUDA route
+    instead of falling back to the plain versions."""
+    from pnr_tpu_torch.ops import conv, cuda
+
+    taps = np.ones(3, np.float32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        conv._conv1d_axis_cuda(torch.zeros((4, 4, 4)), taps, 0, True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        conv._conv_yx_cuda(torch.zeros((4, 4, 4), dtype=torch.uint8), taps, taps)
+    with pytest.raises(TypeError, match="uint8 or float32"):
+        conv._conv1d_axis_cuda(torch.zeros((4, 4, 4), dtype=torch.float64), taps, 0, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda.self_check("cpu")

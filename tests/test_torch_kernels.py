@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 (Frangi), K2 (exact ZNCC sums), the tube map build's 1-D correlation,
-K5 and K6 (tube-map hat sampling), and both main paths on a small stack.
+K1 (Frangi), K2 (exact ZNCC sums), K3 and K4 (the unfused filter's 1-D and
+fused y-x correlations) with the unfused and tiled Frangi engines on them,
+K7's build-and-launch check, the tube map build's 1-D correlation, K5 and
+K6 (tube-map hat sampling), and the main paths on a small stack.
 
 Every test here needs a CUDA device (the kernels have no CPU mode): they
 carry the `cuda` marker and skip without one. The file imports no jax, so
@@ -29,10 +31,12 @@ from _torch_cases import (
     tube,
     tube_queries,
 )
-from pnr_tpu.ops.zncc_model import TubeZnccModel
 from pnr_tpu_torch import PNRConfig
-from pnr_tpu_torch.ops import frangi_fused, gaussian, hat_sample, zncc_exact
-from pnr_tpu_torch.ops.frangi import frangi3d as plain_frangi3d
+from pnr_tpu_torch.ops import conv, cuda, frangi_blocked, frangi_fused, gaussian, hat_sample
+from pnr_tpu_torch.ops import zncc_exact
+from pnr_tpu_torch.ops.frangi import frangi3d
+from pnr_tpu_torch.ops.frangi import frangi3d_plain as plain_frangi3d
+from pnr_tpu_torch.ops.gaussian import gaussian_kernel
 from pnr_tpu_torch.ops.zncc_exact import (
     ExactPatchEngine,
     ZnccTemplates,
@@ -45,6 +49,7 @@ from pnr_tpu_torch.ops.zncc_fast import (
     build_tube_maps_packed,
     build_tube_maps_packed_plain,
 )
+from pnr_tpu_torch.ops.zncc_model import TubeZnccModel
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +68,94 @@ def test_frangi_kernel_matches_plain(dev, case):
     plain = as_numpy(plain_frangi3d(vol, sig, ZDIST))
     kernel = as_numpy(frangi_fused.frangi3d_fused(vol, sig, ZDIST))
     FRANGI_CHECKS[case](plain, kernel)
+
+
+def test_self_check(dev):
+    n = cuda.PROBE_LAUNCHES
+    cuda.self_check(dev)
+    assert cuda.PROBE_LAUNCHES == n + 1
+
+
+def check_conv(kern, plain):
+    # fused multiply-adds against rounded products: about one ulp per tap
+    scale = max(float(plain.abs().max()), 1e-30)
+    assert float((kern - plain).abs().max()) / scale < 1e-5
+
+
+#: (taps, grad_border): sigma-6 and sigma-3 Gaussians and the Hessian's
+#: first and (sigma 6) second differences
+CONV_TAPS = {
+    "gauss6": (gaussian_kernel(6.0), False),
+    "gauss3": (gaussian_kernel(3.0), False),
+    "g1": ((-0.5, 0.0, 0.5), True),
+    "g2": ((-18.0, 0.0, 18.0), True),
+}
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("taps", list(CONV_TAPS))
+def test_conv1d_axis_kernel_matches_plain(dev, taps, dtype):
+    k, grad = CONV_TAPS[taps]
+    vol = torch.from_numpy(noisy_tube((20, 40, 100))).to(dev)
+    if dtype == "f32":
+        vol = vol.to(torch.float32) / 7.0
+    for axis in (0, 1, 2):
+        n = conv.CONV1D_LAUNCHES
+        kern = conv.conv1d_axis(vol, k, axis, grad)
+        assert conv.CONV1D_LAUNCHES == n + 1
+        check_conv(kern, conv.conv1d_axis_plain(vol, k, axis, grad))
+
+
+@pytest.mark.parametrize("shape", [(6, 40, 136), (3, 70, 150), (2, 5, 7)])
+def test_conv_yx_kernel_matches_plain(dev, shape):
+    vol = torch.from_numpy(noisy_tube(shape)).to(dev)
+    for ky, kx in ((gaussian_kernel(6.0),) * 2, (gaussian_kernel(2.0), gaussian_kernel(1.5))):
+        for v in (vol, vol.to(torch.float32)):
+            n = conv.CONV_YX_LAUNCHES
+            kern = conv.conv_yx(v, ky, kx)
+            assert conv.CONV_YX_LAUNCHES == n + 1
+            check_conv(kern, conv.conv_yx_plain(v, ky, kx))
+
+
+def test_conv_kernels_reject_what_they_cannot_take(dev):
+    vol = torch.zeros((4, 8, 8), device=dev)
+    with pytest.raises(ValueError, match="odd number of taps"):
+        conv.conv1d_axis(vol, np.ones(4, np.float32), 0)
+    with pytest.raises(ValueError, match="odd number of taps"):
+        conv.conv_yx(vol, np.ones(129, np.float32), np.ones(3, np.float32))
+    with pytest.raises(ValueError, match="axis"):
+        conv.conv1d_axis(vol, np.ones(3, np.float32), 3)
+    with pytest.raises(TypeError):
+        conv.conv_yx(vol.to(torch.float64), np.ones(3), np.ones(3))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.conv1d_axis(vol.transpose(1, 2), np.ones(3, np.float32), 0)
+
+
+@pytest.mark.parametrize("case", list(FRANGI_CASES))
+def test_unfused_frangi_on_card_matches_plain(dev, case):
+    make, sig = FRANGI_CASES[case]
+    vol = torch.from_numpy(make()).to(dev)
+    n1, n2 = conv.CONV1D_LAUNCHES, conv.CONV_YX_LAUNCHES
+    card = as_numpy(frangi3d(vol, sig, ZDIST))
+    assert conv.CONV1D_LAUNCHES - n1 == 10 * len(sig)
+    assert conv.CONV_YX_LAUNCHES - n2 == len(sig)
+    FRANGI_CHECKS[case](as_numpy(plain_frangi3d(vol, sig, ZDIST)), card)
+
+
+@pytest.mark.parametrize("engine,blocks", [
+    ("tiled", {"block_z": 16, "block_y": 16}),
+    ("tiled", {"block_z": 16, "block_y": 24}),
+    ("blocked", {"block_z": 16}),
+])
+def test_tiled_engines_on_card_bitwise_monolithic(dev, engine, blocks):
+    vol = torch.from_numpy(noisy_tube((46, 64, 48))).to(dev)
+    fn = frangi_blocked.frangi3d_tiled if engine == "tiled" else frangi_blocked.frangi3d_blocked
+    got = as_numpy(fn(vol, (2.0, 3.0), ZDIST, **blocks))
+    ref = as_numpy(frangi3d(vol, (2.0, 3.0), ZDIST))
+    for i in (0, 3, 4, 5):
+        np.testing.assert_array_equal(got[i], ref[i])
+    assert float(got[1]) == float(ref[1])
+    np.testing.assert_allclose(float(got[2]), float(ref[2]), rtol=1e-6)
 
 
 def test_frangi_kernel_blackwhite(dev):
@@ -111,11 +204,19 @@ PATH_COUNTERS = {
     "exact": ((frangi_fused, "LAUNCHES"), (zncc_exact, "LAUNCHES")),
     "tube": ((frangi_fused, "LAUNCHES"), (gaussian, "LAUNCHES"),
              (hat_sample, "PATCH_LAUNCHES"), (hat_sample, "FIELD_LAUNCHES")),
+    "unfused": ((conv, "CONV1D_LAUNCHES"), (conv, "CONV_YX_LAUNCHES"),
+                (zncc_exact, "LAUNCHES")),
 }
 
 
 def test_main_path_on_card_matches_plain_and_launches_kernels(dev):
     _small_stack_on_card(dev, "exact")
+
+
+def test_unfused_path_on_card_matches_plain_and_launches_kernels(dev):
+    n = frangi_fused.LAUNCHES
+    _small_stack_on_card(dev, "unfused")
+    assert frangi_fused.LAUNCHES == n
 
 
 def test_tube_path_on_card_matches_plain_and_launches_kernels(dev):
@@ -127,7 +228,9 @@ def _small_stack_on_card(dev, mode):
 
     vol = small_stack()
     cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2,
-                    ni=60, np=20, zdist=2.0, nodepervol=4, vol=9, zncc_mode=mode)
+                    ni=60, np=20, zdist=2.0, nodepervol=4, vol=9,
+                    zncc_mode="exact" if mode == "unfused" else mode,
+                    fused_frangi=mode != "unfused")
     counters = PATH_COUNTERS[mode]
     before = [getattr(m, a) for m, a in counters]
     gpu = reconstruction_func(vol, cfg, verbose=False, device="cuda")

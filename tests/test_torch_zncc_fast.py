@@ -115,7 +115,7 @@ def engines(sigmas, reuse):
     model = TubeZnccModel(sigmas, False)
     return (
         jzf.make_tube_patch_engine(model, STEP, ZDIST, reuse=reuse),
-        pzf.TubePatchEngine(model, STEP, ZDIST, reuse=reuse),
+        pzf.TubePatchEngine(model, STEP, ZDIST, reuse=reuse, device="cpu"),
     )
 
 
@@ -143,8 +143,8 @@ def test_window_groups_at_the_main_path_config():
     """sigmas (2,4,6), step 2, zdist 2 on the (128, 640, 640) stack."""
     model = TubeZnccModel((2.0, 4.0, 6.0), False)
     dims = (128, 640, 640)
-    g1 = pzf.TubePatchEngine(model, 2.0, 2.0, reuse=1)
-    g2 = pzf.TubePatchEngine(model, 2.0, 2.0, reuse=2)
+    g1 = pzf.TubePatchEngine(model, 2.0, 2.0, reuse=1, device="cpu")
+    g2 = pzf.TubePatchEngine(model, 2.0, 2.0, reuse=2, device="cpu")
     assert [g[2] for g in g1.groups(dims)] == [(16, 24, 24), (24, 24, 24), (24, 32, 32)]
     assert [g[:2] for g in g2.groups(dims)] == [(0, 1), (1, 3)]
     assert [g[2] for g in g2.groups(dims)] == [(16, 24, 24), (24, 32, 32)]
