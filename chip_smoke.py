@@ -10,7 +10,7 @@ Phases, each of which exits non-zero on failure:
 2. build: compiles pnr_tpu_torch/csrc/*.cu, runs K7's check
    (`ops.cuda.self_check`: pnr_probe doubles an (8, 128) block) and
    launches each kernel once (K1, K2, K3, K4, the map build's 1-D
-   correlation, K5, K6) at a tiny shape;
+   correlation, tube_corr) at a tiny shape;
 3. K1 (frangi3d_fused) against its plain PyTorch version on the card:
    clean and noisy tube volumes (64, 256, 256) and the main path's
    (128, 640, 640) stack at sigmas (2, 4, 6), then both timed (CUDA
@@ -32,15 +32,20 @@ Phases, each of which exits non-zero on failure:
 7. tube map build on the main path's stack at sigmas (2, 4, 6): the
    packed field through `pnr_gauss1d` against the plain shift-and-add
    (per channel max|d| / max(|plain|, 1) < 1e-5), both timed;
-8. K5 (hat_sample_patch) against its plain version on that field: one
-   tracer chunk (T=128, N=20) with queries around the tube axis, a quarter
-   anywhere; K6 (hat_sample_field) against its plain version and against
-   the extract + K5 route on 173 B=1 seeds along the axis and T=512 B=1
-   anywhere. Bars: samples within 1e-5 of each column's scale, corr
-   max|d| < 1e-4, sigma agreement > 0.99; K5 and K6 timed, with
-   `grid_sample` on the same windows as the library yardstick;
-9. bf16 field: a forced bfloat16 field on a (64, 256, 256) noisy tube
-   against the float32 field: corr max error < 8e-3, sigma flips < 3%;
+8. tube_corr (K5's and K6's counterpart) against its plain chain on that
+   field: the tracer's evaluation of one chunk (T=128, N=20, the group
+   windows) with queries around the tube axis, a quarter anywhere (K5's
+   row); seed scoring in one sigma_max window (K6's row) on 173 B=1 seeds
+   along the axis and T=512 B=1 anywhere, also against the group windows.
+   Bars: line sums within 1e-5 of each column's scale, corr max|d| < 1e-4,
+   sigma agreement > 0.99; both rows timed in turns with one `grid_sample`
+   call on the field at the same rows' global coordinates (CUDA events, so
+   the wrapper's host cost is included: per call in runs of 20 back-to-back
+   calls, the kernels line's `ms`, and alone), their device time per launch
+   read from torch.profiler, and the plain chain timed;
+9. bf16 field: a forced bfloat16 field on a (64, 256, 256) noisy tube:
+   tube_corr against its plain chain on it at the bars above, and the
+   field against the float32 one: corr max error < 8e-3, sigma flips < 3%;
 10. main paths: the 52.4-Mvox (128, 640, 640) stack of bench.py's
    make_volume through the port's CLI in-process with
    `-p 2,4,6 0 10 0.5 3 2 100 20 2 4 9 --device cuda`, twice in exact mode
@@ -52,7 +57,8 @@ Phases, each of which exits non-zero on failure:
    run (launch counts set to 0 just before it and read just after);
 11. profile: one more run of each path under torch.profiler; prints the
    card's busy time, its idle share, each kernel's device time and the
-   host's kernel-launch calls;
+   host's kernel-launch calls (tube: also per tracer step, one step being
+   one iteration of one chunk, and the device time per tube_corr launch);
 12. the exact and tube paths on a small stack on the card and on the CPU
    (plain versions) must agree; no module of jax or of pnr_tpu was loaded.
 
@@ -94,9 +100,15 @@ EIG_FLOPS = 250
 #: multiply-adds, clamps, floors), the trilinear sample (7 lerps) and the
 #: three sums
 K2_SAMPLE_FLOPS = 60
-#: FLOPs of one K5/K6 row: six hat weights, four z-y weight products, 24
-#: fused multiply-adds and the x contraction of three channels
-HAT_ROW_FLOPS = 85
+#: FLOPs of one tube_corr line sample: its point and window coordinates
+#: (3 multiplies, 3 adds, 3 subtractions, 12 clamps), six hat weights, four
+#: z-y weight products, 24 fused multiply-adds, the x contraction of three
+#: channels, the mask and the sum over the line (3 + 3)
+HAT_ROW_FLOPS = 112
+#: FLOPs of one tube ZNCC per query and sigma from its three sums: 10
+#: arithmetic, a clamp, the gate, a division and a square root (~8 each)
+#: and the running max
+ZNCC_FLOPS = 30
 
 
 def check(cond, msg):
@@ -138,6 +150,30 @@ def time_ms(torch, fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_turns_ms(torch, fns, reps=21, calls=1, warmup=5):
+    """Median device time per call of each of `fns`, each rep timing
+    `calls` back-to-back calls, the functions in turns (in order, then in
+    reverse, ...) after `warmup` calls of each. A launch-bound call's event
+    time is mostly its host cost, which moves with the host's state (what
+    ran just before): turns give each the same conditions."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for r in range(reps):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fns[i]()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end) / calls)
+    return [statistics.median(t) for t in times]
 
 
 def bound(nbytes, flops):
@@ -204,10 +240,10 @@ def phase_build(torch):
     model = TubeZnccModel((2.0,), False)
     field = build_tube_maps_packed(vol, model)
     teng = TubePatchEngine(model, 2, ZDIST, device=dev)
-    teng.eval_fused(field, pos, dirs)  # K6
-    teng.corr(tuple(vol.shape), *teng.extract(field, pos[:, 0]), pos, dirs)  # K5
+    teng.eval_fused(field, pos, dirs)  # tube_corr, scoring
+    teng.likelihood(field, teng.window(field, pos[:, 0]), pos, dirs)  # tube_corr, tracer
     torch.cuda.synchronize()
-    print("[build] K1, K2, K3, K4, the map build, K5 and K6 launched at a tiny shape", flush=True)
+    print("[build] K1, K2, K3, K4, the map build and tube_corr launched at a tiny shape", flush=True)
     x = torch.from_numpy(np.random.default_rng(1).random((8, 128), np.float32)).to(dev)
     k7 = {"max_abs_err": float((cuda.probe(x) - cuda.probe_plain(x)).abs().max()),
           "ms": time_ms(torch, lambda: cuda.probe(x)),
@@ -516,11 +552,11 @@ def tube_queries(rng, shape, t, b, axis_sd, anywhere=0.25):
     return pos, d
 
 
-def hat_touched_bytes(torch, rel, origin, pdims, zpitch, ypitch):
-    """Distinct float32 bytes that K5/K6 rows read: per row (rz, ry, rx, _)
-    the two z and two y taps' runs of six floats (two x taps, three
-    channels) from the row's window origin `origin` (element offsets, one
-    per row), with the kernels' tap clamping."""
+def hat_touched_bytes(torch, rel, origin, pdims, zpitch, ypitch, elem=4):
+    """Distinct field bytes that tube_corr's line samples read: per row
+    (rz, ry, rx, _) the two z and two y taps' runs of six elements (two x
+    taps, three channels) from the row's window origin `origin` (element
+    offsets, one per row), with the kernel's tap clamping."""
     r = rel.reshape(-1, 4)
     taps = [torch.clamp(torch.floor(r[:, i]).long(), 0, pdims[i] - 2) for i in range(3)]
     start = origin.reshape(-1) + taps[0] * zpitch + taps[1] * ypitch + 3 * taps[2]
@@ -528,7 +564,7 @@ def hat_touched_bytes(torch, rel, origin, pdims, zpitch, ypitch):
     offs = (torch.arange(2, device=dev)[:, None, None] * zpitch
             + torch.arange(2, device=dev)[None, :, None] * ypitch
             + torch.arange(6, device=dev)[None, None, :]).reshape(-1)
-    return int(torch.unique(start[:, None] + offs[None, :]).numel()) * 4
+    return int(torch.unique(start[:, None] + offs[None, :]).numel()) * elem
 
 
 def col_errs(k, p):
@@ -563,9 +599,135 @@ def phase_maps(torch, card, main_vol):
     return field, {"max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_k5_k6(torch, card, field):
-    """K5 and K6 against their plain versions on the main stack's field."""
-    from pnr_tpu_torch.ops import hat_sample as hs
+def corr_check(label, a, b):
+    """corr max|d| < 1e-4 and sigma agreement > 0.99 between two (corr, sig)."""
+    cerr = float((a[0] - b[0]).abs().max())
+    agree = float((a[1] == b[1]).float().mean())
+    print(f"[{label}] corr max|d| {cerr:.3e}, sigma agreement {agree:.4f}", flush=True)
+    check(cerr < 1e-4 and agree > 0.99, f"{label}: corr max|d| < 1e-4, sigma agreement > 0.99")
+    return cerr
+
+
+def tube_corr_compare(torch, eng, field, label, pos, d, single):
+    """tube_corr against its plain chain on one evaluation: the line sums
+    within 1e-5 of each column's scale, then corr_check; returns the
+    window layout, the corners and the corr error."""
+    from pnr_tpu_torch.ops import tube_corr as tc
+
+    corners = eng.window(field, pos.mean(dim=1), single)
+    lay = eng.layout(field, single)
+    out, ksums = tc.tube_corr(field, lay.groups, corners, pos, d, eng.tables, lay.params,
+                              scoring=single, with_sums=True)
+    kc, ks = out
+    pc, ps, psums = tc.tube_corr_plain(field, lay.groups, corners, pos, d, eng.tables)
+    errs = col_errs(ksums, psums)
+    print(f"[{label}] windows {[g[2] for g in lay.groups]}: line sums max|d|/max(|plain|,1) "
+          f"{', '.join(f'{e:.3e}' for e in errs)}", flush=True)
+    check(max(errs) < 1e-5, f"{label}: line sums within 1e-5 of each column's scale")
+    return lay, corners, corr_check(label, (kc, ks), (pc, ps))
+
+
+def device_ms_per_launch(torch, fn, reps=20):
+    """torch.profiler's device time per tube_corr_kernel launch over `reps`
+    calls of `fn` (the profiler may drop a run's first events: the mean is
+    over the launches it saw)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hit = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "tube_corr_kernel" in e.name]
+    check(hit, "the profiler saw tube_corr_kernel")
+    return sum(e.time_range.elapsed_us() for e in hit) / len(hit) / 1e3, len(hit)
+
+
+def tube_corr_yardstick(torch, eng, field, lay, corners, pos, d):
+    """One grid_sample call (5-D, trilinear, align_corners, border) on the
+    float32 field at the global coordinates (corner + window coordinate)
+    of every line sample of the evaluation, one batch entry per sigma,
+    checked against the plain samples; with the field bytes those samples
+    touch and the real line samples (vmask = 1) they stand for."""
+    import torch.nn.functional as F
+
+    from pnr_tpu_torch.ops import tube_corr as tc
+
+    s_, z_, y_, x3_ = field.shape
+    dims = (z_, y_, x3_ // 3)
+    t = pos.shape[0]
+    glob, want, touched = [], [], 0
+    for g, (g0, g1, pdims) in enumerate(lay.groups):
+        corner = corners[:, g]
+        rel = tc.rel_coords(eng.tables, dims, pdims, corner, pos, d, g0, g1)  # (T, gs, M, 4)
+        gs, m = g1 - g0, rel.shape[2]
+        glob.append(rel[..., :3] + corner.view(t, 1, 1, 3).to(torch.float32))
+        want.append(tc.hat_sample_field_plain(field[g0:g1], corner, rel.reshape(t, gs * m, 4),
+                                              pdims).view(t, gs, m, 4)[..., :3])
+        sig = torch.arange(g0, g1, device=field.device).repeat_interleave(m)
+        origin = (((sig[None, :] * z_ + corner[:, :1].long()) * y_ + corner[:, 1:2].long()) * x3_
+                  + 3 * corner[:, 2:].long())
+        touched += hat_touched_bytes(torch, rel, origin, pdims, y_ * x3_, x3_,
+                                     field.element_size())
+    glob = torch.cat(glob, 1).permute(1, 0, 2, 3)  # (S, T, M, 3) zyx
+    want = torch.cat(want, 1).permute(1, 0, 2, 3).reshape(s_, -1, 3)
+    grid = torch.stack([glob[..., 2 - i] / (dims[2 - i] - 1) * 2.0 - 1.0 for i in range(3)], -1)
+    grid = grid.reshape(s_, 1, 1, -1, 3)
+    fin = field.view(s_, z_, y_, x3_ // 3, 3).permute(0, 4, 1, 2, 3)
+
+    def lib():
+        return F.grid_sample(fin, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+    lerr = max(col_errs(lib().view(s_, 3, -1).transpose(1, 2), want))
+    real = pos.shape[0] * pos.shape[1] * int(eng.tables.vmask.sum())
+    return lib, lerr, touched, real
+
+
+def tube_corr_row(torch, card, eng, field, label, lay, corners, pos, d, single):
+    """Time one evaluation: the kernel and the grid_sample yardstick in
+    turns (CUDA events, so the wrapper's host cost is included: per call
+    back to back, and alone), the kernel's device time per launch
+    (torch.profiler), the plain chain; the bound from the bytes and FLOPs
+    it needs."""
+    from pnr_tpu_torch.ops import tube_corr as tc
+
+    lib, lerr, touched, real = tube_corr_yardstick(torch, eng, field, lay, corners, pos, d)
+    print(f"[{label}] grid_sample on the field at the same rows: max|d|/max(|plain|,1) "
+          f"{lerr:.3e}", flush=True)
+    check(lerr < 1e-3, f"{label}: grid_sample samples the field as the plain chain does")
+
+    def kern():
+        return tc.tube_corr(field, lay.groups, corners, pos, d, eng.tables, lay.params,
+                            scoring=single)
+
+    t, n = pos.shape[:2]
+    # the field bytes the samples touch, pos and dirs in, the corners, corr and sig out
+    nbytes = touched + 2 * pos.numel() * 4 + corners.numel() * 4 + 2 * t * n * 4
+    flops = real * HAT_ROW_FLOPS + t * n * eng.s_count * ZNCC_FLOPS
+    # per call in runs of 20 back-to-back calls, as the tracer makes them
+    # between its other small launches; and one call alone after a sync
+    ms, library_ms = time_turns_ms(torch, (kern, lib), calls=20)
+    single_ms, library_single_ms = time_turns_ms(torch, (kern, lib), reps=51)
+    dev_ms, seen = device_ms_per_launch(torch, kern)
+    row = {"ms": ms,
+           "plain_ms": time_ms(torch, lambda: tc.tube_corr_plain(field, lay.groups, corners, pos, d,
+                                                                   eng.tables)),
+           "library_ms": library_ms, "device_ms": dev_ms, "single_ms": single_ms,
+           "library_single_ms": library_single_ms, **bound(nbytes, flops)}
+    print(f"[{label}] T={t} N={n}: kernel {ms:.4f} ms per call back to back, {single_ms:.4f} ms "
+          f"alone (device {dev_ms:.4f} ms per launch, {seen} launches profiled); grid_sample "
+          f"{library_ms:.4f} ms back to back, {library_single_ms:.4f} ms alone; plain "
+          f"{row['plain_ms']:.3f} ms; bound {row['bound_ms']:.5f} ms ({row['bound_by']}: "
+          f"{nbytes} B, {flops} FLOP) [{card}]", flush=True)
+    return row
+
+
+def phase_tube_corr(torch, card, field):
+    """tube_corr against its plain chain on the main stack's field: the
+    tracer's evaluation (K5's row) and seed scoring (K6's row)."""
     from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine, TubeZnccModel
 
     dev = field.device
@@ -573,130 +735,33 @@ def phase_k5_k6(torch, card, field):
     dims = eng.vol_dims(field.shape)
     rng = np.random.default_rng(12)
 
-    def corr_check(label, a, b):
-        cerr = float((a[0] - b[0]).abs().max())
-        agree = float((a[1] == b[1]).float().mean())
-        print(f"[{label}] corr max|d| {cerr:.3e}, sigma agreement {agree:.4f}", flush=True)
-        check(cerr < 1e-4 and agree > 0.99, f"{label}: corr max|d| < 1e-4, sigma agreement > 0.99")
-        return cerr
-
-    # K5: one tracer chunk, T=128 traces of N=20 particles
+    # K5's row: one tracer chunk, T=128 traces of N=20 particles
     pos, d = (torch.from_numpy(a).to(dev) for a in tube_queries(rng, dims, 128, 20, 1.0))
-    t, n = pos.shape[:2]
-    patches, corners = eng.extract(field, pos.mean(dim=1))
-    groups = eng.groups(dims)
-    rels = [eng.rel_coords(dims, pd, c, pos, d, g0, g1)
-            for c, (g0, g1, pd) in zip(corners, groups)]
-    vk = [hs.hat_sample_patch(p, r) for p, r in zip(patches, rels)]
-    vp = [hs.hat_sample_patch_plain(p, r) for p, r in zip(patches, rels)]
-    errs = [max(col_errs(a, b)) for a, b in zip(vk, vp)]
-    print(f"[K5] T=128 N=20 groups {[g[2] for g in groups]}: samples max|d|/max(|plain|,1) "
-          f"{', '.join(f'{e:.3e}' for e in errs)}", flush=True)
-    check(max(errs) < 1e-5, "K5: samples within 1e-5 of each column's scale")
-    worst5 = corr_check("K5", eng.finish(torch.cat([v[..., :3] for v in vk], 1), t, n),
-                        eng.finish(torch.cat([v[..., :3] for v in vp], 1), t, n))
-    # the library yardstick: grid_sample (5-D, trilinear, align_corners)
-    # on the same windows, one call per group
-    import torch.nn.functional as F
+    lay, corners, err5 = tube_corr_compare(torch, eng, field, "tube_corr tracer", pos, d, False)
+    k5 = {"max_abs_err": err5,
+          **tube_corr_row(torch, card, eng, field, "tube_corr tracer", lay, corners, pos, d, False)}
 
-    def window_grid(r, p3):
-        """(..., 4) zyx window coordinates -> grid_sample's (x, y, z) in [-1, 1]."""
-        return torch.stack([r[..., 2 - i] / (p3[2 - i] - 1) * 2.0 - 1.0 for i in range(3)], -1)
-
-    lib_in = []
-    for p, r in zip(patches, rels):
-        tt, gs, pz, py, px3 = p.shape
-        inp = p.view(tt * gs, pz, py, px3 // 3, 3).permute(0, 4, 1, 2, 3)
-        lib_in.append((inp, window_grid(r, (pz, py, px3 // 3)).view(tt * gs, 1, 1, -1, 3)))
-
-    def lib5():
-        return [F.grid_sample(i, g, mode="bilinear", padding_mode="border", align_corners=True)
-                for i, g in lib_in]
-
-    lerr = max(max(col_errs(o.view(v.shape[0], v.shape[1], 3, -1).transpose(2, 3), v[..., :3]))
-               for o, v in zip(lib5(), vp))
-    print(f"[K5] grid_sample on the same windows: max|d|/max(|plain|,1) {lerr:.3e}", flush=True)
-    check(lerr < 1e-3, "grid_sample samples the windows as the plain version does")
-    # the patch floats the rows touch, the rows in and the samples out
-    k5_bytes = 0
-    for p, r in zip(patches, rels):
-        tt, gs, pz, py, px3 = p.shape
-        origin = (torch.arange(tt * gs, device=dev) * (pz * py * px3))[:, None].expand(
-            -1, r.shape[2])
-        k5_bytes += (hat_touched_bytes(torch, r, origin, (pz, py, px3 // 3), py * px3, px3)
-                     + 2 * r.numel() * 4)
-    k5 = {"max_abs_err": worst5,
-          "ms": time_ms(torch, lambda: [hs.hat_sample_patch(p, r) for p, r in zip(patches, rels)]),
-          "plain_ms": time_ms(torch, lambda: [hs.hat_sample_patch_plain(p, r)
-                                              for p, r in zip(patches, rels)]),
-          "library_ms": time_ms(torch, lib5),
-          **bound(k5_bytes, sum(r.numel() // 4 for r in rels) * HAT_ROW_FLOPS)}
-    print(f"[K5] T=128 N=20, the three group launches of one iteration: kernel {k5['ms']:.3f} ms, "
-          f"plain {k5['plain_ms']:.3f} ms, grid_sample {k5['library_ms']:.3f} ms, bound "
-          f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}) [{card}]", flush=True)
-
-    # K6: B=1 seed scoring, along the axis and anywhere
-    worst6, timing = 0.0, None
+    # K6's row: B=1 seed scoring in one sigma_max window, along the axis
+    # and anywhere; the last set is the timed one
+    worst6, k6 = 0.0, None
     for label, t, axis_sd, anywhere in (("173 seeds on the axis", 173, 0.5, 0.0),
                                         ("T=512 anywhere", 512, 1.0, 1.0)):
         pos, d = (torch.from_numpy(a).to(dev)
                   for a in tube_queries(rng, dims, t, 1, axis_sd, anywhere))
-        pdims = eng.dims(dims)
-        corner = eng.corners(dims, pos[:, 0], pdims)
-        rel = eng.rel_coords(dims, pdims, corner, pos, d).reshape(t, -1, 4)
-        kern = hs.hat_sample_field(field, corner, rel, pdims)
-        plain = hs.hat_sample_field_plain(field, corner, rel, pdims)
-        err = max(col_errs(kern, plain))
-        print(f"[K6] {label}, window {pdims}: samples max|d|/max(|plain|,1) {err:.3e}", flush=True)
-        check(err < 1e-5, f"K6 {label}: samples within 1e-5 of each column's scale")
-        m = rel.shape[1] // len(SIGMAS)
-        worst6 = max(worst6, corr_check(
-            f"K6 {label} vs plain",
-            eng.finish(kern.view(t, len(SIGMAS), m, 4)[..., :3], t, 1),
-            eng.finish(plain.view(t, len(SIGMAS), m, 4)[..., :3], t, 1)))
-        pc, cc = eng.extract(field, pos[:, 0])
-        corr_check(f"K6 {label} vs extract + K5", eng.eval_fused(field, pos, d),
-                   eng.corr(dims, pc, cc, pos, d))
-        # grid_sample over the whole field, one batch entry per sigma, at
-        # each row's global coordinate corner + rel
-        s_, z_, y_, x3_ = field.shape
-        fin = field.view(s_, z_, y_, x3_ // 3, 3).permute(0, 4, 1, 2, 3)
-        glob = rel.reshape(t, s_, m, 4)[..., :3] + corner.view(t, 1, 1, 3).to(torch.float32)
-        grid = window_grid(glob, (z_, y_, x3_ // 3)).permute(1, 0, 2, 3).reshape(s_, 1, 1, -1, 3)
-
-        def lib6():
-            return F.grid_sample(fin, grid, mode="bilinear", padding_mode="border",
-                                 align_corners=True)
-
-        want = plain.view(t, s_, m, 4)[..., :3].permute(1, 0, 2, 3).reshape(s_, -1, 3)
-        lerr = max(col_errs(lib6().view(s_, 3, -1).transpose(1, 2), want))
-        print(f"[K6] {label}: grid_sample on the field max|d|/max(|plain|,1) {lerr:.3e}", flush=True)
-        check(lerr < 1e-3, "grid_sample samples the field as the plain version does")
-        # the field floats the rows touch, the rows in and out, the corners
-        dims3 = (z_, y_, x3_ // 3)
-        cl = torch.stack([torch.clamp(corner[:, i].long(), 0, dims3[i] - pdims[i])
-                          for i in range(3)], -1)
-        sig = torch.arange(s_, device=dev).repeat_interleave(m)
-        origin = (((sig[None, :] * z_ + cl[:, :1]) * y_ + cl[:, 1:2]) * x3_ + 3 * cl[:, 2:])
-        nbytes = (hat_touched_bytes(torch, rel, origin, pdims, y_ * x3_, x3_)
-                  + 2 * rel.numel() * 4 + corner.numel() * 4)
-        timing = (
-            time_ms(torch, lambda: hs.hat_sample_field(field, corner, rel, pdims)),
-            time_ms(torch, lambda: hs.hat_sample_field_plain(field, corner, rel, pdims)),
-            time_ms(torch, lib6),
-            bound(nbytes, rel.numel() // 4 * HAT_ROW_FLOPS),
-        )
-    k6 = {"max_abs_err": worst6, "ms": timing[0], "plain_ms": timing[1], "library_ms": timing[2],
-          **timing[3]}
-    print(f"[K6] T=512 B=1: kernel {k6['ms']:.3f} ms, plain {k6['plain_ms']:.3f} ms, grid_sample "
-          f"{k6['library_ms']:.3f} ms, bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}) [{card}]",
-          flush=True)
-    return k5, k6
+        lay, corners, err = tube_corr_compare(torch, eng, field, f"tube_corr scoring, {label}",
+                                              pos, d, True)
+        worst6 = max(worst6, err)
+        corr_check(f"tube_corr scoring, {label}: sigma_max window vs group windows",
+                   eng.eval_fused(field, pos, d),
+                   eng.likelihood(field, eng.window(field, pos[:, 0]), pos, d))
+        k6 = tube_corr_row(torch, card, eng, field, f"tube_corr scoring, {label}", lay, corners,
+                           pos, d, True)
+    return k5, {"max_abs_err": worst6, **k6}
 
 
 def phase_bf16(torch):
-    """A forced bfloat16 field against the float32 one, through the
-    tracer's engine (bf16 goes through extract + K5, f32 through K6)."""
+    """A forced bfloat16 field: tube_corr against its plain chain on it,
+    and the field against the float32 one through the tracer's engine."""
     from pnr_tpu_torch import PNRConfig
     from pnr_tpu_torch.smc.tracker import BatchedTracker
 
@@ -705,6 +770,7 @@ def phase_bf16(torch):
     vol = torch.from_numpy(tube(shape, noise=40)).to(dev)
     rng = np.random.default_rng(13)
     pos, d = (torch.from_numpy(a).to(dev) for a in tube_queries(rng, shape, 512, 1, 1.0))
+    chunk = [torch.from_numpy(a).to(dev) for a in tube_queries(rng, shape, 128, 20, 1.0)]
     out = {}
     for dt in ("f32", "bf16"):
         cfg = PNRConfig(sigmas=SIGMAS, znccth=0.5, kappa=3.0, step=2, ni=8, np=20, zdist=ZDIST,
@@ -712,6 +778,10 @@ def phase_bf16(torch):
         tracker = BatchedTracker(cfg, dev)
         field = tracker.prepare_field(vol)
         check(field.dtype == (torch.bfloat16 if dt == "bf16" else torch.float32), "field dtype")
+        if dt == "bf16":
+            # the tracer's windows, and scoring's (the group windows on bf16)
+            tube_corr_compare(torch, tracker.engine, field, "bf16 tube_corr tracer", *chunk, False)
+            tube_corr_compare(torch, tracker.engine, field, "bf16 tube_corr scoring", pos, d, False)
         out[dt] = tracker.engine.eval_fused(field, pos, d)
     err = float((out["bf16"][0] - out["f32"][0]).abs().max())
     flipped = out["bf16"][1] != out["f32"][1]
@@ -730,7 +800,7 @@ def cli_argv(src, workdir, tag, mode):
 
 def counters():
     """Every kernel launch counter of the port, by name."""
-    from pnr_tpu_torch.ops import conv, cuda, frangi_fused, gaussian, hat_sample, zncc_exact
+    from pnr_tpu_torch.ops import conv, cuda, frangi_fused, gaussian, tube_corr, zncc_exact
 
     return {
         "frangi3d_fused": (frangi_fused, "LAUNCHES"),
@@ -738,8 +808,8 @@ def counters():
         "conv1d_axis": (conv, "CONV1D_LAUNCHES"),
         "conv_yx": (conv, "CONV_YX_LAUNCHES"),
         "conv1d_along_axis": (gaussian, "LAUNCHES"),
-        "hat_sample_patch": (hat_sample, "PATCH_LAUNCHES"),
-        "hat_sample_field": (hat_sample, "FIELD_LAUNCHES"),
+        "tube_corr_trace": (tube_corr, "TRACE_LAUNCHES"),
+        "tube_corr_score": (tube_corr, "SCORE_LAUNCHES"),
         "self_check": (cuda, "PROBE_LAUNCHES"),
     }
 
@@ -756,7 +826,7 @@ def read_counters():
 #: the kernels each path must launch
 PATH_KERNELS = {
     "exact": ("frangi3d_fused", "exact_sums"),
-    "tube": ("frangi3d_fused", "conv1d_along_axis", "hat_sample_patch", "hat_sample_field"),
+    "tube": ("frangi3d_fused", "conv1d_along_axis", "tube_corr_trace", "tube_corr_score"),
     "unfused": ("conv1d_axis", "conv_yx", "exact_sums"),
 }
 
@@ -850,18 +920,20 @@ PROFILE_KERNELS = {
     "K3": ("conv1d_axis_kernel",),
     "K4": ("conv_yx_kernel",),
     "K2": ("exact_sums_kernel",),
-    "K5": ("hat_patch_kernel",),
-    "K6": ("hat_field_kernel",),
+    "tube_corr (K5, K6)": ("tube_corr_kernel",),
 }
 
 
 def phase_profile(torch, card, mode, run, unprofiled_s):
     """One more run of a path (`run()`) under torch.profiler: the card's
     busy time (union of its kernel and copy spans), idle share, per-kernel
-    device time and the host's kernel-launch calls."""
+    device time and the host's kernel-launch calls; in tube mode also those
+    calls per tracer step (one iteration of one chunk: two tube_corr
+    launches) and the device time per tube_corr launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    reset_counters()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -892,8 +964,14 @@ def phase_profile(torch, card, mode, run, unprofiled_s):
         f"{k} {ms:.3f} ms in {n} launches" for k, (ms, n) in per.items() if n)
         + f"; {len(dev)} device ops; {len(host_launch)} host kernel-launch calls taking "
           f"{launch_ms:.3f} ms", flush=True)
+    if mode == "tube":
+        steps = read_counters()["tube_corr_trace"] // 2
+        ms, n = per["tube_corr (K5, K6)"]
+        print(f"[profile tube] {steps} tracer steps: {len(host_launch) / max(steps, 1):.1f} host "
+              f"kernel-launch calls per step (the whole run's calls over its steps); tube_corr "
+              f"{ms / max(n, 1) * 1e3:.3f} us of device time per launch [{card}]", flush=True)
     want = {"exact": ("K1 (frangi_scale, decode_stats)", "K2"),
-            "tube": ("K1 (frangi_scale, decode_stats)", "K5", "K6"),
+            "tube": ("K1 (frangi_scale, decode_stats)", "tube_corr (K5, K6)"),
             "unfused": ("K3", "K4", "K2")}[mode]
     check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {mode} path")
     top = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
@@ -946,7 +1024,7 @@ def main() -> int:
     unfused = phase_unfused(torch, card, main_vol)
     k2 = phase_k2(torch, card, main_vol)
     field, maps = phase_maps(torch, card, main_vol)
-    k5, k6 = phase_k5_k6(torch, card, field)
+    k5, k6 = phase_tube_corr(torch, card, field)
     del main_vol, field
     phase_bf16(torch)
     torch.cuda.empty_cache()
@@ -988,14 +1066,14 @@ def main() -> int:
          "source": "pnr_tpu_torch/csrc/zncc_exact.cu",
          "replaces": "pnr_tpu/ops/zncc_exact.py:194",
          "launches": launches["exact"]["exact_sums"], **k2},
-        {"name": "hat_sample_patch", "route": "cuda",
-         "source": "pnr_tpu_torch/csrc/hat_sample.cu",
+        {"name": "tube_corr (tracer)", "route": "cuda",
+         "source": "pnr_tpu_torch/csrc/tube_corr.cu",
          "replaces": "pnr_tpu/ops/pallas_sample.py:66",
-         "launches": launches["tube"]["hat_sample_patch"], **k5},
-        {"name": "hat_sample_field", "route": "cuda",
-         "source": "pnr_tpu_torch/csrc/hat_sample.cu",
+         "launches": launches["tube"]["tube_corr_trace"], **k5},
+        {"name": "tube_corr (seed scoring)", "route": "cuda",
+         "source": "pnr_tpu_torch/csrc/tube_corr.cu",
          "replaces": "pnr_tpu/ops/pallas_sample.py:145",
-         "launches": launches["tube"]["hat_sample_field"], **k6},
+         "launches": launches["tube"]["tube_corr_score"], **k6},
         {"name": "conv1d_axis", "route": "cuda",
          "source": "pnr_tpu_torch/csrc/conv.cu",
          "replaces": "pnr_tpu/ops/pallas_conv.py:41",

@@ -20,10 +20,10 @@ sigmas, the earliest sigma winning ties. The constants come from the
   shift-and-add on the CPU, `pnr_gauss1d` on a card.
 * `make_tube_zncc_fn`: the global gather form, plain torch on
   `ops/interp.trilinear`.
-* `TubePatchEngine`: the tracer's per-trace-patch evaluator with the JAX
-  engine's window arithmetic; `corr` samples the windows through K5 and
-  `eval_fused` (seed scoring) samples the field through K6
-  (ops/hat_sample.py).
+* `TubePatchEngine`: the tracer's per-trace-window evaluator with the JAX
+  engine's window arithmetic; the tracer (`window` + `likelihood`) and
+  seed scoring (`eval_fused`) evaluate through `tube_corr`
+  (ops/tube_corr.py), one launch per evaluation on a card.
 """
 
 from __future__ import annotations
@@ -37,41 +37,19 @@ import torch
 from pnr_tpu_torch.ops.zncc_model import TubeZnccModel
 from pnr_tpu_torch.ops.conv import conv1d_axis_plain
 from pnr_tpu_torch.ops.gaussian import conv1d_along_axis
-from pnr_tpu_torch.ops.hat_sample import hat_sample_field, hat_sample_patch, slice_windows
 from pnr_tpu_torch.ops.interp import trilinear
-from pnr_tpu_torch.ops.zncc import _FLT_MIN
-
-
-class TubeTables(NamedTuple):
-    """`TubeZnccModel`'s constants as float32 tensors on one device."""
-
-    alpha1: torch.Tensor  # (S,)
-    alpha2: torch.Tensor  # (S,)
-    gbar: torch.Tensor  # (S,)
-    n: torch.Tensor  # (S,)
-    corrc: torch.Tensor  # (S,)
-    sigmas: torch.Tensor  # (S,)
-    vgrid: torch.Tensor  # (S, NV) offsets along the direction, zero-padded
-    vmask: torch.Tensor  # (S, NV) 1 where vgrid is a real sample
-
-
-def tube_tables(model: TubeZnccModel, device) -> TubeTables:
-    s = len(model.sigmas)
-    nv = max(len(v) for v in model.v_grids)
-    vgrid = np.zeros((s, nv), np.float32)
-    vmask = np.zeros((s, nv), np.float32)
-    for i, vv in enumerate(model.v_grids):
-        vgrid[i, : len(vv)] = vv
-        vmask[i, : len(vv)] = 1.0
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-
-    return TubeTables(
-        alpha1=t(model.alpha1), alpha2=t(model.alpha2), gbar=t(model.gbar), n=t(model.n),
-        corrc=t(model.corrc), sigmas=t(np.asarray(model.sigmas)), vgrid=t(vgrid),
-        vmask=t(vmask),
-    )
+from pnr_tpu_torch.ops.tube_corr import (
+    KernelParams,
+    TubeTables,
+    corr_from_sums,
+    finish,
+    hat_sample_patch_plain,
+    rel_coords,
+    slice_windows,
+    tube_corr,
+    tube_tables,
+    vol_dims,
+)
 
 
 def field_from_numpy(maps: np.ndarray, device) -> torch.Tensor:
@@ -171,24 +149,6 @@ def build_tube_maps_packed_blocked(
 # -- correlation ----------------------------------------------------------
 
 
-def corr_from_sums(tables: TubeTables, s1, s2, s3):
-    """ZNCC from the three tube sums (..., S), max over the sigmas; the
-    earliest sigma wins a tie (torch.argmax returns the first maximum)."""
-    s1 = s1 * tables.alpha1
-    s2 = s2 * tables.alpha2
-    s3 = s3 * tables.alpha2
-    corra = s1 - tables.gbar * s2
-    corrb = torch.clamp(s3 - (s2 * s2) / tables.n, min=0.0)
-    denom = corrb * tables.corrc
-    corrs = torch.where(
-        denom > _FLT_MIN,
-        corra / torch.sqrt(torch.clamp(denom, min=_FLT_MIN)),
-        torch.zeros_like(denom),
-    )
-    best = torch.argmax(corrs, dim=-1)
-    return torch.amax(corrs, dim=-1), tables.sigmas[best]
-
-
 def make_tube_zncc_fn(model: TubeZnccModel):
     """(planar maps (3S, Z, Y, X), pos (N, 3), dirs (N, 3)) -> (corr, sig),
     sampling the maps with `trilinear` at p + v*dir."""
@@ -212,8 +172,19 @@ def _ext(h: int) -> int:
     return -(-(2 * h + 2) // 8) * 8
 
 
+class _Layout(NamedTuple):
+    """One window table on one device: the groups, each group's corner
+    offsets and bounds as (G, 3) int32 zyx tensors, and the kernel's
+    constants (None on the CPU)."""
+
+    groups: list  # [(g0, g1, (pz, py, px))]
+    half: torch.Tensor  # p // 2
+    hi: torch.Tensor  # dim - p
+    params: KernelParams
+
+
 class TubePatchEngine:
-    """Per-trace-patch tube ZNCC on the packed field (S, Z, Y, 3X).
+    """Per-trace-window tube ZNCC on the packed field (S, Z, Y, 3X).
 
     Port of `make_tube_patch_engine` (pnr_tpu/ops/zncc_fast.py), with its
     window arithmetic kept exactly: windows per contiguous run of sigmas
@@ -222,15 +193,19 @@ class TubePatchEngine:
     line extent, rounded up to a multiple of 8 and clipped to the volume.
     A sample outside its window clamps to the window's edge.
 
-    extract(maps, center (T, 3) xyz) -> (patches, corners), one float32
-        (T, gs, pz, py, 3px) patch tensor and one (T, 3) zyx corner per
-        sigma group
-    corr(vol_dims, patches, corners, pos (T, N, 3), dirs) -> (corr, sig),
-        both (T, N), through K5
-    eval_fused(maps, pos, dirs): the same with one (sigma_max) window per
-        trace centred on the mean of its queries, sampled from the field
-        through K6 (a bfloat16 field goes through extract + corr, which
-        widen the patches to float32)
+    window(maps, center (T, 3) xyz, single=False) -> (T, G, 3) int32 zyx
+        window origins, one per sigma group (`single`: one sigma_max window)
+    likelihood(maps, corners, pos (T, N, 3), dirs, single=False) ->
+        (corr, sig), both (T, N): the tracer's evaluation, through
+        `tube_corr` (TRACE_LAUNCHES)
+    eval_fused(maps, pos, dirs): seed scoring, one window per trace
+        centred on the mean of its queries, through `tube_corr`
+        (SCORE_LAUNCHES): one sigma_max window on a float32 field, the
+        group windows on a bfloat16 one (as the JAX engine routes them)
+    extract(maps, center) -> (patches, corners) and corr(vol_dims,
+        patches, corners, pos, dirs) -> (corr, sig): the JAX engine's
+        extract + corr chain on float32 patches, in plain torch on any
+        device; `tube_corr_plain` computes it without keeping the patches
 
     The tables live on `device` (the card by default); given `tables`, the
     engine takes them, and their device, as they are.
@@ -250,12 +225,9 @@ class TubePatchEngine:
         self.half = int(math.ceil(allowance)) + max(self.v2_per_sigma) + 1
         self.cloud_xy = int(math.ceil(allowance))
         self.cloud_z = int(math.ceil(allowance / float(zdist)))
+        self._layouts = {}
 
-    @staticmethod
-    def vol_dims(maps_shape) -> Tuple[int, int, int]:
-        """True (Z, Y, X) volume dims of the packed (S, Z, Y, 3X) field."""
-        _, l, h, w3 = (int(d) for d in maps_shape)
-        return l, h, w3 // 3
+    vol_dims = staticmethod(vol_dims)
 
     def dims(self, vol_dims) -> Tuple[int, int, int]:
         """The sigma_max window in every axis (eval_fused's)."""
@@ -277,9 +249,29 @@ class TubePatchEngine:
                 g0 = i
         return out
 
+    def layout(self, maps: torch.Tensor, single: bool = False) -> _Layout:
+        """The window table of a field (`single`: one sigma_max window for
+        all sigmas), built once per field shape and device."""
+        key = (maps.shape, single, maps.device)
+        lay = self._layouts.get(key)
+        if lay is None:
+            vdims = self.vol_dims(maps.shape)
+            groups = [(0, self.s_count, self.dims(vdims))] if single else self.groups(vdims)
+
+            def zyx(f):
+                return torch.tensor([[f(d, p) for d, p in zip(vdims, pd)] for *_, pd in groups],
+                                    dtype=torch.int32, device=maps.device)
+
+            params = (KernelParams(self.tables, groups, vdims, maps.device) if maps.is_cuda
+                      else None)
+            lay = _Layout(groups, zyx(lambda d, p: p // 2), zyx(lambda d, p: d - p), params)
+            self._layouts[key] = lay
+        return lay
+
     @staticmethod
     def corners(vol_dims, center: torch.Tensor, pdims) -> torch.Tensor:
-        """(T, 3) int32 zyx window origins around `center` (T, 3) xyz."""
+        """(T, 3) int32 zyx origins of (pz, py, px) windows around `center`
+        (T, 3) xyz (torch.round is half-to-even, as jnp.round)."""
         l, h, w = vol_dims
         pz, py, px = pdims
         c = torch.round(center).to(torch.int32)
@@ -287,6 +279,23 @@ class TubePatchEngine:
         cy = torch.clamp(c[:, 1] - py // 2, 0, h - py)
         cz = torch.clamp(c[:, 2] - pz // 2, 0, l - pz)
         return torch.stack([cz, cy, cx], dim=-1).contiguous()
+
+    def window(self, maps: torch.Tensor, center: torch.Tensor, single: bool = False):
+        """`corners` for every group at once: (T, G, 3) int32 zyx."""
+        lay = self.layout(maps, single)
+        c = torch.round(center).to(torch.int32).flip(-1)
+        return torch.minimum(torch.clamp(c[:, None, :] - lay.half, min=0), lay.hi)
+
+    def likelihood(self, maps, corners, pos, dirs, single: bool = False, scoring: bool = False):
+        lay = self.layout(maps, single)
+        out, _ = tube_corr(maps, lay.groups, corners, pos, dirs, self.tables, lay.params,
+                           scoring=scoring)
+        return out[0], out[1]
+
+    def eval_fused(self, maps: torch.Tensor, pos: torch.Tensor, dirs: torch.Tensor):
+        single = maps.dtype == torch.float32
+        corners = self.window(maps, pos.mean(dim=1), single)
+        return self.likelihood(maps, corners, pos, dirs, single, scoring=True)
 
     def extract(self, maps: torch.Tensor, center: torch.Tensor):
         vdims = self.vol_dims(maps.shape)
@@ -298,50 +307,14 @@ class TubePatchEngine:
             corners.append(corner)
         return tuple(patches), tuple(corners)
 
-    def rel_coords(self, vol_dims, pdims, corner, pos, dirs, g0=0, g1=None) -> torch.Tensor:
-        """(T, g1-g0, N*NV, 4) rows (rz, ry, rx, 0): the samples p + v*dir
-        of sigmas [g0, g1), clamped to the volume, then into the window."""
-        g1 = self.s_count if g1 is None else g1
-        l, h, w = vol_dims
-        pz, py, px = pdims
-        t, n = pos.shape[:2]
-        vg = self.tables.vgrid[g0:g1]
-        pts = pos[:, :, None, None, :] + vg[None, None, :, :, None] * dirs[:, :, None, None, :]
-        pts = pts.permute(0, 2, 1, 3, 4).reshape(t, g1 - g0, n * self.nv, 3)
-        cf = corner.to(torch.float32)[:, None, None, :]
-        rx = torch.clamp(torch.clamp(pts[..., 0], 0.0, w - 1.001) - cf[..., 2], 0.0, px - 1.001)
-        ry = torch.clamp(torch.clamp(pts[..., 1], 0.0, h - 1.001) - cf[..., 1], 0.0, py - 1.001)
-        rz = torch.clamp(torch.clamp(pts[..., 2], 0.0, l - 1.001) - cf[..., 0], 0.0, pz - 1.001)
-        return torch.stack([rz, ry, rx, torch.zeros_like(rx)], dim=-1)
-
-    def finish(self, v: torch.Tensor, t: int, n: int):
-        """(T, S, N*NV, 3) sample values -> (corr, sig), both (T, N)."""
-        v = v.reshape(t, self.s_count, n, self.nv, 3)
-        sums = (v * self.tables.vmask[None, :, None, :, None]).sum(dim=3)  # (T, S, N, 3)
-        s1, s2, s3 = (sums[..., c].permute(0, 2, 1) for c in range(3))
-        return corr_from_sums(self.tables, s1, s2, s3)
-
     def corr(self, vol_dims, patches, corners, pos, dirs):
         t, n = pos.shape[:2]
         vs, g0 = [], 0
         for pat, corner in zip(patches, corners):
             _, gs, pz, py, px3 = pat.shape
-            rel = self.rel_coords(vol_dims, (pz, py, px3 // 3), corner, pos, dirs, g0, g0 + gs)
-            vs.append(hat_sample_patch(pat, rel)[..., :3])
+            rel = rel_coords(self.tables, vol_dims, (pz, py, px3 // 3), corner, pos, dirs, g0,
+                             g0 + gs)
+            vs.append(hat_sample_patch_plain(pat, rel)[..., :3])
             g0 += gs
         v = vs[0] if len(vs) == 1 else torch.cat(vs, dim=1)
-        return self.finish(v, t, n)
-
-    def eval_fused(self, maps: torch.Tensor, pos: torch.Tensor, dirs: torch.Tensor):
-        t, n = pos.shape[:2]
-        center = pos.mean(dim=1)
-        vdims = self.vol_dims(maps.shape)
-        if maps.dtype != torch.float32:
-            patches, corners = self.extract(maps, center)
-            return self.corr(vdims, patches, corners, pos, dirs)
-        pdims = self.dims(vdims)
-        corner = self.corners(vdims, center, pdims)
-        rel = self.rel_coords(vdims, pdims, corner, pos, dirs)
-        m = n * self.nv
-        out = hat_sample_field(maps, corner, rel.reshape(t, self.s_count * m, 4), pdims)
-        return self.finish(out.reshape(t, self.s_count, m, 4)[..., :3], t, n)
+        return finish(self.tables, v, t, n)[:2]

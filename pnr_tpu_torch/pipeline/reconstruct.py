@@ -6,9 +6,9 @@ Port of pnr_tpu/pipeline/reconstruct.py (parity target
 `cfg.fused_frangi` is off or the stack is over K1's cap) -> J8 -> native
 host seed flood -> the likelihood
 field (the volume in exact mode, the tube map stack in tube mode) -> seed
-scoring (K2 in exact mode, K6 in tube mode) -> SMC tracing in waves with
-the in-order FCFS commit wavefront (K2, or K5 in tube mode) -> graph
-post-processing. Soma extraction and 2-D stacks are not ported yet and
+scoring (K2 in exact mode, tube_corr in tube mode) -> SMC tracing in waves
+with the in-order FCFS commit wavefront (K2, or tube_corr in tube mode) ->
+graph post-processing. Soma extraction and 2-D stacks are not ported yet and
 raise NotImplementedError.
 
 Every entry point takes a `device`, "cuda" unless the caller asks for the
@@ -135,7 +135,7 @@ class _StageTimer:
 def _score_seeds(field: torch.Tensor, pos: np.ndarray, dirs: np.ndarray, tracker):
     """Batched znccBBB over all seeds (Advantra_plugin.cpp:2561-2575):
     one tight window per seed, B=1, through the engine's `eval_fused`
-    (K2 in exact mode, K6 in tube mode, in chunks of 1024 as JAX's)."""
+    (K2 in exact mode, tube_corr in tube mode, in chunks of 1024 as JAX's)."""
     chunk = 1024 if tracker.tube else 4096
     corrs = np.empty(len(pos), np.float32)
     dev = field.device

@@ -25,10 +25,11 @@ particle cloud; the centroid's ZNCC reuses the iteration's window.
 * exact mode: the field is the uint8 volume and every ZNCC goes through
   K2 (ops/zncc_exact.py);
 * tube mode: the field is the packed (S, Z, Y, 3X) tube map stack
-  (`prepare_field`), the windows are patches cut per sigma group
-  (ops/zncc_fast.py `TubePatchEngine.extract`) and sampled through K5;
-  with `patch_reuse` = k one extraction feeds k consecutive iterations of
-  a stage, grouped as `divmod(n_it, k)` plus a remainder group, as JAX
+  (`prepare_field`), the windows are one corner per sigma group
+  (ops/zncc_fast.py `TubePatchEngine.window`) and each evaluation is one
+  `tube_corr` call, which reads the windows in place (ops/tube_corr.py);
+  with `patch_reuse` = k one window feeds k consecutive iterations of a
+  stage, grouped as `divmod(n_it, k)` plus a remainder group, as JAX
   groups them.
 """
 
@@ -194,15 +195,15 @@ class BatchedTracker:
 
     def _window(self, field, pos):
         """The iteration's window(s), centred on each particle cloud: the
-        exact engine's corner, or the tube engine's (patches, corners)."""
+        exact engine's corner, or the tube engine's (T, G, 3) group corners."""
         center = pos.mean(dim=1)
         if self.tube:
-            return self.engine.extract(field, center)
+            return self.engine.window(field, center)
         return self.engine.corners(field.shape, center)
 
     def _corr(self, field, ctx, pos, dirs):
         if self.tube:
-            return self.engine.corr(self.vol_dims(field), *ctx, pos, dirs)
+            return self.engine.likelihood(field, ctx, pos, dirs)
         return self.engine.corr(field, ctx, pos, dirs)
 
     def _estimate(self, field, ctx, pos, dirs, wgt):

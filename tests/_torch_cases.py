@@ -202,3 +202,14 @@ def tube_queries(shape, t=TUBE_T, n=TUBE_N, seed=0, edges=False):
     d = rng.normal(size=(t, n, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return pos.astype(np.float32), d.astype(np.float32)
+
+
+#: tube engine cases: (volume shape, sigmas, reuse, edges)
+ENGINE_CASES = {
+    "reuse1": ((24, 64, 96), (2.0, 3.0), 1, False),
+    "reuse3": ((24, 64, 96), (2.0, 3.0), 3, False),
+    "edges": ((24, 64, 96), (2.0, 3.0), 1, True),
+    "sigmas_2_4_6": ((24, 64, 96), (2.0, 4.0, 6.0), 1, False),
+    # h and w under the window: the windows are clipped to the volume
+    "degenerate": ((20, 12, 14), (2.0, 3.0), 1, False),
+}

@@ -42,7 +42,7 @@ PORT_MODULES = (
     "pnr_tpu_torch.ops.zncc",
     "pnr_tpu_torch.ops.zncc_model",
     "pnr_tpu_torch.ops.zncc_exact",
-    "pnr_tpu_torch.ops.hat_sample",
+    "pnr_tpu_torch.ops.tube_corr",
     "pnr_tpu_torch.ops.zncc_fast",
     "pnr_tpu_torch.seeds.extract",
     "pnr_tpu_torch.smc.directions",
@@ -207,18 +207,21 @@ def test_cuda_wrappers_reject_cpu_tensors_on_the_kernel_route():
 
 
 def test_tube_wrappers_reject_cpu_tensors_on_the_kernel_route():
-    """K5, K6 and the map build's 1-D correlation validate their inputs on
-    the CUDA route instead of falling back to the plain versions."""
-    from pnr_tpu_torch.ops import gaussian, hat_sample
+    """`tube_corr` and the map build's 1-D correlation validate their
+    inputs on the CUDA route instead of falling back to the plain versions."""
+    from pnr_tpu_torch.ops import gaussian, tube_corr
+    from pnr_tpu_torch.ops.zncc_model import TubeZnccModel
 
-    patches = torch.zeros((1, 1, 4, 4, 12))
-    rel = torch.zeros((1, 1, 5, 4))
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        hat_sample._hat_sample_patch_cuda(patches, rel)
+    tables = tube_corr.tube_tables(TubeZnccModel((2.0,), False), "cpu")
+    params = tube_corr.KernelParams(tables, [(0, 1, (4, 4, 4))], (8, 8, 8), "cpu")
     maps = torch.zeros((1, 8, 8, 24))
-    corners = torch.zeros((1, 3), dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        hat_sample._hat_sample_field_cuda(maps, corners, rel[0], (4, 4, 4))
+    corners = torch.zeros((1, 1, 3), dtype=torch.int32)
+    pos = torch.zeros((1, 5, 3))
+    n = tube_corr.TRACE_LAUNCHES, tube_corr.SCORE_LAUNCHES
+    for scoring in (False, True):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tube_corr._tube_corr_cuda(maps, corners, pos, pos, params, scoring)
+    assert (tube_corr.TRACE_LAUNCHES, tube_corr.SCORE_LAUNCHES) == n
     with pytest.raises(ValueError, match="CUDA tensor"):
         gaussian._conv1d_cuda(torch.zeros((4, 4, 4)), np.ones(3, np.float32), 0)
     with pytest.raises(TypeError, match="uint8 or float32"):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (Frangi), K2 (exact ZNCC sums), K3 and K4 (the unfused filter's 1-D and
 fused y-x correlations) with the unfused and tiled Frangi engines on them,
-K7's build-and-launch check, the tube map build's 1-D correlation, K5 and
-K6 (tube-map hat sampling), and the main paths on a small stack.
+K7's build-and-launch check, the tube map build's 1-D correlation,
+`tube_corr` (the tube likelihood, K5's and K6's counterpart), and the main
+paths on a small stack.
 
 Every test here needs a CUDA device (the kernels have no CPU mode): they
 carry the `cuda` marker and skip without one. The file imports no jax, so
@@ -32,7 +33,7 @@ from _torch_cases import (
     tube_queries,
 )
 from pnr_tpu_torch import PNRConfig
-from pnr_tpu_torch.ops import conv, cuda, frangi_blocked, frangi_fused, gaussian, hat_sample
+from pnr_tpu_torch.ops import conv, cuda, frangi_blocked, frangi_fused, gaussian, tube_corr
 from pnr_tpu_torch.ops import zncc_exact
 from pnr_tpu_torch.ops.frangi import frangi3d
 from pnr_tpu_torch.ops.frangi import frangi3d_plain as plain_frangi3d
@@ -203,7 +204,7 @@ def small_stack():
 PATH_COUNTERS = {
     "exact": ((frangi_fused, "LAUNCHES"), (zncc_exact, "LAUNCHES")),
     "tube": ((frangi_fused, "LAUNCHES"), (gaussian, "LAUNCHES"),
-             (hat_sample, "PATCH_LAUNCHES"), (hat_sample, "FIELD_LAUNCHES")),
+             (tube_corr, "TRACE_LAUNCHES"), (tube_corr, "SCORE_LAUNCHES")),
     "unfused": ((conv, "CONV1D_LAUNCHES"), (conv, "CONV_YX_LAUNCHES"),
                 (zncc_exact, "LAUNCHES")),
 }
@@ -244,15 +245,17 @@ def _small_stack_on_card(dev, mode):
     assert abs(np.median(gpu.tree.y[1:]) - np.median(cpu.tree.y[1:])) < 2.0
 
 
-# tube mode: the map build (pnr_gauss1d), K5 and K6 against their plain
-# versions on the card (bars of chip_smoke.py: sums within 1e-5 of each
-# column's scale, corr max|d| < 1e-4, sigma agreement > 0.99)
+# tube mode: the map build (pnr_gauss1d) and `tube_corr` against their
+# plain versions on the card (bars of chip_smoke.py: line sums within 1e-5
+# of each column's scale, corr max|d| < 1e-4, sigma agreement > 0.99)
 
 TUBE_CASES = {
     "reuse1": ((24, 64, 96), (2.0, 3.0), 1, False),
     "reuse3_edges": ((24, 64, 96), (2.0, 3.0), 3, True),
     "sigmas_2_4_6": ((24, 64, 96), (2.0, 4.0, 6.0), 1, False),
     "degenerate": ((20, 12, 14), (2.0, 3.0), 1, False),
+    # 36 (sigma, line sample) rows: more than a warp's lanes
+    "four_sigmas": ((40, 64, 96), (2.0, 4.0, 6.0, 8.0), 1, False),
 }
 
 
@@ -278,46 +281,109 @@ def test_map_build_kernel_matches_plain(dev, sigmas):
         vol, model).reshape(*kern.shape[:3], -1, 3))
 
 
-@pytest.mark.parametrize("case", list(TUBE_CASES))
-def test_hat_sample_kernels_match_plain(dev, case):
+TUBE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def tube_case(dev, case, dtype):
     shape, sigmas, reuse, edges = TUBE_CASES[case]
     model = TubeZnccModel(sigmas, False)
-    field = build_tube_maps_packed(torch.from_numpy(noisy_tube(shape)).to(dev), model)
+    vol = torch.from_numpy(noisy_tube(shape)).to(dev)
+    field = build_tube_maps_packed(vol, model).to(TUBE_DTYPES[dtype])
     eng = TubePatchEngine(model, STEP, ZDIST, reuse=reuse, device=dev)
     pos, d = (torch.from_numpy(a).to(dev) for a in tube_queries(shape, edges=edges))
-    t, n = pos.shape[:2]
-    # K5 on the tracer's group windows
-    patches, corners = eng.extract(field, pos.mean(dim=1))
-    vk, vp = [], []
-    for pat, corner, (g0, g1, pdims) in zip(patches, corners, eng.groups(shape)):
-        rel = eng.rel_coords(shape, pdims, corner, pos, d, g0, g1)
-        vk.append(hat_sample.hat_sample_patch(pat, rel)[..., :3])
-        vp.append(hat_sample.hat_sample_patch_plain(pat, rel)[..., :3])
-        check_samples(vk[-1], vp[-1])
-    patch_corr = eng.finish(torch.cat(vk, dim=1), t, n)
-    check_corr(patch_corr, eng.finish(torch.cat(vp, dim=1), t, n))
-    # K6 on one sigma_max window per query, B=1
+    return shape, eng, field, pos, d
+
+
+def launches():
+    return tube_corr.TRACE_LAUNCHES, tube_corr.SCORE_LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", list(TUBE_DTYPES))
+@pytest.mark.parametrize("case", list(TUBE_CASES))
+def test_tube_corr_kernel_matches_plain(dev, case, dtype):
+    """The tracer's evaluation: the group windows of one chunk."""
+    shape, eng, field, pos, d = tube_case(dev, case, dtype)
+    corners = eng.window(field, pos.mean(dim=1))
+    lay = eng.layout(field)
+    n5, n6 = launches()
+    out, ksums = tube_corr.tube_corr(field, lay.groups, corners, pos, d, eng.tables, lay.params,
+                                     with_sums=True)
+    assert launches() == (n5 + 1, n6)
+    kc, ks = out
+    pc, ps, psums = tube_corr.tube_corr_plain(field, lay.groups, corners, pos, d, eng.tables)
+    check_samples(ksums, psums)
+    check_corr((kc, ks), (pc, ps))
+    # the engine's route is the same launch, without the sums
+    got = eng.likelihood(field, corners, pos, d)
+    assert launches() == (n5 + 2, n6)
+    assert torch.equal(got[0], kc) and torch.equal(got[1], ks)
+
+
+@pytest.mark.parametrize("dtype", list(TUBE_DTYPES))
+@pytest.mark.parametrize("case", list(TUBE_CASES))
+def test_tube_corr_single_window_matches_plain(dev, case, dtype):
+    """Seed scoring (B=1): one sigma_max window per query on a float32
+    field, the group windows on a bfloat16 one."""
+    shape, eng, field, pos, d = tube_case(dev, case, dtype)
     p1, d1 = pos[:, :1].contiguous(), d[:, :1].contiguous()
-    pdims = eng.dims(shape)
-    corner = eng.corners(shape, p1[:, 0], pdims)
-    rel = eng.rel_coords(shape, pdims, corner, p1, d1).reshape(t, -1, 4)
-    m = hat_sample.FIELD_LAUNCHES
-    kern = hat_sample.hat_sample_field(field, corner, rel, pdims)
-    assert hat_sample.FIELD_LAUNCHES == m + 1
-    check_samples(kern, hat_sample.hat_sample_field_plain(field, corner, rel, pdims))
-    # eval_fused (K6) against extract + K5 on the same queries
-    pc, cc = eng.extract(field, p1[:, 0])
-    check_corr(eng.eval_fused(field, p1, d1), eng.corr(shape, pc, cc, p1, d1))
+    single = dtype == "f32"
+    corners = eng.window(field, p1[:, 0], single)
+    lay = eng.layout(field, single)
+    n5, n6 = launches()
+    kc, ks = eng.eval_fused(field, p1, d1)
+    assert launches() == (n5, n6 + 1)
+    pc, ps, psums = tube_corr.tube_corr_plain(field, lay.groups, corners, p1, d1, eng.tables)
+    check_corr((kc, ks), (pc, ps))
+    _, ksums = tube_corr.tube_corr(field, lay.groups, corners, p1, d1, eng.tables, lay.params,
+                                   scoring=True, with_sums=True)
+    assert launches() == (n5, n6 + 2)
+    check_samples(ksums, psums)
+    if single:
+        # the sigma_max window against the tracer's group windows
+        check_corr((kc, ks), eng.likelihood(field, eng.window(field, p1[:, 0]), p1, d1))
 
 
-def test_hat_sample_kernels_reject_what_they_cannot_take(dev):
-    pat = torch.zeros((1, 1, 1, 4, 12), device=dev)
+def test_tube_corr_tie_goes_to_the_earliest_sigma(dev):
+    shape = (24, 64, 96)
+    vol = torch.from_numpy(noisy_tube(shape)).to(dev)
+    pos, d = (torch.from_numpy(a).to(dev) for a in tube_queries(shape))
+    # two sigmas with the same constants and windows, told apart by label
+    model = TubeZnccModel((3.0, 3.0), False)
+    eng = TubePatchEngine(model, STEP, ZDIST, device=dev)
+    eng.tables = eng.tables._replace(sigmas=torch.tensor([5.0, 7.0], device=dev))
+    field = build_tube_maps_packed(vol, model)
+    corr, sig = eng.likelihood(field, eng.window(field, pos.mean(dim=1)), pos, d)
+    assert bool((corr != 0).any()) and bool((sig == 5.0).all())
+    # an all-zero field: every sigma's correlation is gated to 0
+    eng = TubePatchEngine(TubeZnccModel((2.0, 4.0, 6.0), False), STEP, ZDIST, device=dev)
+    zero = torch.zeros((3, *shape[:2], 3 * shape[2]), device=dev)
+    corr, sig = eng.likelihood(zero, eng.window(zero, pos.mean(dim=1)), pos, d)
+    assert bool((corr == 0).all()) and bool((sig == 2.0).all())
+
+
+def test_tube_corr_rejects_what_it_cannot_take(dev):
+    tables = TubePatchEngine(TubeZnccModel((2.0,), False), STEP, ZDIST, device=dev).tables
+    pos = torch.zeros((2, 5, 3), device=dev)
+    corners = torch.zeros((2, 1, 3), dtype=torch.int32, device=dev)
+    field = torch.zeros((1, 8, 8, 24), device=dev)
+    groups = [(0, 1, (4, 4, 4))]
+    n = launches()
     with pytest.raises(ValueError, match=">= 2"):
-        hat_sample.hat_sample_patch(pat, torch.zeros((1, 1, 3, 4), device=dev))
-    maps = torch.zeros((2, 8, 8, 24), device=dev)
-    corner = torch.zeros((1, 3), dtype=torch.int32, device=dev)
+        tube_corr.tube_corr(field, [(0, 1, (1, 4, 4))], corners, pos, pos, tables)
     with pytest.raises(TypeError):
-        hat_sample.hat_sample_field(maps.to(torch.bfloat16), corner,
-                                    torch.zeros((1, 6, 4), device=dev), (4, 4, 4))
+        tube_corr.tube_corr(field.double(), groups, corners, pos, pos, tables)
+    with pytest.raises(TypeError):
+        tube_corr.tube_corr(field, groups, corners.float(), pos, pos, tables)
     with pytest.raises(ValueError, match="bad shapes"):
-        hat_sample.hat_sample_field(maps, corner, torch.zeros((1, 5, 4), device=dev), (4, 4, 4))
+        tube_corr.tube_corr(field, groups, corners.repeat(1, 2, 1), pos, pos, tables)
+    with pytest.raises(ValueError, match="bad shapes"):
+        tube_corr.tube_corr(field, groups, corners, pos, pos[:, :4], tables)
+    with pytest.raises(ValueError, match="bad shapes"):
+        params = tube_corr.KernelParams(tables, groups, (8, 8, 7), dev)
+        tube_corr.tube_corr(field, groups, corners, pos, pos, tables, params)
+    with pytest.raises(ValueError, match="contiguous"):
+        tube_corr.tube_corr(field, groups, corners, pos.transpose(0, 1).contiguous().transpose(0, 1),
+                            pos, tables)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tube_corr.tube_corr(field, groups, corners, pos.cpu(), pos, tables)
+    assert launches() == n

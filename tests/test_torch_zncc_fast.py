@@ -1,5 +1,5 @@
 """Tube mode's modules (pnr_tpu_torch/ops/zncc_fast.py and the plain
-versions of K5/K6 in ops/hat_sample.py) against the JAX package, on the CPU.
+chain of `tube_corr` in ops/tube_corr.py) against the JAX package, on the CPU.
 
 The map builds are held to `build_tube_maps_packed*` at the bars of
 tests/test_zncc.py (rel 2e-6; bfloat16 fields at most one bfloat16 ulp
@@ -7,8 +7,8 @@ apart). The engine runs on the JAX package's own field
 (`field_from_numpy`), so that an engine mismatch is not read as a build
 mismatch, and is held to JAX's XLA path: correlation atol 2e-5 and the
 argmax sigma equal on more than 99% of queries. The plain K5/K6 are held
-to the Pallas kernels in interpret mode at atol 5e-5. The CUDA kernels are
-held to these plain versions in tests/test_torch_kernels.py.
+to the Pallas kernels in interpret mode at atol 5e-5. The CUDA kernel is
+held to this plain chain in tests/test_torch_kernels.py.
 """
 
 import functools
@@ -18,13 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import noisy_tube, tube_queries
+from _torch_cases import ENGINE_CASES, noisy_tube, tube_queries
 from pnr_tpu.config import PNRConfig
 from pnr_tpu.ops import zncc_fast as jzf
 from pnr_tpu.ops.pallas_sample import hat_sample_fused, hat_sample_pallas
 from pnr_tpu.ops.zncc_model import TubeZnccModel
 from pnr_tpu_torch.ops import zncc_fast as pzf
-from pnr_tpu_torch.ops.hat_sample import hat_sample_field_plain, hat_sample_patch_plain
+from pnr_tpu_torch.ops.tube_corr import hat_sample_field_plain, hat_sample_patch_plain
 from pnr_tpu_torch.smc.tracker import BatchedTracker
 
 STEP, ZDIST = 2.0, 2.0
@@ -98,17 +98,6 @@ def test_field_from_numpy_keeps_the_dtype():
     got = pzf.field_from_numpy(bf16, "cpu")
     assert f32.dtype == torch.float32 and got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), bf16.astype(np.float32))
-
-
-# engine cases: (volume shape, sigmas, reuse, edges)
-ENGINE_CASES = {
-    "reuse1": ((24, 64, 96), (2.0, 3.0), 1, False),
-    "reuse3": ((24, 64, 96), (2.0, 3.0), 3, False),
-    "edges": ((24, 64, 96), (2.0, 3.0), 1, True),
-    "sigmas_2_4_6": ((24, 64, 96), (2.0, 4.0, 6.0), 1, False),
-    # h and w under the window: the windows are clipped to the volume
-    "degenerate": ((20, 12, 14), (2.0, 3.0), 1, False),
-}
 
 
 def engines(sigmas, reuse):
