@@ -10,7 +10,9 @@ Phases, each of which exits non-zero on failure:
 2. build: compiles pnr_tpu_torch/csrc/*.cu, runs K7's check
    (`ops.cuda.self_check`: pnr_probe doubles an (8, 128) block) and
    launches each kernel once (K1, K2, K3, K4, the map build's 1-D
-   correlation, tube_corr) at a tiny shape;
+   correlation, tube_corr) at a tiny shape, and times K7's `pnr_probe`
+   in turns with its plain version and `torch.mul` (per call in runs of
+   20 back-to-back calls, and alone);
 3. K1 (frangi3d_fused) against its plain PyTorch version on the card:
    clean and noisy tube volumes (64, 256, 256) and the main path's
    (128, 640, 640) stack at sigmas (2, 4, 6), then both timed (CUDA
@@ -24,11 +26,16 @@ Phases, each of which exits non-zero on failure:
    the peak device bytes per voxel of K1, the unfused and the tiled route;
    tiled: `frangi3d_tiled` at (32, 160) and (48, 200) and
    `frangi3d_blocked` at 32 bitwise the monolithic `frangi3d`;
-6. K2 (exact_sums) against its plain version at sigmas (2, 4, 6), step 2:
-   on a (64, 256, 256) tube volume a 128-seed wave (T=256 traces x B=20
-   particles) and B=1 seed scoring, on the main path's stack one tracer
-   chunk (T=128, B=20) and 173-seed scoring (B=1), with queries along the
-   tube axis; both versions timed at T=256, B=20;
+6. K2 (exact_sums, one thread-block cluster per trace) against its plain
+   version at sigmas (2, 4, 6), step 2: on a (64, 256, 256) tube volume a
+   128-seed wave (T=256 traces x B=20 particles) and B=1 seed scoring, on
+   the main path's stack one tracer chunk (T=128, B=20), 173-seed scoring
+   and one estimate chunk (T=128, B=1), with queries along the tube axis;
+   each case bitwise equal over two launches, printed with its slabs per
+   trace and shared memory per block, and timed per call in runs of 20;
+   at T=256, B=20 also alone, in turns with a `grid_sample` of the f32
+   volume at the same samples' coordinates (sampling only), and the plain
+   version; the profile phase adds K2's device time per exact run;
 7. tube map build on the main path's stack at sigmas (2, 4, 6): the
    packed field through `pnr_gauss1d` against the plain shift-and-add
    (per channel max|d| / max(|plain|, 1) < 1e-5), both timed;
@@ -210,10 +217,11 @@ def phase_device(torch):
     return card
 
 
-def phase_build(torch):
+def phase_build(torch, card):
     """Build the kernels, run K7's check, launch every kernel once at a tiny
-    shape; returns K7's launches (its path is this phase: the pipeline
-    routes by the tensor's device and never probes)."""
+    shape, time K7 in turns with its plain version and `torch.mul`; returns
+    K7's launches (its path is this phase: the pipeline routes by the
+    tensor's device and never probes)."""
     from pnr_tpu_torch.ops import conv, cuda
     from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
     from pnr_tpu_torch.ops.gaussian import gaussian_kernel
@@ -245,11 +253,17 @@ def phase_build(torch):
     torch.cuda.synchronize()
     print("[build] K1, K2, K3, K4, the map build and tube_corr launched at a tiny shape", flush=True)
     x = torch.from_numpy(np.random.default_rng(1).random((8, 128), np.float32)).to(dev)
+    fns = (lambda: cuda.probe(x), lambda: cuda.probe_plain(x), lambda: torch.mul(x, 2.0))
+    # in turns: per call in runs of 20 back-to-back calls, and alone
+    ms, plain_ms, library_ms = time_turns_ms(torch, fns, calls=20)
+    single_ms, plain_single_ms, library_single_ms = time_turns_ms(torch, fns, reps=51)
     k7 = {"max_abs_err": float((cuda.probe(x) - cuda.probe_plain(x)).abs().max()),
-          "ms": time_ms(torch, lambda: cuda.probe(x)),
-          "plain_ms": time_ms(torch, lambda: cuda.probe_plain(x)),
-          "library_ms": time_ms(torch, lambda: torch.mul(x, 2.0)),
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "single_ms": single_ms,
+          "plain_single_ms": plain_single_ms, "library_single_ms": library_single_ms,
           **bound(2 * x.numel() * 4, x.numel())}
+    print(f"[build] K7 (8, 128) in turns: pnr_probe {ms:.4f} ms per call back to back, "
+          f"{single_ms:.4f} alone; plain x * 2.0 {plain_ms:.4f}, {plain_single_ms:.4f}; torch.mul "
+          f"{library_ms:.4f}, {library_single_ms:.4f} [{card}]", flush=True)
     return probe_launches, k7
 
 
@@ -487,7 +501,34 @@ def k2_queries(rng, shape, t, b, axis_sd):
     return pos.astype(np.float32), d.astype(np.float32)
 
 
+def k2_sample_grid(torch, eng, vol, corner, qs):
+    """grid_sample's yardstick for K2 (sampling only: no sums, no
+    correlation): the global coordinates (corner + clamped patch-frame
+    coordinate) of every template sample of the queries `qs`, as
+    grid_sample's normalised (1, 1, 1, N, 3) xyz grid, and the sigma
+    blocks' sizes (T, B, K_s)."""
+    from pnr_tpu_torch.ops import zncc_exact as ze
+
+    tab, cnt = eng.tables.tab, eng.tables.cnt.tolist()
+    cf = corner.to(torch.float32)[:, None, None, :]  # (T, 1, 1, 3) zyx
+    grids, shapes = [], []
+    for si, k in enumerate(cnt):
+        tv, tu, tw, _ = tab[si, :k].unbind(-1)
+        rz, ry, rx = ze.sample_coords(qs[..., None], tv, tu, tw)
+        zyx = torch.stack([rz, ry, rx], -1) + cf
+        grids.append(torch.stack([zyx[..., 2 - i] / (vol.shape[2 - i] - 1) * 2.0 - 1.0
+                                  for i in range(3)], -1).reshape(-1, 3))
+        shapes.append(tuple(rz.shape))
+    return torch.cat(grids).reshape(1, 1, 1, -1, 3), shapes
+
+
 def phase_k2(torch, card, main_vol):
+    """K2 against its plain version on four sets of queries (bitwise
+    deterministic over two launches); timed at the tracer's and the
+    estimate's shapes, with a grid_sample yardstick at the same samples."""
+    import torch.nn.functional as F
+
+    from pnr_tpu_torch.ops import zncc_exact as ze
     from pnr_tpu_torch.ops.zncc_exact import (
         ExactPatchEngine, ZnccTemplates, exact_corr_from_sums, exact_sums, exact_sums_plain,
     )
@@ -497,10 +538,11 @@ def phase_k2(torch, card, main_vol):
     rng = np.random.default_rng(11)
     tube_vol = torch.from_numpy(tube((64, 256, 256), noise=40)).to(dev)
     worst = 0.0
-    timing = None
+    row = {}
     # (volume, T, B, spread of the centres about the axis in z)
     cases = (("tube", tube_vol, 256, 20, 1.0), ("tube", tube_vol, 512, 1, 1.0),
-             ("main stack", main_vol, 128, 20, 1.0), ("main stack", main_vol, 173, 1, 0.5))
+             ("main stack", main_vol, 128, 20, 1.0), ("main stack", main_vol, 173, 1, 0.5),
+             ("main stack", main_vol, 128, 1, 1.0))
     for label, vol, t, b, axis_sd in cases:
         pos, d = k2_queries(rng, tuple(vol.shape), t, b, axis_sd)
         p = torch.from_numpy(pos).to(dev)
@@ -508,7 +550,14 @@ def phase_k2(torch, card, main_vol):
         corner = eng.corners(vol.shape, p.mean(dim=1))
         qs = eng.qinfo(vol, corner, p, dd)
         dims = eng.dims(vol.shape)
-        sk = exact_sums(vol, corner, qs, eng.tables, dims)
+        plan = ze.kernel_plan(dims, b, eng.tables.tab.shape[0])
+        smem = ze.smem_bytes(plan, dims[1], b, eng.tables.tab.shape[0])
+
+        def kern():
+            return exact_sums(vol, corner, qs, eng.tables, dims)
+
+        sk = kern()
+        same = bool(torch.equal(sk, kern()))
         sp = exact_sums_plain(vol, corner, qs, eng.tables, dims)
         col_err = [float((sk[..., i] - sp[..., i]).abs().max()) /
                    max(float(sp[..., i].abs().max()), 1.0) for i in range(3)]
@@ -517,28 +566,59 @@ def phase_k2(torch, card, main_vol):
         cerr = float((ck - cp).abs().max())
         agree = float((sgk == sgp).float().mean())
         worst = max(worst, cerr)
-        print(f"[K2] {label} {tuple(vol.shape)} T={t} B={b} patch {dims}: sums max|d|/max|plain| "
-              f"per column {', '.join(f'{e:.3e}' for e in col_err)}; corr max|d| {cerr:.3e}; "
-              f"sigma agreement {agree:.4f}", flush=True)
+        # per call in runs of 20 back-to-back calls, as the tracer makes them
+        ms = time_turns_ms(torch, (kern,), calls=20)[0]
+        print(f"[K2] {label} {tuple(vol.shape)} T={t} B={b} patch {dims}: {plan.nz} slabs of "
+              f"{plan.step} floors a trace, {smem} bytes of shared memory a block; sums "
+              f"max|d|/max|plain| per column {', '.join(f'{e:.3e}' for e in col_err)}; corr "
+              f"max|d| {cerr:.3e}; sigma agreement {agree:.4f}; two launches bitwise equal "
+              f"{same}; {ms:.4f} ms per call [{card}]", flush=True)
         check(max(col_err) < 1e-5, f"K2 {label} T={t} B={b}: sums within 1e-5 of each column's scale")
         check(cerr < 3e-4 and agree > 0.97,
               f"K2 {label} T={t} B={b}: corr atol 3e-4 and sigma agreement > 97%")
-        if timing is None:
-            # the u8 windows the queries need (at most the volume), the
-            # query rows, the templates and the sums; K2_SAMPLE_FLOPS per
-            # template sample
+        check(same, f"K2 {label} T={t} B={b}: two launches bitwise equal")
+        if label == "main stack" and t == 128:
+            row[f"main_t128_b{b}_ms"] = ms
+        if row.get("ms") is None:
+            # the timed case, T=256, B=20 on the tube volume: the u8
+            # windows the queries need (at most the volume), the query rows,
+            # the templates and the sums; K2_SAMPLE_FLOPS per template sample
             nbytes = (min(t * dims[0] * dims[1] * dims[2], vol.numel()) + qs.numel() * 4
                       + corner.numel() * 4 + eng.tables.tab.numel() * 4 + sk.numel() * 4)
             samples = t * b * int(eng.tables.cnt.sum())
-            timing = (
-                time_ms(torch, lambda: exact_sums(vol, corner, qs, eng.tables, dims)),
-                time_ms(torch, lambda: exact_sums_plain(vol, corner, qs, eng.tables, dims)),
-                bound(nbytes, samples * K2_SAMPLE_FLOPS),
-            )
-    ms, plain_ms, b = timing
-    print(f"[K2] tube T=256 B=20 sigmas {SIGMAS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
+            grid, shapes = k2_sample_grid(torch, eng, vol, corner, qs)
+            vol_f = vol.to(torch.float32)[None, None]
+
+            def lib():
+                return F.grid_sample(vol_f, grid, mode="bilinear", padding_mode="border",
+                                     align_corners=True)
+
+            # its samples summed per (trace, query, sigma) against K2's A column
+            vals = lib().reshape(-1)
+            a_lib, beg = [], 0
+            for shp in shapes:
+                n = shp[0] * shp[1] * shp[2]
+                a_lib.append((vals[beg:beg + n].view(shp) - qs[..., ze._Q_M0, None]).sum(-1))
+                beg += n
+            lerr = float((torch.stack(a_lib, -1) - sk[..., 0]).abs().max()) / max(
+                float(sk[..., 0].abs().max()), 1.0)
+            print(f"[K2] grid_sample (sampling only) at the {samples} samples' coordinates: its "
+                  f"samples summed per query against K2's A, max|d|/max|A| {lerr:.3e}", flush=True)
+            check(lerr < 1e-3, "K2's grid_sample yardstick samples where K2 samples")
+            ms_lib = time_turns_ms(torch, (kern, lib), reps=11)
+            row.update({"ms": ms, "single_ms": ms_lib[0], "library_ms": ms_lib[1],
+                        "library_call": "grid_sample at the samples' coordinates (sampling only)",
+                        "plain_ms": time_ms(torch, lambda: exact_sums_plain(vol, corner, qs,
+                                                                            eng.tables, dims)),
+                        "slabs": plan.nz, "smem_bytes": smem, "samples": samples,
+                        **bound(nbytes, samples * K2_SAMPLE_FLOPS)})
+            del grid, vals, a_lib
+    print(f"[K2] tube T=256 B=20 sigmas {SIGMAS}: kernel {row['ms']:.4f} ms per call back to "
+          f"back, {row['single_ms']:.4f} alone; grid_sample (sampling only) {row['library_ms']:.4f}"
+          f"; plain {row['plain_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          f"main stack T=128 B=20 {row['main_t128_b20_ms']:.4f} ms, B=1 "
+          f"{row['main_t128_b1_ms']:.4f} ms [{card}]", flush=True)
+    return {"max_abs_err": worst, "deterministic": True, **row}
 
 
 def tube_queries(rng, shape, t, b, axis_sd, anywhere=0.25):
@@ -831,6 +911,31 @@ PATH_KERNELS = {
 }
 
 
+def counting_seed_scoring():
+    """Wrap the pipeline's seed scoring so that it counts the K2 and
+    tube_corr launches made inside it; returns the counts and an undo."""
+    from pnr_tpu_torch.ops import tube_corr, zncc_exact
+    from pnr_tpu_torch.pipeline import reconstruct
+
+    score = reconstruct._score_seeds
+    counts = {"exact_sums": 0, "tube_corr": 0}
+
+    def counted(*a, **k):
+        n2, n6 = zncc_exact.LAUNCHES, tube_corr.SCORE_LAUNCHES + tube_corr.TRACE_LAUNCHES
+        try:
+            return score(*a, **k)
+        finally:
+            counts["exact_sums"] += zncc_exact.LAUNCHES - n2
+            counts["tube_corr"] += tube_corr.SCORE_LAUNCHES + tube_corr.TRACE_LAUNCHES - n6
+
+    reconstruct._score_seeds = counted
+
+    def undo():
+        reconstruct._score_seeds = score
+
+    return counts, undo
+
+
 def phase_main(torch, card, src, workdir, mode):
     from pnr_tpu_torch import cli
 
@@ -838,14 +943,20 @@ def phase_main(torch, card, src, workdir, mode):
     for run in (1, 2):
         tag = f"{mode}{run}"
         if run == 1:
+            scoring, undo = counting_seed_scoring()
             reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rc = cli.main(cli_argv(src, workdir, tag, mode))
+        try:
+            rc = cli.main(cli_argv(src, workdir, tag, mode))
+        finally:
+            if run == 1:
+                undo()
         torch.cuda.synchronize()
         e2e = time.perf_counter() - t0
         if run == 1:
             launches = read_counters()
+            launches["seed_scoring"] = dict(scoring)
         check(rc == 0, f"{mode} CLI run {run} exited {rc}")
         rows = np.loadtxt(os.path.join(workdir, f"{tag}.swc"), comments="#", ndmin=2)
         entry = json.load(open(os.path.join(workdir, f"{tag}.json")))["stacks"][0]
@@ -861,6 +972,10 @@ def phase_main(torch, card, src, workdir, mode):
             print(f"[main {mode}] kernel launches during run 1: {json.dumps(launches)}", flush=True)
             check(all(launches[k] > 0 for k in PATH_KERNELS[mode]),
                   f"the {mode} path launched {', '.join(PATH_KERNELS[mode])}")
+            if mode == "exact":
+                n = launches["seed_scoring"]["exact_sums"]
+                check(0 < n < launches["exact_sums"],
+                      "K2 was launched both by seed scoring and by the tracer")
         wall = e2e
     return launches, wall
 
@@ -976,6 +1091,7 @@ def phase_profile(torch, card, mode, run, unprofiled_s):
     check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {mode} path")
     top = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
     print(f"[profile {mode}] top device ops:\n" + top, flush=True)
+    return {"busy_ms": busy_s * 1e3, "kernels": per}
 
 
 def phase_small_agreement(torch, mode):
@@ -1014,7 +1130,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    probe_launches, k7 = phase_build(torch)
+    probe_launches, k7 = phase_build(torch, card)
     t0 = time.perf_counter()
     main_np = make_volume(MAIN_SHAPE)
     print(f"[main] built the {MAIN_SHAPE} stack in {time.perf_counter() - t0:.3f} s", flush=True)
@@ -1028,7 +1144,7 @@ def main() -> int:
     del main_vol, field
     phase_bf16(torch)
     torch.cuda.empty_cache()
-    launches = {}
+    launches, profiles = {}, {}
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
         src = os.path.join(workdir, "stack.npy")
@@ -1040,7 +1156,7 @@ def main() -> int:
                 rc = cli.main(cli_argv(src, workdir, f"{mode}3", mode))
                 check(rc == 0, f"profiled {mode} CLI run exited {rc}")
 
-            phase_profile(torch, card, mode, run, run2_s)
+            profiles[mode] = phase_profile(torch, card, mode, run, run2_s)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches["unfused"], run2_s = phase_main_unfused(torch, card, main_np)
@@ -1049,6 +1165,12 @@ def main() -> int:
                   lambda: reconstruction_func(main_np, cfg, verbose=False, device=DEVICE), run2_s)
     for mode in ("exact", "tube"):
         phase_small_agreement(torch, mode)
+    k2_ms, k2_seen = profiles["exact"]["kernels"]["K2"]
+    k2.update({"device_ms_per_exact_run": k2_ms, "profiled_launches": k2_seen,
+               "seed_scoring_launches": launches["exact"]["seed_scoring"]["exact_sums"],
+               "exact_busy_ms": profiles["exact"]["busy_ms"]})
+    print(f"[K2] device time per exact run (profiled run 3): {k2_ms:.3f} ms in {k2_seen} "
+          f"launches; the card busy {profiles['exact']['busy_ms']:.3f} ms [{card}]", flush=True)
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "pnr_tpu") or m.startswith(("jax.", "pnr_tpu.")))
     check(not loaded, f"no module of jax or of pnr_tpu was imported (found {loaded})")

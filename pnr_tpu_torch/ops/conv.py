@@ -69,7 +69,8 @@ def _conv1d_axis_cuda(vol, kernel, axis, grad_border):
     cuda.check(
         cuda.library().pnr_conv1d_axis(
             vol.data_ptr(), int(vol.dtype == torch.uint8), out.data_ptr(), z, y, x, axis,
-            taps.ctypes.data, int(taps.size), int(bool(grad_border)), cuda.stream_of(vol),
+            taps.ctypes.data, int(taps.size), int(bool(grad_border)),
+            cuda.raw_stream(vol.device.index),
         ),
         "pnr_conv1d_axis",
     )
@@ -112,7 +113,8 @@ def _conv_yx_cuda(vol, kernel_y, kernel_x):
     cuda.check(
         cuda.library().pnr_conv_yx(
             vol.data_ptr(), int(vol.dtype == torch.uint8), out.data_ptr(), z, y, x,
-            ky.ctypes.data, int(ky.size), kx.ctypes.data, int(kx.size), cuda.stream_of(vol),
+            ky.ctypes.data, int(ky.size), kx.ctypes.data, int(kx.size),
+            cuda.raw_stream(vol.device.index),
         ),
         "pnr_conv_yx",
     )

@@ -44,7 +44,9 @@ _SIGNATURES = {
     "pnr_frangi_scale": (
         _P, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
     ),
-    "pnr_exact_sums": (_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P),
+    "pnr_exact_sums": (
+        _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+    ),
     "pnr_tube_corr": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     "pnr_tube_params_size": (),
     "pnr_conv1d_axis": (_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P),
@@ -117,10 +119,16 @@ def probe(x: torch.Tensor) -> torch.Tensor:
 
 
 def _probe_cuda(x: torch.Tensor) -> torch.Tensor:
+    # one cheap test of everything the kernel needs; the full check only
+    # to name what is wrong
     global PROBE_LAUNCHES
-    require_cuda_tensor(x, "x", torch.float32, 2)
+    dev = x.get_device()
+    if dev < 0 or x.dtype is not torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        require_cuda_tensor(x, "x", torch.float32, 2)
     out = torch.empty_like(x)
-    check(library().pnr_probe(x.data_ptr(), out.data_ptr(), x.numel(), stream_of(x)), "pnr_probe")
+    err = library().pnr_probe(x.data_ptr(), out.data_ptr(), x.numel(), raw_stream(dev))
+    if err:
+        check(err, "pnr_probe")
     PROBE_LAUNCHES += 1
     return out
 
@@ -145,13 +153,10 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def raw_stream(device_index: int) -> int:
     """The current CUDA stream of a device as an int, without building a
-    torch.cuda.Stream (a twentieth of the host time of `stream_of`)."""
+    torch.cuda.Stream object (about a twentieth of the host time of
+    `torch.cuda.current_stream(device).cuda_stream`)."""
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 

@@ -62,7 +62,7 @@ def _frangi3d_cuda(vol, sigmas, zdist, alpha, beta, c, blackwhite):
         raise ValueError("frangi3d_fused needs at least one sigma")
     lib = cuda.library()
     dev = vol.device
-    stream = cuda.stream_of(vol)
+    stream = cuda.raw_stream(vol.device.index)
     j = torch.empty((z, y, x), dtype=torch.float32, device=dev)
     qx = torch.empty((z, y, x), dtype=torch.uint8, device=dev)
     qy = torch.empty_like(qx)

@@ -65,7 +65,7 @@ def _conv1d_cuda(vol, kernel, axis):
     cuda.check(
         cuda.library().pnr_gauss1d(
             vol.data_ptr(), int(vol.dtype == torch.uint8), out.data_ptr(), z, y, x, axis,
-            taps.data_ptr(), int(taps.numel()), cuda.stream_of(vol),
+            taps.data_ptr(), int(taps.numel()), cuda.raw_stream(vol.device.index),
         ),
         "pnr_gauss1d",
     )

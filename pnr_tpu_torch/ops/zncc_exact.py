@@ -13,19 +13,25 @@ B - A^2/K cancels). Samples are clamped to the volume and to the
 trace's patch, which is sized to the template reach + 3*step + 1 around
 the particle cloud's mean, exactly as the JAX engine sizes it.
 
-The CUDA kernel samples the uint8 volume in device memory at
-corner + floor(rel) and never materialises patches; the plain version
+The CUDA kernel (csrc/zncc_exact.cu) runs one thread-block cluster per
+trace: `slab_plan` cuts the trace's uint8 patch into z slabs that each
+fit one block's shared memory, every block loads its slab once and
+evaluates all of the call's queries of the trace from it, and the
+cluster adds the blocks' partial sums in rank order. The plain version
 cuts f32 patches (`extract`) and samples them with `trilinear`, the math
 of `_exact_sums_xla`. A CPU tensor runs the plain version; a CUDA tensor
 runs the kernel or raises.
 
-The TPU engine's z-sorted 512-sample blocks with their static windows
-(`build_exact_bank`) are Mosaic layout and are not ported: the kernel
-reads the plain per-sigma template of `ZnccTemplates`.
+`template_tables` sorts each sigma's template rows by (w, v, u), as the
+TPU engine's `build_exact_bank` does: the template's u axis lies in the
+xy plane, so rows that share (v, w) share a z coordinate, and a warp's
+lanes read one z plane of the slab. Its 512-sample blocks with their
+static windows are Mosaic layout and are not ported.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -51,6 +57,14 @@ _QCOLS = 16
 #: the plain version evaluates at most this many samples per chunk
 _PLAIN_CHUNK = 1 << 23
 
+#: a block's most dynamic shared memory on sm_90 (csrc/zncc_exact.cu: kMaxSmem)
+SMEM_MAX = 232448
+#: shared memory of the kernel's warp partials, 2 x (4 queries, 16 warps,
+#: 3 sums) floats (csrc/zncc_exact.cu: kRedFloats)
+_RED_BYTES = 2 * 4 * 16 * 3 * 4
+#: error codes of pnr_exact_sums besides cudaError values
+_ERR_UNSCHEDULABLE, _ERR_PLAN = -2, -3
+
 
 def _roundup(v: int, m: int) -> int:
     return -(-v // m) * m
@@ -68,9 +82,15 @@ class TemplateTables(NamedTuple):
 
 
 def template_tables(templates: ZnccTemplates, device) -> TemplateTables:
-    tab = np.concatenate(
-        [templates.offs, templates.wgt[..., None]], axis=-1
-    ).astype(np.float32)
+    """The per-sigma template rows (v, u, w, g), each sigma's sorted by
+    (w, v, u) (`build_exact_bank`'s order), on `device`."""
+    tab = np.zeros((len(templates.sigmas), templates.kmax, 4), np.float32)
+    for i in range(len(templates.sigmas)):
+        k = int(templates.cnt[i])
+        offs = templates.offs[i, :k]
+        order = np.lexsort((offs[:, 1], offs[:, 0], offs[:, 2]))
+        tab[i, :k, :3] = offs[order]
+        tab[i, :k, 3] = templates.wgt[i, :k][order]
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
@@ -85,49 +105,135 @@ def template_tables(templates: ZnccTemplates, device) -> TemplateTables:
     )
 
 
+class SlabPlan(NamedTuple):
+    """The z slabs of a (pz, py, px) patch: slab i owns the sample floors
+    z1 in [i*step, min((i+1)*step, pz-1)) and holds planes i*step ..
+    min((i+1)*step, pz-1), one plane past what it owns; rows are `pitch`
+    bytes in shared memory."""
+
+    nz: int
+    step: int
+    pitch: int
+
+    def bounds(self, pz: int):
+        """[(first owned floor, end of owned floors)] per slab."""
+        return [(i * self.step, min((i + 1) * self.step, pz - 1)) for i in range(self.nz)]
+
+
+def row_pitch(px: int) -> int:
+    """Bytes per patch row in shared memory: a row is copied from the
+    aligned 4-byte word at or below its first byte, so it needs px + 3
+    bytes, rounded up to whole words."""
+    return 4 * (-(-(px + 3) // 4))
+
+
+def slab_plan(patch_shape, budget: int) -> SlabPlan:
+    """Cut the patch into the fewest z slabs of at most `budget` bytes of
+    shared memory each, as even as whole planes allow."""
+    pz, py, px = (int(d) for d in patch_shape)
+    if min(pz, py, px) < 2:
+        raise ValueError(f"exact_sums needs every patch dimension >= 2, got {(pz, py, px)}")
+    pitch = row_pitch(px)
+    planes = int(budget) // (py * pitch)
+    if planes < 2:
+        raise ValueError(
+            f"a slab of the patch {(pz, py, px)} needs two planes of {py * pitch} bytes, "
+            f"the budget is {budget}"
+        )
+    floors = pz - 1
+    step = -(-floors // -(-floors // (planes - 1)))
+    return SlabPlan(nz=-(-floors // step), step=step, pitch=pitch)
+
+
+def smem_bytes(plan: SlabPlan, py: int, b: int, s: int) -> int:
+    """The kernel's dynamic shared memory per block: the slab, the warp
+    partials, the (B, S, 3) sums and the (B, 16) query columns
+    (csrc/zncc_exact.cu: smem_bytes)."""
+    return (_roundup((plan.step + 1) * py * plan.pitch, 16) + _RED_BYTES + 12 * b * s
+            + 4 * _QCOLS * b)
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_plan(patch_shape, b: int, s: int, budget: int = None) -> SlabPlan:
+    """The kernel's slabs for B queries of S sigmas per trace: all of a
+    block's shared memory that the partial sums and the query columns
+    leave, or `budget`."""
+    room = SMEM_MAX - _RED_BYTES - 12 * b * s - 4 * _QCOLS * b - 16
+    return slab_plan(patch_shape, room if budget is None else min(int(budget), room))
+
+
 def exact_sums(
     vol: torch.Tensor,
     corner: torch.Tensor,
     qs: torch.Tensor,
     tables: TemplateTables,
     patch_shape: Tuple[int, int, int],
+    slab_budget: int = None,
 ) -> torch.Tensor:
     """(T, B, S, 4) sums [A, B, C, 0] for queries `qs` (T, B, 16) in the
-    patches at `corner` (T, 3) zyx of the uint8 volume `vol`."""
+    patches at `corner` (T, 3) zyx of the uint8 volume `vol`. On a card,
+    `slab_budget` caps a slab's shared memory (more slabs per trace)."""
     if vol.device.type == "cpu":
         return exact_sums_plain(vol, corner, qs, tables, patch_shape)
-    return _exact_sums_cuda(vol, corner, qs, tables)
+    return _exact_sums_cuda(vol, corner, qs, tables, patch_shape, slab_budget)
 
 
-def _exact_sums_cuda(vol, corner, qs, tables):
+def _exact_sums_cuda(vol, corner, qs, tables, patch_shape, slab_budget=None):
+    # the checks read each tensor's device, dtype, rank and contiguity once
+    # (get_device() is -1 on the CPU); the tables are built on one device by
+    # template_tables
     global LAUNCHES
-    cuda.require_cuda_tensor(vol, "vol", torch.uint8, 3)
-    cuda.require_cuda_tensor(corner, "corner", torch.int32, 2)
-    cuda.require_cuda_tensor(qs, "qs", torch.float32, 3)
-    cuda.require_cuda_tensor(tables.tab, "tables.tab", torch.float32, 3)
-    cuda.require_cuda_tensor(tables.cnt, "tables.cnt", torch.int32, 1)
-    t, b, cols = (int(s) for s in qs.shape)
-    s, kmax = int(tables.tab.shape[0]), int(tables.tab.shape[1])
-    if cols != _QCOLS or tuple(corner.shape) != (t, 3) or tables.tab.shape[2] != 4:
+    dev = vol.get_device()
+    tab, cnt = tables.tab, tables.cnt
+    if dev < 0 or not (corner.get_device() == qs.get_device() == tab.get_device() == dev):
         raise ValueError(
-            f"bad shapes: qs {tuple(qs.shape)}, corner {tuple(corner.shape)}, "
-            f"tab {tuple(tables.tab.shape)}"
+            f"exact_sums: vol, corner, qs and the tables must be CUDA tensors on one device, "
+            f"got {vol.device}, {corner.device}, {qs.device}, {tab.device}"
         )
-    for name, x in (("corner", corner), ("qs", qs), ("tables.tab", tables.tab)):
-        if x.device != vol.device:
-            raise ValueError(f"{name} is on {x.device}, vol on {vol.device}")
-    z, y, x = (int(d) for d in vol.shape)
-    out = torch.empty((t, b, s, 4), dtype=torch.float32, device=vol.device)
-    cuda.check(
-        cuda.library().pnr_exact_sums(
-            vol.data_ptr(), z, y, x, corner.data_ptr(), qs.data_ptr(), t, b,
-            tables.tab.data_ptr(), tables.cnt.data_ptr(), s, kmax, out.data_ptr(),
-            cuda.stream_of(vol),
-        ),
-        "pnr_exact_sums",
+    if (vol.dtype is not torch.uint8 or corner.dtype is not torch.int32
+            or qs.dtype is not torch.float32 or tab.dtype is not torch.float32
+            or cnt.dtype is not torch.int32):
+        raise TypeError(
+            f"exact_sums: vol must be uint8, corner int32, qs and tables.tab float32, "
+            f"tables.cnt int32; got {vol.dtype}, {corner.dtype}, {qs.dtype}, {tab.dtype}, "
+            f"{cnt.dtype}"
+        )
+    shape = qs.shape
+    if (vol.dim() != 3 or len(shape) != 3 or shape[2] != _QCOLS
+            or corner.shape != (shape[0], 3) or tab.dim() != 3 or tab.shape[2] != 4):
+        raise ValueError(
+            f"exact_sums: bad shapes: vol {tuple(vol.shape)}, qs {tuple(shape)}, corner "
+            f"{tuple(corner.shape)}, tab {tuple(tab.shape)}"
+        )
+    if not (vol.is_contiguous() and corner.is_contiguous() and qs.is_contiguous()):
+        raise ValueError("exact_sums: vol, corner and qs must be contiguous")
+    t, b = shape[0], shape[1]
+    s, kmax = tab.shape[0], tab.shape[1]
+    pz, py, px = patch_shape
+    plan = kernel_plan(tuple(patch_shape), b, s, slab_budget)
+    z, y, x = vol.shape
+    out = qs.new_empty((t, b, s, 4))
+    err = cuda.library().pnr_exact_sums(
+        vol.data_ptr(), z, y, x, corner.data_ptr(), qs.data_ptr(), t, b, tab.data_ptr(),
+        cnt.data_ptr(), s, kmax, pz, py, px, plan.nz, plan.step, plan.pitch, out.data_ptr(),
+        cuda.raw_stream(dev),
     )
+    if err:
+        _raise(err, vol, patch_shape, plan, b, s)
     LAUNCHES += 1
     return out
+
+
+def _raise(err, vol, patch_shape, plan, b, s):
+    what = (f"volume {tuple(vol.shape)}, patch {tuple(patch_shape)}, {plan.nz} slabs of "
+            f"{plan.step} floors, pitch {plan.pitch}, B={b}, S={s}, "
+            f"{smem_bytes(plan, patch_shape[1], b, s)} bytes of shared memory per block")
+    if err == _ERR_UNSCHEDULABLE:
+        raise RuntimeError(f"pnr_exact_sums: a cluster of {min(plan.nz, 8)} blocks cannot be "
+                           f"scheduled on this card: {what}")
+    if err == _ERR_PLAN:
+        raise ValueError(f"pnr_exact_sums: the kernel refused the slab plan: {what}")
+    cuda.check(err, f"pnr_exact_sums ({what})")
 
 
 def extract(vol: torch.Tensor, corner: torch.Tensor, patch_shape) -> torch.Tensor:
@@ -143,49 +249,58 @@ def extract(vol: torch.Tensor, corner: torch.Tensor, patch_shape) -> torch.Tenso
     )
 
 
-def exact_sums_plain(vol, corner, qs, tables, patch_shape) -> torch.Tensor:
-    """Plain PyTorch version of K2: the `_exact_sums_xla` math on f32
-    patches cut with `extract`, sampled with `trilinear`."""
+def sample_coords(q, tv, tu, tw):
+    """The clamped patch-frame coordinates (rz, ry, rx), each (..., K), of
+    the template rows (tv, tu, tw) (K,) for query columns `q` (..., 16, 1)."""
+
+    def col(i):
+        return q[..., i, :]
+
+    rz = torch.minimum(
+        torch.clamp(col(_Q_RZ) + tv * col(_Q_NDZ) + tw * col(_Q_WZ), min=0.0), col(_Q_ZHI)
+    )
+    ry = torch.minimum(
+        torch.clamp(col(_Q_RY) + tv * col(_Q_NDY) + tu * col(_Q_UY) + tw * col(_Q_WY), min=0.0),
+        col(_Q_YHI),
+    )
+    rx = torch.minimum(
+        torch.clamp(col(_Q_RX) + tv * col(_Q_NDX) + tu * col(_Q_UX) + tw * col(_Q_WX), min=0.0),
+        col(_Q_XHI),
+    )
+    return rz, ry, rx
+
+
+def plain_samples(vol, corner, qs, tables, patch_shape):
+    """The plain version's template samples, chunk by chunk: yields (si,
+    t0, vals (n, B, K) float32 of I - m0, rz (n, B, K) the clamped
+    patch-frame z, tg (K,) the weights) for sigma si and traces t0 ..
+    t0+n-1, the math of `_exact_sums_xla`."""
     patches = extract(vol, corner, patch_shape)
     t, b = int(qs.shape[0]), int(qs.shape[1])
-    s_count = int(tables.tab.shape[0])
-    out = torch.zeros((t, b, s_count, 4), dtype=torch.float32, device=vol.device)
     counts = tables.cnt.tolist()
-    for si in range(s_count):
+    for si in range(int(tables.tab.shape[0])):
         k = int(counts[si])
         tv, tu, tw, tg = tables.tab[si, :k].unbind(-1)
         tc = max(1, _PLAIN_CHUNK // max(1, b * k))
         for t0 in range(0, t, tc):
-            q = qs[t0 : t0 + tc, :, :, None]  # (tc, B, 16, 1)
-
-            def col(i):
-                return q[:, :, i]  # (tc, B, 1)
-
-            rz = torch.minimum(
-                torch.clamp(col(_Q_RZ) + tv * col(_Q_NDZ) + tw * col(_Q_WZ), min=0.0),
-                col(_Q_ZHI),
-            )
-            ry = torch.minimum(
-                torch.clamp(
-                    col(_Q_RY) + tv * col(_Q_NDY) + tu * col(_Q_UY) + tw * col(_Q_WY),
-                    min=0.0,
-                ),
-                col(_Q_YHI),
-            )
-            rx = torch.minimum(
-                torch.clamp(
-                    col(_Q_RX) + tv * col(_Q_NDX) + tu * col(_Q_UX) + tw * col(_Q_WX),
-                    min=0.0,
-                ),
-                col(_Q_XHI),
-            )
+            rz, ry, rx = sample_coords(qs[t0 : t0 + tc, :, :, None], tv, tu, tw)
             n = rz.shape[0]
             vals = trilinear(
                 patches[t0 : t0 + n], rx.reshape(n, -1), ry.reshape(n, -1), rz.reshape(n, -1)
-            ).reshape(n, b, k) - col(_Q_M0)
-            out[t0 : t0 + n, :, si, 0] = vals.sum(-1)
-            out[t0 : t0 + n, :, si, 1] = (vals * vals).sum(-1)
-            out[t0 : t0 + n, :, si, 2] = (vals * tg).sum(-1)
+            ).reshape(n, b, k) - qs[t0 : t0 + n, :, _Q_M0, None]
+            yield si, t0, vals, rz, tg
+
+
+def exact_sums_plain(vol, corner, qs, tables, patch_shape) -> torch.Tensor:
+    """Plain PyTorch version of K2: the `_exact_sums_xla` math on f32
+    patches cut with `extract`, sampled with `trilinear`."""
+    t, b = int(qs.shape[0]), int(qs.shape[1])
+    out = torch.zeros((t, b, int(tables.tab.shape[0]), 4), dtype=torch.float32, device=vol.device)
+    for si, t0, vals, _, tg in plain_samples(vol, corner, qs, tables, patch_shape):
+        n = vals.shape[0]
+        out[t0 : t0 + n, :, si, 0] = vals.sum(-1)
+        out[t0 : t0 + n, :, si, 1] = (vals * vals).sum(-1)
+        out[t0 : t0 + n, :, si, 2] = (vals * tg).sum(-1)
     return out
 
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""The PyTorch port's tube path on one card, for comparing two checkouts.
+"""The PyTorch port's tube or exact path on one card, for comparing two
+checkouts.
 
-    python scripts/torch_tube_ab.py [--root DIR]
+    python scripts/torch_tube_ab.py [--root DIR] [--mode tube|exact] [--runs N] [--no-profile]
 
 Runs `pnr_tpu_torch` from the checkout at DIR (this one by default) on
 chip_smoke.py's 52.4-Mvox (128, 640, 640) stack with its CLI parameters
-and `--zncc-mode tube`: twice without a profiler (the second run's stage
-times are the warm ones), then once under torch.profiler. Prints one JSON
-line: the second run's seconds and tracing stage, and for the profiled
-run the tracer steps (one iteration of one chunk, counted at
+and `--zncc-mode MODE` (tube by default): N times (2 by default) without
+a profiler (the runs after the first are the warm ones), then, unless
+--no-profile, once under torch.profiler. Prints one JSON line: the
+warm runs' seconds and tracing stages (and the medians), and for the
+profiled run the tracer steps (one iteration of one chunk, counted at
 `BatchedTracker._estimate`), the host's kernel-launch calls in all and
-per step, the card's busy time and idle share, and the device time of the
-tube likelihood's kernels (named hat_* or tube_corr_*). It needs a CUDA
+per step, the card's busy time and idle share, and the device time of
+the likelihood's kernels (tube: named hat_* or tube_corr_*; exact: K2's
+exact_sums_*). It needs a CUDA
 device and takes the stack, the parameters and the device from
 chip_smoke.py, which it loads from this checkout, so two checkouts run
 the same work. To compare a parent commit with a change on one card, run
@@ -25,6 +28,7 @@ import importlib.util
 import json
 import os
 import shutil
+import statistics
 import sys
 import tempfile
 import time
@@ -35,6 +39,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pnr_tpu_torch runs")
+    ap.add_argument("--mode", default="tube", choices=("tube", "exact"), help="--zncc-mode")
+    ap.add_argument("--runs", type=int, default=2, help="unprofiled runs (the first is cold)")
+    ap.add_argument("--no-profile", action="store_true", help="skip the profiled run")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
 
@@ -72,19 +79,31 @@ def main() -> int:
         def run(tag):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rc = cli.main(cs.cli_argv(src, workdir, tag, "tube"))
+            rc = cli.main(cs.cli_argv(src, workdir, tag, args.mode))
             torch.cuda.synchronize()
             if rc != 0:
-                raise RuntimeError(f"the tube CLI run {tag} exited {rc}")
+                raise RuntimeError(f"the {args.mode} CLI run {tag} exited {rc}")
             return time.perf_counter() - t0
 
-        run("tube1")
-        run2_s = run("tube2")
-        with open(os.path.join(workdir, "tube2.json")) as f:
-            stages = json.load(f)["stacks"][0]["timings_s"]
+        warm_s, stages = [], []
+        for i in range(1, max(args.runs, 2) + 1):
+            t = run(f"{args.mode}{i}")
+            if i > 1:
+                warm_s.append(t)
+                with open(os.path.join(workdir, f"{args.mode}{i}.json")) as f:
+                    stages.append(json.load(f)["stacks"][0]["timings_s"])
+        tracing = [st.get("tracing") for st in stages]
+        row = {"root": root, "mode": args.mode, "card": torch.cuda.get_device_name(0),
+               "run2_s": warm_s[0], "tracing_s": tracing[0], "stages_s": stages[0],
+               "warm_s": warm_s, "warm_tracing_s": tracing,
+               "median_s": statistics.median(warm_s),
+               "median_tracing_s": statistics.median(tracing)}
+        if args.no_profile:
+            print(json.dumps(row), flush=True)
+            return 0
         steps[0] = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiled_s = run("tube3")
+            profiled_s = run(f"{args.mode}p")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     events = prof.events()
@@ -95,13 +114,12 @@ def main() -> int:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    lik = [e for e in dev if e.name.startswith(("hat_", "tube_corr")) or "::hat_" in e.name
-           or "::tube_corr" in e.name]
+    names = ("exact_sums",) if args.mode == "exact" else ("hat_", "tube_corr")
+    lik = [e for e in dev if e.name.startswith(names) or any(f"::{n}" in e.name for n in names)]
     launches = sum(1 for e in events if e.device_type == DeviceType.CPU
                    and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     print(json.dumps({
-        "root": root, "card": torch.cuda.get_device_name(0), "run2_s": run2_s,
-        "tracing_s": stages.get("tracing"), "stages_s": stages, "profiled_s": profiled_s,
+        **row, "profiled_s": profiled_s,
         "steps": steps[0], "host_launches": launches,
         "host_launches_per_step": launches / max(steps[0], 1),
         "busy_ms": busy_us / 1e3, "idle": 1 - busy_us / 1e6 / profiled_s,

@@ -157,18 +157,20 @@ def flat_volume():
 ZNCC_VOLUMES = {"random": random_volume, "tube": zncc_tube_volume, "flat": flat_volume}
 
 
-def queries(shape, seed=0):
-    """T trace clouds of B particles; cloud centres cover the whole
-    volume, so clouds sit on the borders too."""
+def queries(shape, seed=0, t=T):
+    """t trace clouds of B particles; cloud centres cover the whole
+    volume, so clouds sit on the borders too (the first two, for t >= 2,
+    on opposite corners)."""
     rng = np.random.default_rng(seed)
     l, h, w = shape
     centre = np.stack(
-        [rng.uniform(0, w - 1, T), rng.uniform(0, h - 1, T), rng.uniform(0, l - 1, T)], -1
+        [rng.uniform(0, w - 1, t), rng.uniform(0, h - 1, t), rng.uniform(0, l - 1, t)], -1
     )
     centre[0] = (0.0, 0.0, 0.0)
-    centre[1] = (w - 1.0, h - 1.0, l - 1.0)
-    pos = centre[:, None, :] + rng.uniform(-4, 4, (T, B, 3))
-    d = rng.normal(size=(T, B, 3))
+    if t > 1:
+        centre[1] = (w - 1.0, h - 1.0, l - 1.0)
+    pos = centre[:, None, :] + rng.uniform(-4, 4, (t, B, 3))
+    d = rng.normal(size=(t, B, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return pos.astype(np.float32), d.astype(np.float32)
 

@@ -203,7 +203,7 @@ def test_cuda_wrappers_reject_cpu_tensors_on_the_kernel_route():
     corner = torch.zeros((1, 3), dtype=torch.int32)
     qs = torch.zeros((1, 1, 16))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        zncc_exact._exact_sums_cuda(vol, corner, qs, tables)
+        zncc_exact._exact_sums_cuda(vol, corner, qs, tables, (8, 16, 16))
 
 
 def test_tube_wrappers_reject_cpu_tensors_on_the_kernel_route():

@@ -167,17 +167,17 @@ def test_frangi_kernel_blackwhite(dev):
     assert np.abs(plain[0] - kernel[0]).max() / scale < 1e-4
 
 
-@pytest.mark.parametrize("vol_name", list(ZNCC_VOLUMES))
-@pytest.mark.parametrize("b", [1, B])
-def test_exact_sums_kernel_matches_plain(dev, vol_name, b):
+def exact_case(dev, vol_name, b, t=None, sigmas=(2.0, 4.0, 6.0)):
     vol = torch.from_numpy(ZNCC_VOLUMES[vol_name]()).to(dev)
-    pos, d = queries(tuple(vol.shape))
+    pos, d = queries(tuple(vol.shape)) if t is None else queries(tuple(vol.shape), t=t)
     pos, d = torch.from_numpy(pos[:, :b]).to(dev), torch.from_numpy(d[:, :b]).to(dev)
-    eng = ExactPatchEngine(ZnccTemplates((2.0, 4.0, 6.0), is2d=False), STEP, dev)
+    eng = ExactPatchEngine(ZnccTemplates(sigmas, is2d=False), STEP, dev)
     corner = eng.corners(vol.shape, pos.mean(dim=1))
     qs = eng.qinfo(vol, corner, pos, d)
-    kern = exact_sums(vol, corner, qs, eng.tables, eng.dims(vol.shape))
-    plain = exact_sums_plain(vol, corner, qs, eng.tables, eng.dims(vol.shape))
+    return vol, corner, qs, eng
+
+
+def check_exact(eng, kern, plain):
     # the two sum ~5e3 samples in different orders: within 1e-5 of each
     # column's largest magnitude
     for i in range(3):
@@ -187,6 +187,75 @@ def test_exact_sums_kernel_matches_plain(dev, vol_name, b):
     cp, sp = exact_corr_from_sums(eng.tables, plain)
     assert float((ck - cp).abs().max()) < 3e-4
     assert float((sk == sp).float().mean()) > 0.97
+
+
+@pytest.mark.parametrize("vol_name", list(ZNCC_VOLUMES))
+@pytest.mark.parametrize("b", [1, B])
+def test_exact_sums_kernel_matches_plain(dev, vol_name, b):
+    vol, corner, qs, eng = exact_case(dev, vol_name, b)
+    n = zncc_exact.LAUNCHES
+    kern = exact_sums(vol, corner, qs, eng.tables, eng.dims(vol.shape))
+    assert zncc_exact.LAUNCHES == n + 1
+    check_exact(eng, kern, exact_sums_plain(vol, corner, qs, eng.tables, eng.dims(vol.shape)))
+
+
+def slab_budget(dims, nz):
+    """A slab budget that cuts a (pz, py, px) patch into `nz` slabs ("many":
+    three planes a slab, more slabs than a cluster holds)."""
+    pz, py, px = dims
+    planes = 3 if nz == "many" else -(-(pz - 1) // nz) + 1
+    return planes * py * zncc_exact.row_pitch(px)
+
+
+@pytest.mark.parametrize("t", [1, 3, 128])
+@pytest.mark.parametrize("b", [1, B])
+@pytest.mark.parametrize("nz", [1, 2, 3, "many"])
+@pytest.mark.parametrize("vol_name", list(ZNCC_VOLUMES))
+def test_exact_sums_kernel_slabs_match_plain(dev, vol_name, nz, b, t):
+    """The cluster kernel at 1, 2, 3 and more than 8 slabs per trace (a
+    forced slab budget; a block then walks several slabs)."""
+    vol, corner, qs, eng = exact_case(dev, vol_name, b, t)
+    dims = eng.dims(vol.shape)
+    budget = slab_budget(dims, nz)
+    plan = zncc_exact.kernel_plan(dims, b, 3, budget)
+    assert plan.nz > 8 if nz == "many" else plan.nz == nz
+    kern = exact_sums(vol, corner, qs, eng.tables, dims, slab_budget=budget)
+    check_exact(eng, kern, exact_sums_plain(vol, corner, qs, eng.tables, dims))
+
+
+@pytest.mark.parametrize("nz", [1, 2, "many"])
+def test_exact_sums_kernel_is_deterministic(dev, nz):
+    vol, corner, qs, eng = exact_case(dev, "tube", B, 128)
+    dims = eng.dims(vol.shape)
+    budget = slab_budget(dims, nz)
+    a = exact_sums(vol, corner, qs, eng.tables, dims, slab_budget=budget)
+    b = exact_sums(vol, corner, qs, eng.tables, dims, slab_budget=budget)
+    assert torch.equal(a, b)
+
+
+def test_exact_sums_kernel_rejects_what_it_cannot_take(dev):
+    vol, corner, qs, eng = exact_case(dev, "random", B)
+    dims = eng.dims(vol.shape)
+    n = zncc_exact.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        exact_sums(vol, corner.cpu(), qs, eng.tables, dims)
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        exact_sums(vol, corner, qs.cpu(), eng.tables, dims)
+    with pytest.raises(TypeError):
+        exact_sums(vol.to(torch.float32), corner, qs, eng.tables, dims)
+    with pytest.raises(TypeError):
+        exact_sums(vol, corner.long(), qs, eng.tables, dims)
+    with pytest.raises(TypeError):
+        exact_sums(vol, corner, qs.double(), eng.tables, dims)
+    with pytest.raises(ValueError, match="bad shapes"):
+        exact_sums(vol, corner[:-1].contiguous(), qs, eng.tables, dims)
+    with pytest.raises(ValueError, match="contiguous"):
+        exact_sums(vol.transpose(1, 2), corner, qs, eng.tables, dims)
+    with pytest.raises(ValueError, match=">= 2"):
+        exact_sums(vol, corner, qs, eng.tables, (1, dims[1], dims[2]))
+    with pytest.raises(ValueError, match="two planes"):
+        exact_sums(vol, corner, qs, eng.tables, dims, slab_budget=100)
+    assert zncc_exact.LAUNCHES == n
 
 
 def small_stack():

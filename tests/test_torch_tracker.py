@@ -13,6 +13,7 @@ import torch
 
 from pnr_tpu.config import PNRConfig
 from pnr_tpu.hostpath import threefry as tf
+from pnr_tpu.ops.zncc_exact import build_exact_bank
 from pnr_tpu.smc.tracker import BatchedTracker as JaxTracker
 from pnr_tpu_torch.smc.tracker import BatchedTracker, tables_from_numpy, trace_keys
 
@@ -41,9 +42,15 @@ def test_tables_equal_jax_bit_for_bit():
         have = getattr(got, name).numpy()
         assert have.dtype == np.float32 and want.dtype == np.float32, name
         assert np.array_equal(have, want), name
+    # the template rows in the order of the JAX engine's bank (sorted by
+    # (w, v, u)), zero-padded to the longest sigma
     tmpl = got.templates
-    assert np.array_equal(tmpl.tab[..., :3].numpy(), jt.templates.offs)
-    assert np.array_equal(tmpl.tab[..., 3].numpy(), jt.templates.wgt)
+    bank = build_exact_bank(jt.templates)
+    for i, blocks in enumerate(bank.tables):
+        k = int(jt.templates.cnt[i])
+        rows = blocks.transpose(0, 2, 1).reshape(-1, 5)[:k]
+        assert np.array_equal(tmpl.tab[i, :k].numpy(), rows[:, :4])
+        assert not tmpl.tab[i, k:].numpy().any()
     assert np.array_equal(tmpl.cnt.numpy(), jt.templates.cnt.astype(np.int32))
     for name in ("avg", "corrc"):
         assert np.array_equal(getattr(tmpl, name).numpy(), getattr(jt.templates, name))
