@@ -7,20 +7,25 @@ Run from the root of a checkout on a machine with a CUDA device and nvcc.
 Phases, each of which exits non-zero on failure:
 
 1. device: a CUDA device is present; prints the card's name and power limit;
-2. build: compiles pnr_tpu_torch/csrc/*.cu, runs K7's check
+2. build: builds or loads the native host library (g++, its time
+   printed; the run fails unless `native.have_native()`, so that no main
+   run's seed stage pays the build or falls back to NumPy), compiles
+   pnr_tpu_torch/csrc/*.cu, runs K7's check
    (`ops.cuda.self_check`: pnr_probe doubles an (8, 128) block) and
    launches each kernel once (K1, K2, K3, K4, the map build's 1-D
-   correlation, tube_corr) at a tiny shape, and times K7's `pnr_probe`
+   correlation on K3, tube_corr) at a tiny shape, and times K7's `pnr_probe`
    in turns with its plain version and `torch.mul` (per call in runs of
    20 back-to-back calls, and alone);
-3. K1 (frangi3d_fused) against its plain PyTorch version on the card:
-   clean and noisy tube volumes (64, 256, 256) and the main path's
-   (128, 640, 640) stack at sigmas (2, 4, 6), then both timed (CUDA
-   events, warm-up, median of 5) on that stack;
+3. K1 (frangi3d_fused, one plane-ring pass per sigma) against its plain
+   PyTorch version on the card: clean and noisy tube volumes
+   (64, 256, 256) and the main path's (128, 640, 640) stack at sigmas
+   (2, 4, 6), with each sigma's tile and shared memory, then both timed
+   (CUDA events, warm-up, median of 5) on that stack;
 4. K3 (conv1d_axis) and K4 (conv_yx) against their plain versions on the
    main stack, as float32 and as uint8, along each axis, with the taps of
    the unfused filter: max|kernel - plain| / max|plain| < 1e-5; both timed
-   with their plain versions and a cuDNN conv3d (TF32 off);
+   with their plain versions and a cuDNN conv3d (TF32 off); K3 also timed
+   at 3 taps along each axis;
 5. unfused: `frangi3d` on the card (K4, K3) against `frangi3d_plain` at
    K1's bars on the tube volumes and the main stack, timed next to K1, with
    the peak device bytes per voxel of K1, the unfused and the tiled route;
@@ -37,7 +42,7 @@ Phases, each of which exits non-zero on failure:
    volume at the same samples' coordinates (sampling only), and the plain
    version; the profile phase adds K2's device time per exact run;
 7. tube map build on the main path's stack at sigmas (2, 4, 6): the
-   packed field through `pnr_gauss1d` against the plain shift-and-add
+   packed field through K3 against the plain shift-and-add
    (per channel max|d| / max(|plain|, 1) < 1e-5), both timed;
 8. tube_corr (K5's and K6's counterpart) against its plain chain on that
    field: the tracer's evaluation of one chunk (T=128, N=20, the group
@@ -61,9 +66,11 @@ Phases, each of which exits non-zero on failure:
    once more with the unfused cap lowered so the tiled engine runs (its J8
    and seeds must be the monolithic run's). Each SWC must lie on the tube
    axis, and the kernels of each path must have been launched by its first
-   run (launch counts set to 0 just before it and read just after);
+   run (launch counts set to 0 just before it and read just after; K1
+   once per sigma plus its decode);
 11. profile: one more run of each path under torch.profiler; prints the
-   card's busy time, its idle share, each kernel's device time and the
+   card's busy time, its idle share, each kernel's device time (K1 and K3
+   per run of each path also on one line) and the
    host's kernel-launch calls (tube: also per tracer step, one step being
    one iteration of one chunk, and the device time per tube_corr launch);
 12. the exact and tube paths on a small stack on the card and on the CPU
@@ -228,6 +235,14 @@ def phase_build(torch, card):
     from pnr_tpu_torch.ops.zncc_exact import ExactPatchEngine, ZnccTemplates
     from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine, TubeZnccModel, build_tube_maps_packed
 
+    from pnr_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"[build] native host library {os.path.relpath(native.library_path(), HERE)} built or "
+          f"loaded in {time.perf_counter() - t0:.3f} s, have_native() {native.have_native()}",
+          flush=True)
+    check(native.have_native(), "the native host library built and loaded (no NumPy fallback)")
     t0 = time.perf_counter()
     path = cuda.build()
     cuda.library()
@@ -251,7 +266,8 @@ def phase_build(torch, card):
     teng.eval_fused(field, pos, dirs)  # tube_corr, scoring
     teng.likelihood(field, teng.window(field, pos[:, 0]), pos, dirs)  # tube_corr, tracer
     torch.cuda.synchronize()
-    print("[build] K1, K2, K3, K4, the map build and tube_corr launched at a tiny shape", flush=True)
+    print("[build] K1, K2, K3, K4, the map build (K3) and tube_corr launched at a tiny shape",
+          flush=True)
     x = torch.from_numpy(np.random.default_rng(1).random((8, 128), np.float32)).to(dev)
     fns = (lambda: cuda.probe(x), lambda: cuda.probe_plain(x), lambda: torch.mul(x, 2.0))
     # in turns: per call in runs of 20 back-to-back calls, and alone
@@ -331,9 +347,18 @@ def frangi_bars(torch, main_vol, tag):
 
 
 def phase_k1(torch, card, main_vol):
+    from pnr_tpu_torch.ops import frangi_fused
     from pnr_tpu_torch.ops.frangi import frangi3d_plain
     from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
 
+    for sig in SIGMAS:
+        plan = frangi_fused.fused_plan(MAIN_SHAPE, sig, ZDIST)
+        print(f"[K1] sigma {sig}: hxy {plan.hxy}, hz {plan.hz}, tile {plan.tile_y} x "
+              f"{plan.tile_x}, grid {plan.grid}, rings {plan.ring_g} + {plan.ring_f} planes, "
+              f"{plan.smem} bytes of shared memory a block", flush=True)
+    n0 = frangi_fused.LAUNCHES
+    frangi3d_fused(main_vol, SIGMAS, ZDIST)
+    check(frangi_fused.LAUNCHES - n0 == len(SIGMAS) + 1, "K1: one launch per sigma and the decode")
     max_abs = frangi_bars(torch, main_vol, "K1")
     ms = time_ms(torch, lambda: frangi3d_fused(main_vol, SIGMAS, ZDIST))
     plain_ms = time_ms(torch, lambda: frangi3d_plain(main_vol, SIGMAS, ZDIST))
@@ -378,6 +403,13 @@ def phase_k3_k4(torch, card, main_vol):
                   f"{', '.join(f'{m:.4f}' for m in kms)} [{card}]", flush=True)
             check(max(errs) < 1e-5, f"K3 {name} {dt}: within 1e-5 of max|plain|")
             worst3 = max(worst3, max(errs))
+    # the Hessian's 3-tap difference passes (27 of the unfused path's 30
+    # launches) on f32, along each axis
+    g1 = (-0.5, 0.0, 0.5)
+    ms3 = [time_ms(torch, lambda a=a: conv.conv1d_axis(vol_f, g1, a, True)) for a in (0, 1, 2)]
+    print(f"[K3] 3 taps (g1, grad_border), f32 {MAIN_SHAPE}: kernel ms along z, y, x "
+          f"{', '.join(f'{m:.4f}' for m in ms3)}; bound {bound(n * 8, n * 6)['bound_ms']:.4f} ms "
+          f"[{card}]", flush=True)
     # the timed case: the main path's z Gaussian pass at sigma 6 on f32
     kz = gaussian_kernel(SIGMAS[-1] / ZDIST)
     hz = len(kz) // 2
@@ -391,6 +423,7 @@ def phase_k3_k4(torch, card, main_vol):
           "ms": time_ms(torch, lambda: conv.conv1d_axis(vol_f, kz, 0)),
           "plain_ms": time_ms(torch, lambda: conv.conv1d_axis_plain(vol_f, kz, 0)),
           "library_ms": time_ms(torch, lib3),
+          "ms_3taps_zyx": ms3,
           **bound(n * 8, n * 2 * len(kz))}
     print(f"[K3] z pass, {len(kz)} taps, f32 {MAIN_SHAPE}: kernel {k3['ms']:.4f} ms, plain "
           f"{k3['plain_ms']:.3f} ms, conv3d (pad + conv, TF32 off; max|d|/max|plain| "
@@ -442,7 +475,7 @@ def phase_unfused(torch, card, main_vol):
     """The unfused filter on the card against the plain chain at K1's bars,
     timed next to K1; each route's peak memory; the tiled engines bitwise
     the monolithic filter on the main stack."""
-    from pnr_tpu_torch.ops.frangi import frangi3d
+    from pnr_tpu_torch.ops.frangi import frangi3d, normalize_to_u8
     from pnr_tpu_torch.ops.frangi_blocked import frangi3d_blocked, frangi3d_tiled, pick_blocks
     from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
 
@@ -453,8 +486,14 @@ def phase_unfused(torch, card, main_vol):
           f"[{card}]", flush=True)
     n = main_vol.numel()
     blocks = pick_blocks(MAIN_SHAPE, SIGMAS, ZDIST)
+    def k1_stage():
+        # the filter stage as the pipeline runs it: K1, then J8 from J
+        j, jmin, jmax, *dirs = frangi3d_fused(main_vol, SIGMAS, ZDIST)
+        return normalize_to_u8(j, jmin, jmax), dirs
+
     peaks = {
         "K1": peak_bytes_per_voxel(torch, lambda: frangi3d_fused(main_vol, SIGMAS, ZDIST), n),
+        "K1 + normalize_to_u8": peak_bytes_per_voxel(torch, k1_stage, n),
         "unfused": peak_bytes_per_voxel(torch, lambda: frangi3d(main_vol, SIGMAS, ZDIST), n),
         f"tiled {blocks}": peak_bytes_per_voxel(
             torch, lambda: frangi3d_tiled(main_vol, SIGMAS, ZDIST, block_z=blocks[0],
@@ -654,8 +693,8 @@ def col_errs(k, p):
 
 
 def phase_maps(torch, card, main_vol):
-    """The tube map build through pnr_gauss1d against the plain
-    shift-and-add, on the main path's stack; returns the kernel's field."""
+    """The tube map build through K3 against the plain shift-and-add, on
+    the main path's stack; returns the kernel's field."""
     from pnr_tpu_torch.ops import gaussian
     from pnr_tpu_torch.ops.zncc_fast import (
         TubeZnccModel, build_tube_maps_packed, build_tube_maps_packed_plain,
@@ -670,7 +709,7 @@ def phase_maps(torch, card, main_vol):
     errs = col_errs(field.view(s, z, y, x3 // 3, 3), plain.view(s, z, y, x3 // 3, 3))
     del plain
     print(f"[maps] {MAIN_SHAPE} sigmas {SIGMAS}: field {tuple(field.shape)} "
-          f"{field.numel() * 4 / 1e9:.3f} GB, {launches} pnr_gauss1d launches; max|d|/max(|plain|,1) "
+          f"{field.numel() * 4 / 1e9:.3f} GB, {launches} K3 launches; max|d|/max(|plain|,1) "
           f"per channel {', '.join(f'{e:.3e}' for e in errs)}", flush=True)
     check(max(errs) < 1e-5, "map build: per channel max|d| / max(|plain|, 1) < 1e-5")
     ms = time_ms(torch, lambda: build_tube_maps_packed(main_vol, model))
@@ -972,6 +1011,8 @@ def phase_main(torch, card, src, workdir, mode):
             print(f"[main {mode}] kernel launches during run 1: {json.dumps(launches)}", flush=True)
             check(all(launches[k] > 0 for k in PATH_KERNELS[mode]),
                   f"the {mode} path launched {', '.join(PATH_KERNELS[mode])}")
+            check(launches["frangi3d_fused"] == len(SIGMAS) + 1,
+                  f"the {mode} path launched K1 once per sigma and its decode")
             if mode == "exact":
                 n = launches["seed_scoring"]["exact_sums"]
                 check(0 < n < launches["exact_sums"],
@@ -1030,9 +1071,8 @@ def phase_main_unfused(torch, card, main_np):
 
 #: kernel names (substrings) in the profiler's device events
 PROFILE_KERNELS = {
-    "K1 (frangi_scale, decode_stats)": ("frangi_scale_kernel", "decode_stats_kernel"),
-    "gauss1d (K1's passes and the map build)": ("gauss1d_kernel",),
-    "K3": ("conv1d_axis_kernel",),
+    "K1 (frangi_fused, decode_stats)": ("frangi_fused_kernel", "decode_stats_kernel"),
+    "K3 (and the map build's)": ("conv1d_axis_",),
     "K4": ("conv_yx_kernel",),
     "K2": ("exact_sums_kernel",),
     "tube_corr (K5, K6)": ("tube_corr_kernel",),
@@ -1085,9 +1125,10 @@ def phase_profile(torch, card, mode, run, unprofiled_s):
         print(f"[profile tube] {steps} tracer steps: {len(host_launch) / max(steps, 1):.1f} host "
               f"kernel-launch calls per step (the whole run's calls over its steps); tube_corr "
               f"{ms / max(n, 1) * 1e3:.3f} us of device time per launch [{card}]", flush=True)
-    want = {"exact": ("K1 (frangi_scale, decode_stats)", "K2"),
-            "tube": ("K1 (frangi_scale, decode_stats)", "tube_corr (K5, K6)"),
-            "unfused": ("K3", "K4", "K2")}[mode]
+    k1 = "K1 (frangi_fused, decode_stats)"
+    k3 = "K3 (and the map build's)"
+    want = {"exact": (k1, "K2"), "tube": (k1, k3, "tube_corr (K5, K6)"),
+            "unfused": (k3, "K4", "K2")}[mode]
     check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {mode} path")
     top = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
     print(f"[profile {mode}] top device ops:\n" + top, flush=True)
@@ -1161,8 +1202,9 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     launches["unfused"], run2_s = phase_main_unfused(torch, card, main_np)
     cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), fused_frangi=False)
-    phase_profile(torch, card, "unfused",
-                  lambda: reconstruction_func(main_np, cfg, verbose=False, device=DEVICE), run2_s)
+    profiles["unfused"] = phase_profile(
+        torch, card, "unfused",
+        lambda: reconstruction_func(main_np, cfg, verbose=False, device=DEVICE), run2_s)
     for mode in ("exact", "tube"):
         phase_small_agreement(torch, mode)
     k2_ms, k2_seen = profiles["exact"]["kernels"]["K2"]
@@ -1171,6 +1213,13 @@ def main() -> int:
                "exact_busy_ms": profiles["exact"]["busy_ms"]})
     print(f"[K2] device time per exact run (profiled run 3): {k2_ms:.3f} ms in {k2_seen} "
           f"launches; the card busy {profiles['exact']['busy_ms']:.3f} ms [{card}]", flush=True)
+    # K1 and K3 per profiled run of each path (ms, launches the profiler saw)
+    k1["device_ms_per_run"] = {m: profiles[m]["kernels"]["K1 (frangi_fused, decode_stats)"]
+                               for m in ("exact", "tube")}
+    k3["device_ms_per_run"] = {m: profiles[m]["kernels"]["K3 (and the map build's)"]
+                               for m in ("unfused", "tube")}
+    print(f"[K1] device time per profiled run (ms, launches): {json.dumps(k1['device_ms_per_run'])}; "
+          f"[K3] {json.dumps(k3['device_ms_per_run'])} (tube: the map build) [{card}]", flush=True)
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "pnr_tpu") or m.startswith(("jax.", "pnr_tpu.")))
     check(not loaded, f"no module of jax or of pnr_tpu was imported (found {loaded})")

@@ -20,9 +20,17 @@ Beside each kernel is its plain PyTorch version:
 A CPU tensor runs the plain version; a CUDA tensor runs the kernel or
 raises. The kernels fuse each tap's multiply-add, so on the card they
 differ from the plain versions by about one ulp per tap.
+
+K3 also runs the tube map build's 1-D correlations (ops/gaussian.py
+`conv1d_along_axis`, counted there): `launch_conv1d` is the one launch
+both wrappers share. `conv1d_plan` is K3's launch geometry, as the C side
+forms it (`pnr_conv1d_plan`), and `thread_outputs` / `thread_reads` say
+which outputs a thread forms and which inputs it loads.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +43,14 @@ CONV1D_LAUNCHES = 0
 CONV_YX_LAUNCHES = 0
 #: the most taps a kernel takes (csrc/conv.cu kMaxTaps): sigma <= 21
 MAX_TAPS = 127
+#: K3's geometry (csrc/conv.cu): outputs a thread forms along z or y, a
+#: column block's threads along x and along the other axis, the x outputs
+#: of one warp of the x kernel and the rows (warps) of its block
+RUN_COLS = 8
+COLS_X = 32
+COLS_O = 4
+ROW_SEG = 128
+ROWS = 8
 
 
 def _taps(kernel, name: str) -> np.ndarray:
@@ -60,10 +76,18 @@ def conv1d_axis(vol: torch.Tensor, kernel, axis: int, grad_border: bool = False)
 
 def _conv1d_axis_cuda(vol, kernel, axis, grad_border):
     global CONV1D_LAUNCHES
+    out = launch_conv1d(vol, kernel, axis, grad_border, "conv1d_axis")
+    CONV1D_LAUNCHES += 1
+    return out
+
+
+def launch_conv1d(vol: torch.Tensor, kernel, axis: int, grad_border: bool, name: str):
+    """One launch of K3 on a CUDA `vol` (no counter: the caller counts);
+    `name` labels the errors."""
     _check_volume(vol)
     if axis not in (0, 1, 2):
         raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
-    taps = _taps(kernel, "conv1d_axis")
+    taps = _taps(kernel, name)
     z, y, x = (int(s) for s in vol.shape)
     out = torch.empty((z, y, x), dtype=torch.float32, device=vol.device)
     cuda.check(
@@ -74,8 +98,72 @@ def _conv1d_axis_cuda(vol, kernel, axis, grad_border):
         ),
         "pnr_conv1d_axis",
     )
-    CONV1D_LAUNCHES += 1
     return out
+
+
+class ConvPlan(NamedTuple):
+    """K3's launch: grid and block (x, y, z), dynamic shared bytes, the
+    columns a thread of the column kernel owns (4 where the rows allow
+    4-wide loads), and whether the grid fits the card's limits."""
+
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int, int]
+    smem: int
+    vec: int
+    ok: bool
+
+
+def conv1d_plan(shape: Sequence[int], axis: int, ntaps: int, vec4: bool) -> ConvPlan:
+    """K3's launch for a (Z, Y, X) volume (csrc/conv.cu `conv1d_launch`);
+    `vec4`: X is a multiple of 4 and the input is aligned to 4 elements."""
+    z, y, x = (int(s) for s in shape)
+    if axis == 2:
+        grid = (-(-x // ROW_SEG), -(-y // ROWS), z)
+        block = (32, ROWS, 1)
+        smem, vec = ROWS * (ROW_SEG + 4 * -(-ntaps // 4)) * 4, 1
+    else:
+        n, other = (z, y) if axis == 0 else (y, z)
+        vec = 4 if vec4 else 1
+        grid = (-(-n // RUN_COLS), -(-x // (COLS_X * vec)), -(-other // COLS_O))
+        block = (COLS_X, COLS_O, 1)
+        smem = 0
+    return ConvPlan(grid, block, smem, vec, y * x < 2**32 and grid[1] <= 65535 and grid[2] <= 65535)
+
+
+def thread_outputs(plan: ConvPlan, shape: Sequence[int], axis: int, b, t):
+    """The (z, y, x) outputs thread t = (tx, ty) of block b = (bx, by, bz)
+    forms, as the kernel forms them (none where it lies past the volume)."""
+    z, y, x = (int(s) for s in shape)
+    (bx, by, bz), (tx, ty) = b, t
+    if axis == 2:
+        yy = by * ROWS + ty
+        if yy >= y:
+            return []
+        x0 = bx * ROW_SEG + 4 * tx
+        return [(bz, yy, xx) for xx in range(x0, min(x0 + 4, x))]
+    n, other = (z, y) if axis == 0 else (y, z)
+    xx = (by * COLS_X + tx) * plan.vec
+    o = bz * COLS_O + ty
+    if xx >= x or o >= other:
+        return []
+    out = []
+    for p in range(bx * RUN_COLS, min(bx * RUN_COLS + RUN_COLS, n)):
+        for v in range(plan.vec):
+            out.append((p, o, xx + v) if axis == 0 else (o, p, xx + v))
+    return out
+
+
+def thread_reads(plan: ConvPlan, length: int, axis: int, ntaps: int, b, t):
+    """The positions along `axis` (before clamping to [0, length)) whose
+    inputs thread t of block b loads: the column kernel's register window
+    or the x kernel's shared segment."""
+    half = ntaps // 2
+    groups = -(-ntaps // 4)
+    if axis == 2:
+        lo = b[0] * ROW_SEG - half
+        return range(lo, lo + ROW_SEG + 4 * groups)
+    lo = b[0] * RUN_COLS - half
+    return range(lo, lo + RUN_COLS + 4 * groups)
 
 
 def conv1d_axis_plain(vol: torch.Tensor, kernel, axis: int, grad_border: bool = False):

@@ -40,16 +40,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "pnr_gauss1d": (_P, _I, _P, _I, _I, _I, _I, _P, _I, _P),
     "pnr_frangi_scale": (
-        _P, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+        _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F, _F, _F, _F, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P,
     ),
+    "pnr_frangi_smem_bytes": (_I, _I, _I, _I),
     "pnr_exact_sums": (
         _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
     "pnr_tube_corr": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     "pnr_tube_params_size": (),
     "pnr_conv1d_axis": (_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P),
+    "pnr_conv1d_plan": (_I, _I, _I, _I, _I, _I, _P),
     "pnr_conv_yx": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P),
     "pnr_probe": (_P, _P, _I, _P),
 }

@@ -112,9 +112,12 @@ def frangi3d_plain(
 
 
 def normalize_to_u8(j: torch.Tensor, jmin: torch.Tensor, jmax: torch.Tensor) -> torch.Tensor:
-    """Min-max normalize float J to uint8 J8 (Advantra_plugin.cpp:2499-2512)."""
+    """Min-max normalize float J to uint8 J8 (Advantra_plugin.cpp:2499-2512).
+    JAX's chain of operations, on one float32 temporary updated in place,
+    so that J, that temporary and J8 are all it holds at once."""
     span = jmax - jmin
     degenerate = span.abs() <= _FLT_MIN
-    val = torch.round(((j - jmin) / torch.where(degenerate, torch.ones_like(span), span)) * 255.0)
-    val = torch.clamp(val, 0.0, 255.0)
-    return torch.where(degenerate, torch.zeros_like(val), val).to(torch.uint8)
+    val = j - jmin
+    val.div_(torch.where(degenerate, torch.ones_like(span), span)).mul_(255.0).round_()
+    val.clamp_(0.0, 255.0).masked_fill_(degenerate, 0.0)
+    return val.to(torch.uint8)

@@ -15,9 +15,10 @@ that JAX computes on the CPU and that K1 (ops/frangi_fused.py) is held to.
 `conv1d_along_axis` is the 1-D correlation of the tube map build
 (ops/zncc_fast.py), which JAX runs as an XLA shift-and-add, not as K3: a
 CPU tensor runs that shift-and-add (K3's plain version without
-`grad_border`, `conv1d_axis_plain` in ops/conv.py), a CUDA
-tensor runs `pnr_gauss1d` (csrc/frangi_fused.cu, the Gaussian pass of K1:
-arbitrary taps, uint8 or float32 input, one launch per axis) or raises.
+`grad_border`, `conv1d_axis_plain` in ops/conv.py), a CUDA tensor runs
+K3 without `grad_border` (`conv.launch_conv1d`: the same arithmetic per
+output, clamped reads and the taps in order with fused multiply-adds;
+at most 127 taps, else it raises with the size) or raises.
 """
 
 from __future__ import annotations
@@ -27,12 +28,10 @@ import math
 import numpy as np
 import torch
 
-from pnr_tpu_torch.ops import cuda
-from pnr_tpu_torch.ops.conv import conv1d_axis, conv1d_axis_plain, conv_yx
+from pnr_tpu_torch.ops.conv import conv1d_axis, conv1d_axis_plain, conv_yx, launch_conv1d
 
-#: CUDA launches of `conv1d_along_axis` (the tube map build's 1-D
-#: correlations; K1 launches `pnr_gauss1d` itself and counts them in
-#: frangi_fused.LAUNCHES)
+#: K3 launches of `conv1d_along_axis` (the tube map build's 1-D
+#: correlations; not counted in conv.CONV1D_LAUNCHES)
 LAUNCHES = 0
 
 
@@ -54,21 +53,7 @@ def conv1d_along_axis(vol: torch.Tensor, kernel, axis: int) -> torch.Tensor:
 
 def _conv1d_cuda(vol, kernel, axis):
     global LAUNCHES
-    if vol.dtype not in (torch.uint8, torch.float32):
-        raise TypeError(f"vol must be uint8 or float32, got {vol.dtype}")
-    cuda.require_cuda_tensor(vol, "vol", vol.dtype, 3)
-    if axis not in (0, 1, 2):
-        raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
-    taps = torch.from_numpy(np.ascontiguousarray(kernel, np.float32)).to(vol.device)
-    z, y, x = (int(s) for s in vol.shape)
-    out = torch.empty((z, y, x), dtype=torch.float32, device=vol.device)
-    cuda.check(
-        cuda.library().pnr_gauss1d(
-            vol.data_ptr(), int(vol.dtype == torch.uint8), out.data_ptr(), z, y, x, axis,
-            taps.data_ptr(), int(taps.numel()), cuda.raw_stream(vol.device.index),
-        ),
-        "pnr_gauss1d",
-    )
+    out = launch_conv1d(vol, kernel, axis, False, "conv1d_along_axis")
     LAUNCHES += 1
     return out
 

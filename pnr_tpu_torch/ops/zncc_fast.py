@@ -17,7 +17,7 @@ sigmas, the earliest sigma winning ties. The constants come from the
   three channels interleaved, for the patch engine) and the Z-streamed
   `build_tube_maps_packed_blocked` (float32 or bfloat16 field). Their
   1-D correlations run `conv1d_along_axis` (ops/gaussian.py): the XLA
-  shift-and-add on the CPU, `pnr_gauss1d` on a card.
+  shift-and-add on the CPU, K3 (`conv.launch_conv1d`) on a card.
 * `make_tube_zncc_fn`: the global gather form, plain torch on
   `ops/interp.trilinear`.
 * `TubePatchEngine`: the tracer's per-trace-window evaluator with the JAX

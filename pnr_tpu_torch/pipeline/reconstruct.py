@@ -57,10 +57,12 @@ from pnr_tpu_torch.utils.runtime import require_cuda
 #: three sigmas, built after the Frangi outputs are freed)
 FRANGI_BUDGET_BYTES = 60 * 10**9
 #: peak device bytes per voxel of each Frangi route on the (128, 640, 640)
-#: stack at sigmas (2, 4, 6), the uint8 stack included: 15 and 213 above
-#: the stack, measured by chip_smoke.py ([unfused]) on an NVIDIA H100 80GB
-#: HBM3 at 700 W (PERF.md). The caps come to 3.75 Gvox and 280 Mvox.
-FUSED_PEAK_BYTES_PER_VOXEL = 16
+#: stack at sigmas (2, 4, 6), the uint8 stack included, measured by
+#: chip_smoke.py ([unfused]) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+#: K1 holds 7 above the stack (J and three uint8 directions), and with
+#: `normalize_to_u8` after it, as the stage runs them, 12; the unfused
+#: filter 213. The caps come to 4.6 Gvox and 280 Mvox.
+FUSED_PEAK_BYTES_PER_VOXEL = 13
 UNFUSED_PEAK_BYTES_PER_VOXEL = 214
 #: K1 runs up to this size when asked for; the monolithic unfused
 #: `frangi3d` up to the next; above it the tiled engines stream the stack

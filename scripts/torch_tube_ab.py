@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""The PyTorch port's tube or exact path on one card, for comparing two
-checkouts.
+"""The PyTorch port's tube, exact or unfused path on one card, for
+comparing two checkouts.
 
-    python scripts/torch_tube_ab.py [--root DIR] [--mode tube|exact] [--runs N] [--no-profile]
+    python scripts/torch_tube_ab.py [--root DIR] [--mode tube|exact|unfused] [--runs N] [--no-profile]
 
 Runs `pnr_tpu_torch` from the checkout at DIR (this one by default) on
 chip_smoke.py's 52.4-Mvox (128, 640, 640) stack with its CLI parameters
-and `--zncc-mode MODE` (tube by default): N times (2 by default) without
+and `--zncc-mode MODE` (tube by default; unfused: the exact engine with
+`fused_frangi=False` through `reconstruction_func`, as the unfused
+filter is API-only): N times (2 by default) without
 a profiler (the runs after the first are the warm ones), then, unless
 --no-profile, once under torch.profiler. Prints one JSON line: the
-warm runs' seconds and tracing stages (and the medians), and for the
+warm runs' seconds, tracing and frangi stages (and the medians), and for the
 profiled run the tracer steps (one iteration of one chunk, counted at
 `BatchedTracker._estimate`), the host's kernel-launch calls in all and
 per step, the card's busy time and idle share, and the device time of
@@ -24,6 +26,7 @@ them in turns (parent, change, change, parent) in one session.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -33,13 +36,15 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pnr_tpu_torch runs")
-    ap.add_argument("--mode", default="tube", choices=("tube", "exact"), help="--zncc-mode")
+    ap.add_argument("--mode", default="tube", choices=("tube", "exact", "unfused"),
+                    help="--zncc-mode, or unfused (exact with fused_frangi=False)")
     ap.add_argument("--runs", type=int, default=2, help="unprofiled runs (the first is cold)")
     ap.add_argument("--no-profile", action="store_true", help="skip the profiled run")
     args = ap.parse_args()
@@ -72,32 +77,47 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix=".tube_ab_", dir=root)
     try:
         src = os.path.join(workdir, "stack.npy")
-        import numpy as np
-
-        np.save(src, cs.make_volume(cs.MAIN_SHAPE))
+        vol = cs.make_volume(cs.MAIN_SHAPE)
+        np.save(src, vol)
+        timings = {}
 
         def run(tag):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rc = cli.main(cs.cli_argv(src, workdir, tag, args.mode))
+            if args.mode == "unfused":
+                from pnr_tpu_torch import PNRConfig
+                from pnr_tpu_torch.pipeline import reconstruction_func
+
+                cfg = dataclasses.replace(PNRConfig.from_cli_params(cs.MAIN_PARAMS),
+                                          fused_frangi=False)
+                timings[tag] = reconstruction_func(vol, cfg, verbose=False,
+                                                   device=cs.DEVICE).timings
+            else:
+                rc = cli.main(cs.cli_argv(src, workdir, tag, args.mode))
+                if rc != 0:
+                    raise RuntimeError(f"the {args.mode} CLI run {tag} exited {rc}")
             torch.cuda.synchronize()
-            if rc != 0:
-                raise RuntimeError(f"the {args.mode} CLI run {tag} exited {rc}")
-            return time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            if args.mode != "unfused":
+                with open(os.path.join(workdir, f"{tag}.json")) as f:
+                    timings[tag] = json.load(f)["stacks"][0]["timings_s"]
+            return dt
 
         warm_s, stages = [], []
         for i in range(1, max(args.runs, 2) + 1):
             t = run(f"{args.mode}{i}")
             if i > 1:
                 warm_s.append(t)
-                with open(os.path.join(workdir, f"{args.mode}{i}.json")) as f:
-                    stages.append(json.load(f)["stacks"][0]["timings_s"])
+                stages.append(timings[f"{args.mode}{i}"])
         tracing = [st.get("tracing") for st in stages]
+        frangi = [st.get("frangi") for st in stages]
         row = {"root": root, "mode": args.mode, "card": torch.cuda.get_device_name(0),
                "run2_s": warm_s[0], "tracing_s": tracing[0], "stages_s": stages[0],
                "warm_s": warm_s, "warm_tracing_s": tracing,
+               "warm_frangi_s": frangi,
                "median_s": statistics.median(warm_s),
-               "median_tracing_s": statistics.median(tracing)}
+               "median_tracing_s": statistics.median(tracing),
+               "median_frangi_s": statistics.median(frangi)}
         if args.no_profile:
             print(json.dumps(row), flush=True)
             return 0
@@ -114,7 +134,7 @@ def main() -> int:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    names = ("exact_sums",) if args.mode == "exact" else ("hat_", "tube_corr")
+    names = ("hat_", "tube_corr") if args.mode == "tube" else ("exact_sums",)
     lik = [e for e in dev if e.name.startswith(names) or any(f"::{n}" in e.name for n in names)]
     launches = sum(1 for e in events if e.device_type == DeviceType.CPU
                    and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))

@@ -1,9 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 (Frangi), K2 (exact ZNCC sums), K3 and K4 (the unfused filter's 1-D and
-fused y-x correlations) with the unfused and tiled Frangi engines on them,
-K7's build-and-launch check, the tube map build's 1-D correlation,
-`tube_corr` (the tube likelihood, K5's and K6's counterpart), and the main
-paths on a small stack.
+K1 (Frangi; also at the shapes likely to trip its plane rings: Z below
+2hz + 1, dimensions of 2, odd sizes, shrunk tiles, an unaligned uint8
+view), K2 (exact ZNCC sums), K3 and K4 (the unfused filter's 1-D and
+fused y-x correlations; K3 at 1 to 127 taps, every axis, 4-wide and
+1-wide columns, unaligned views) with the unfused and tiled Frangi
+engines on them, the C side's launch plans against ops/frangi_fused.py's
+and ops/conv.py's, K7's build-and-launch check, the tube map build's 1-D
+correlation, `tube_corr` (the tube likelihood, K5's and K6's
+counterpart), and the main paths on a small stack.
 
 Every test here needs a CUDA device (the kernels have no CPU mode): they
 carry the `cuda` marker and skip without one. The file imports no jax, so
@@ -14,6 +18,8 @@ it runs on a machine with a card and no jax:
 The inputs and bars are those the plain versions are held to against the
 JAX package (tests/_torch_cases.py).
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -167,6 +173,159 @@ def test_frangi_kernel_blackwhite(dev):
     assert np.abs(plain[0] - kernel[0]).max() / scale < 1e-4
 
 
+def check_frangi_bars(plain, kernel):
+    """chip_smoke.py's K1 bars: max|dJ|/Jmax < 1e-4, Jmin and Jmax within
+    1e-4 of it, J8 within 8 with < 1% mismatch, directions aligned (median
+    |cos| > 0.99 where J > 0.2 Jmax)."""
+    from pnr_tpu_torch.ops.frangi import normalize_to_u8
+
+    scale = max(float(plain[2]), 1e-12)
+    assert float((kernel[0] - plain[0]).abs().max()) / scale < 1e-4
+    assert abs(float(kernel[1]) - float(plain[1])) / scale < 1e-4
+    assert abs(float(kernel[2]) - float(plain[2])) / scale < 1e-4
+    d8 = (normalize_to_u8(*kernel[:3]).int() - normalize_to_u8(*plain[:3]).int()).abs()
+    assert int(d8.max()) <= 8 and float((d8 > 0).float().mean()) < 0.01
+    m = plain[0] > 0.2 * scale
+    if bool(m.any()):
+        dot = sum((a[m].float() / 255 * 2 - 1) * (b[m].float() / 255 * 2 - 1)
+                  for a, b in zip(plain[3:], kernel[3:])).abs()
+        assert float(dot.median()) > 0.99
+
+
+def unaligned_u8(vol):
+    """A contiguous uint8 view of `vol` whose first byte is 1 past an
+    aligned address (and so not 4- or 16-byte aligned)."""
+    base = torch.empty(vol.numel() + 16, dtype=torch.uint8, device=vol.device)
+    off = (16 - base.data_ptr() % 16) % 16 + 1
+    view = base[off:off + vol.numel()].view(vol.shape)
+    view.copy_(vol)
+    assert view.is_contiguous() and view.data_ptr() % 4 != 0
+    return view
+
+
+def tube_along(shape, axis, noise=30):
+    """A bright tube along `axis` (0 z, 1 y, 2 x) through the middle of
+    the other two, z scaled by ZDIST, with uniform noise: along a
+    dimension of 2 the profile is flat, so the tube must run along it for
+    the vesselness to be more than float32 rounding."""
+    rng = np.random.default_rng(5)
+    c = list(np.meshgrid(*[np.arange(s) - s / 2 for s in shape], indexing="ij"))
+    c[0] = c[0] * ZDIST
+    d2 = sum(c[a] ** 2 for a in range(3) if a != axis)
+    v = 200.0 * np.exp(-d2 / (2 * 9.0)) + rng.integers(0, noise, shape)
+    return np.clip(v, 0, 255).astype(np.uint8)
+
+
+#: K1's shapes that are likely trouble: (shape, tube axis, sigmas, zdist);
+#: Z below 2hz + 1, dimensions of 2, odd Y and X, a tile the rings
+#: shrink, Y and X beyond one tile with edge and interior blocks
+K1_TROUBLE = {
+    "z_below_ring": ((6, 40, 44), 2, (2.0, 6.0), 2.0),
+    "z2": ((2, 40, 44), 0, (2.0, 3.0), 2.0),
+    "y2": ((12, 2, 70), 1, (2.0,), 2.0),
+    "x2": ((12, 70, 2), 2, (2.0,), 2.0),
+    "odd": ((10, 37, 53), 2, (2.0, 3.0), 2.0),
+    "interior_blocks": ((20, 100, 140), 2, (2.0, 3.0), 2.0),
+    "small_tile": ((24, 50, 70), 0, (6.0,), 0.5),
+    "build_stack": ((8, 24, 24), 2, (2.0,), 2.0),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_TROUBLE))
+def test_frangi_kernel_trouble_shapes_match_plain(dev, case):
+    shape, axis, sig, zdist = K1_TROUBLE[case]
+    vol = torch.from_numpy(tube_along(shape, axis)).to(dev)
+    n = frangi_fused.LAUNCHES
+    kernel = frangi_fused.frangi3d_fused(vol, sig, zdist)
+    assert frangi_fused.LAUNCHES == n + len(sig) + 1
+    check_frangi_bars(plain_frangi3d(vol, sig, zdist), kernel)
+
+
+def test_frangi_kernel_unaligned_view_matches_plain(dev):
+    # a contiguous vol[1:] of an odd-width stack starts at an odd byte
+    full = torch.from_numpy(tube((13, 33, 45), noise=30)).to(dev)
+    for vol in (full[1:], unaligned_u8(full)):
+        check_frangi_bars(plain_frangi3d(vol, (2.0, 3.0), ZDIST),
+                          frangi_fused.frangi3d_fused(vol, (2.0, 3.0), ZDIST))
+
+
+def test_frangi_kernel_is_deterministic_and_zeroes_nan(dev):
+    vol = torch.from_numpy(tube((20, 70, 90), noise=40)).to(dev)
+    a = frangi_fused.frangi3d_fused(vol, (2.0, 4.0), ZDIST)
+    b = frangi_fused.frangi3d_fused(vol, (2.0, 4.0), ZDIST)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # a flat stack: every eigenvalue 0, the vesselness NaN, J 0
+    flat = torch.full((6, 20, 24), 77, dtype=torch.uint8, device=dev)
+    j, jmin, jmax, *_ = frangi_fused.frangi3d_fused(flat, (2.0,), ZDIST)
+    assert not bool(j.any()) and float(jmin) == 0.0 and float(jmax) == 0.0
+
+
+def test_frangi_kernel_plan_is_the_c_sides(dev):
+    lib = cuda.library()
+    for (ty, tx), hxy, hz in itertools.product(frangi_fused.TILES, (2, 6, 18, 63), (1, 9, 126)):
+        want = frangi_fused.smem_bytes(ty, tx, hxy, hz)
+        assert lib.pnr_frangi_smem_bytes(ty, tx, hxy, hz) == want
+
+
+def test_frangi_kernel_rejects_what_it_cannot_take(dev):
+    n = frangi_fused.LAUNCHES
+    with pytest.raises(ValueError, match="at most 127 xy"):
+        frangi_fused.frangi3d_fused(torch.zeros((4, 8, 8), dtype=torch.uint8, device=dev), (22.0,),
+                                    ZDIST)
+    with pytest.raises(ValueError, match=">= 2"):
+        frangi_fused.frangi3d_fused(torch.zeros((1, 8, 8), dtype=torch.uint8, device=dev), (2.0,),
+                                    ZDIST)
+    with pytest.raises(TypeError):
+        frangi_fused.frangi3d_fused(torch.zeros((4, 8, 8), device=dev), (2.0,), ZDIST)
+    assert frangi_fused.LAUNCHES == n
+
+
+#: K3's tap sets: 1, 3 (a Gaussian, and the Hessian's differences with
+#: grad_border), 19, 37 and 127 taps
+K3_TAPS = {
+    "1": ((0.7,), False),
+    "3": (gaussian_kernel(0.5), False),
+    "3_g1": ((-0.5, 0.0, 0.5), True),
+    "3_g2": ((-18.0, 0.0, 18.0), True),
+    "19": (gaussian_kernel(3.0), False),
+    "37": (gaussian_kernel(6.0), False),
+    "127": (gaussian_kernel(21.0), False),
+}
+
+
+@pytest.mark.parametrize("layout", ["vec4", "odd", "unaligned"])
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("taps", list(K3_TAPS))
+def test_conv1d_axis_kernel_taps_and_layouts_match_plain(dev, taps, dtype, layout):
+    k, grad = K3_TAPS[taps]
+    shape = (19, 30, 37) if layout == "odd" else (19, 30, 68)
+    vol = torch.from_numpy(noisy_tube(shape)).to(dev)
+    if dtype == "f32":
+        vol = vol.to(torch.float32) / 7.0
+    if layout == "unaligned":
+        base = torch.empty(vol.numel() + 1, dtype=vol.dtype, device=dev)
+        vol = base[1:].view(shape).copy_(vol)
+        assert vol.data_ptr() % 16 != 0
+    for axis in (0, 1, 2):
+        n = conv.CONV1D_LAUNCHES
+        kern = conv.conv1d_axis(vol, k, axis, grad)
+        assert conv.CONV1D_LAUNCHES == n + 1
+        check_conv(kern, conv.conv1d_axis_plain(vol, k, axis, grad))
+
+
+def test_conv1d_axis_plan_is_the_c_sides(dev):
+    import ctypes
+
+    lib = cuda.library()
+    out = (ctypes.c_int * 9)()
+    for shape, axis, ntaps, vec4 in itertools.product(
+            ((128, 640, 640), (19, 30, 37), (2, 2, 2), (9, 12, 136)), (0, 1, 2), (1, 3, 19, 127),
+            (False, True)):
+        lib.pnr_conv1d_plan(*shape, axis, ntaps, int(vec4), ctypes.cast(out, ctypes.c_void_p))
+        plan = conv.conv1d_plan(shape, axis, ntaps, vec4)
+        assert list(out) == [*plan.grid, *plan.block, plan.smem, plan.vec, int(plan.ok)]
+
+
 def exact_case(dev, vol_name, b, t=None, sigmas=(2.0, 4.0, 6.0)):
     vol = torch.from_numpy(ZNCC_VOLUMES[vol_name]()).to(dev)
     pos, d = queries(tuple(vol.shape)) if t is None else queries(tuple(vol.shape), t=t)
@@ -314,7 +473,7 @@ def _small_stack_on_card(dev, mode):
     assert abs(np.median(gpu.tree.y[1:]) - np.median(cpu.tree.y[1:])) < 2.0
 
 
-# tube mode: the map build (pnr_gauss1d) and `tube_corr` against their
+# tube mode: the map build (on K3) and `tube_corr` against their
 # plain versions on the card (bars of chip_smoke.py: line sums within 1e-5
 # of each column's scale, corr max|d| < 1e-4, sigma agreement > 0.99)
 
@@ -343,9 +502,10 @@ def check_corr(a, b):
 def test_map_build_kernel_matches_plain(dev, sigmas):
     vol = torch.from_numpy(noisy_tube()).to(dev)
     model = TubeZnccModel(sigmas, False)
-    n = gaussian.LAUNCHES
+    n, n3 = gaussian.LAUNCHES, conv.CONV1D_LAUNCHES
     kern = build_tube_maps_packed(vol, model)
-    assert gaussian.LAUNCHES == n + 9 * len(sigmas)
+    # K3's launches, counted as the map build's
+    assert gaussian.LAUNCHES == n + 9 * len(sigmas) and conv.CONV1D_LAUNCHES == n3
     check_samples(kern.reshape(*kern.shape[:3], -1, 3), build_tube_maps_packed_plain(
         vol, model).reshape(*kern.shape[:3], -1, 3))
 
