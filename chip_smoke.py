@@ -15,17 +15,21 @@ Phases, each of which exits non-zero on failure:
    launches each kernel once (K1, K2, K3, K4, the map build's 1-D
    correlation on K3, tube_corr) at a tiny shape, and times K7's `pnr_probe`
    in turns with its plain version and `torch.mul` (per call in runs of
-   20 back-to-back calls, and alone);
+   20 back-to-back calls, and alone), and the device time of one launch of
+   each from torch.profiler;
 3. K1 (frangi3d_fused, one plane-ring pass per sigma) against its plain
    PyTorch version on the card: clean and noisy tube volumes
    (64, 256, 256) and the main path's (128, 640, 640) stack at sigmas
    (2, 4, 6), with each sigma's tile and shared memory, then both timed
    (CUDA events, warm-up, median of 5) on that stack;
 4. K3 (conv1d_axis) and K4 (conv_yx) against their plain versions on the
-   main stack, as float32 and as uint8, along each axis, with the taps of
-   the unfused filter: max|kernel - plain| / max|plain| < 1e-5; both timed
-   with their plain versions and a cuDNN conv3d (TF32 off); K3 also timed
-   at 3 taps along each axis;
+   main stack, as float32 and as uint8, with the taps of the unfused
+   filter (K3 along each axis, K4 at sigmas 2, 4 and 6): max|kernel -
+   plain| / max|plain| < 1e-5; both timed with their plain versions and a
+   cuDNN conv3d (TF32 off); K3 also timed at 3 taps along each axis; K4
+   timed from uint8 at each sigma in turns with K3 along y then K3 along x
+   (the two launches it fuses; per call back to back and alone), beside
+   its bound, and its sigma-6 uint8 output's SHA-256 printed;
 5. unfused: `frangi3d` on the card (K4, K3) against `frangi3d_plain` at
    K1's bars on the tube volumes and the main stack, timed next to K1, with
    the peak device bytes per voxel of K1, the unfused and the tiled route;
@@ -273,13 +277,20 @@ def phase_build(torch, card):
     # in turns: per call in runs of 20 back-to-back calls, and alone
     ms, plain_ms, library_ms = time_turns_ms(torch, fns, calls=20)
     single_ms, plain_single_ms, library_single_ms = time_turns_ms(torch, fns, reps=51)
+    # the device time of the launch alone, from the profiler: what is left
+    # of the event times is the host's call
+    dev_ms, seen = device_ms_per_launch(torch, fns[0], kernel="probe_kernel")
+    lib_dev_ms, lib_seen = device_ms_per_launch(torch, fns[2], kernel="elementwise_kernel")
     k7 = {"max_abs_err": float((cuda.probe(x) - cuda.probe_plain(x)).abs().max()),
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "single_ms": single_ms,
           "plain_single_ms": plain_single_ms, "library_single_ms": library_single_ms,
+          "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
           **bound(2 * x.numel() * 4, x.numel())}
     print(f"[build] K7 (8, 128) in turns: pnr_probe {ms:.4f} ms per call back to back, "
           f"{single_ms:.4f} alone; plain x * 2.0 {plain_ms:.4f}, {plain_single_ms:.4f}; torch.mul "
-          f"{library_ms:.4f}, {library_single_ms:.4f} [{card}]", flush=True)
+          f"{library_ms:.4f}, {library_single_ms:.4f}; device time per launch (profiler): "
+          f"pnr_probe {dev_ms * 1e3:.3f} us ({seen} launches), torch.mul {lib_dev_ms * 1e3:.3f} us "
+          f"({lib_seen}) [{card}]", flush=True)
     return probe_launches, k7
 
 
@@ -430,14 +441,60 @@ def phase_k3_k4(torch, card, main_vol):
           f"{lerr:.3e}) {k3['library_ms']:.3f} ms, bound {k3['bound_ms']:.4f} ms "
           f"({k3['bound_by']}) [{card}]", flush=True)
 
-    kxy = gaussian_kernel(SIGMAS[-1])
+    k4 = phase_k4(torch, card, main_vol)
+    return k3, k4
+
+
+def k4_digest(out):
+    """SHA-256 of a K4 output's float32 bytes (C order)."""
+    import hashlib
+
+    return hashlib.sha256(out.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def phase_k4(torch, card, main_vol):
+    """K4 against its plain version on the main stack at each sigma, u8
+    and f32; timed at each sigma from u8 beside the K3 y-then-x chain on
+    the same input and taps and beside the bound; the sigma-6 u8 output's
+    SHA-256 (the paired runs of scripts/torch_filter_kernels.py compare it
+    with another checkout's); cuDNN conv3d and the plain version timed at
+    sigma 6."""
+    import torch.nn.functional as F
+
+    from pnr_tpu_torch.ops import conv
+    from pnr_tpu_torch.ops.gaussian import gaussian_kernel
+
+    vol_f = main_vol.to(torch.float32)
+    n = main_vol.numel()
     worst4 = 0.0
-    for dt, v in (("u8", main_vol), ("f32", vol_f)):
-        e = conv_err(conv.conv_yx(v, kxy, kxy), conv.conv_yx_plain(v, kxy, kxy))
-        print(f"[K4] sigma 6 ({len(kxy)} + {len(kxy)} taps) {dt}: max|d|/max|plain| {e:.3e}",
+    per_sigma = {}
+    for sig in SIGMAS:
+        kxy = gaussian_kernel(sig)
+        for dt, v in (("u8", main_vol), ("f32", vol_f)):
+            plan = conv.conv_yx_plan(MAIN_SHAPE, len(kxy), len(kxy), dt == "u8")
+            e = conv_err(conv.conv_yx(v, kxy, kxy), conv.conv_yx_plain(v, kxy, kxy))
+            print(f"[K4] sigma {sig:g} ({len(kxy)} + {len(kxy)} taps) {dt}: max|d|/max|plain| "
+                  f"{e:.3e}; tile {plan.ty} x {plan.tx}, grid {plan.grid}, {plan.smem} bytes of "
+                  f"shared memory a block", flush=True)
+            check(e < 1e-5, f"K4 sigma {sig:g} {dt}: within 1e-5 of max|plain|")
+            worst4 = max(worst4, e)
+        fns = (lambda: conv.conv_yx(main_vol, kxy, kxy),
+               lambda: conv.conv1d_axis(conv.conv1d_axis(main_vol, kxy, 1), kxy, 2))
+        # per call in runs of 20 back-to-back calls (the host ahead of the
+        # card, as in the filter), and alone (the host's call included)
+        ms, pair_ms = time_turns_ms(torch, fns, reps=11, calls=20, warmup=2)
+        single_ms, pair_single_ms = time_turns_ms(torch, fns, reps=11, warmup=2)
+        b = bound(n * (1 + 4), n * 2 * 2 * len(kxy))
+        per_sigma[f"{sig:g}"] = {"ms": ms, "k3_pair_ms": pair_ms, "single_ms": single_ms,
+                                 "k3_pair_single_ms": pair_single_ms, **b}
+        print(f"[K4] sigma {sig:g}, u8 {MAIN_SHAPE}, in turns: kernel {ms:.4f} ms per call back "
+              f"to back, {single_ms:.4f} alone; K3 along y then K3 along x {pair_ms:.4f}, "
+              f"{pair_single_ms:.4f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]",
               flush=True)
-        check(e < 1e-5, f"K4 {dt}: within 1e-5 of max|plain|")
-        worst4 = max(worst4, e)
+    kxy = gaussian_kernel(SIGMAS[-1])
+    digest = k4_digest(conv.conv_yx(main_vol, kxy, kxy))
+    check(digest == k4_digest(conv.conv_yx(main_vol, kxy, kxy)), "K4 is deterministic")
+    print(f"[K4] sigma {SIGMAS[-1]:g} u8 {MAIN_SHAPE} output sha256 {digest}", flush=True)
     h = len(kxy) // 2
     w2 = torch.from_numpy(np.outer(kxy, kxy).astype(np.float32)).to(main_vol.device)[None, None, None]
 
@@ -445,16 +502,16 @@ def phase_k3_k4(torch, card, main_vol):
         return F.conv3d(F.pad(vol_f[None, None], (h, h, h, h, 0, 0), mode="replicate"), w2)
 
     lerr = conv_err(lib4()[0, 0], conv.conv_yx_plain(main_vol, kxy, kxy))
-    k4 = {"max_abs_err": worst4,
-          "ms": time_ms(torch, lambda: conv.conv_yx(main_vol, kxy, kxy)),
+    six = per_sigma[f"{SIGMAS[-1]:g}"]
+    k4 = {"max_abs_err": worst4, "ms": six["ms"], "single_ms": six["single_ms"],
           "plain_ms": time_ms(torch, lambda: conv.conv_yx_plain(main_vol, kxy, kxy)),
-          "library_ms": time_ms(torch, lib4),
-          **bound(n * (1 + 4), n * 2 * 2 * len(kxy))}
-    print(f"[K4] sigma 6, u8 {MAIN_SHAPE}: kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.3f} ms, "
+          "library_ms": time_ms(torch, lib4), "bound_ms": six["bound_ms"],
+          "bound_by": six["bound_by"], "per_sigma": per_sigma, "sha256_sigma6_u8": digest}
+    print(f"[K4] sigma {SIGMAS[-1]:g}, u8 {MAIN_SHAPE}: kernel {k4['ms']:.4f} ms back to back, plain {k4['plain_ms']:.3f} ms, "
           f"conv3d of the f32 stack ({len(kxy)}x{len(kxy)} outer-product weight, TF32 off; "
           f"max|d|/max|plain| {lerr:.3e}) {k4['library_ms']:.3f} ms, bound {k4['bound_ms']:.4f} ms "
           f"({k4['bound_by']}) [{card}]", flush=True)
-    return k3, k4
+    return k4
 
 
 def peak_bytes_per_voxel(torch, fn, n):
@@ -746,22 +803,32 @@ def tube_corr_compare(torch, eng, field, label, pos, d, single):
     return lay, corners, corr_check(label, (kc, ks), (pc, ps))
 
 
-def device_ms_per_launch(torch, fn, reps=20):
-    """torch.profiler's device time per tube_corr_kernel launch over `reps`
-    calls of `fn` (the profiler may drop a run's first events: the mean is
-    over the launches it saw)."""
+def profiler_warmup(torch, n=32):
+    """torch.profiler drops the first device events of a session (it has
+    missed K1's and K4's first launches of a profiled run): absorb them
+    with n short spin kernels (`spin_kernel`, left out of every count)
+    before the work it measures."""
+    for _ in range(n):
+        torch.cuda._sleep(100_000)
+    torch.cuda.synchronize()
+
+
+def device_ms_per_launch(torch, fn, reps=20, kernel="tube_corr_kernel"):
+    """torch.profiler's device time per launch of the kernel whose name
+    holds `kernel`, over `reps` calls of `fn` (the profiler may drop a
+    run's first events: the mean is over the launches it saw)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_warmup(torch)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hit = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and "tube_corr_kernel" in e.name]
-    check(hit, "the profiler saw tube_corr_kernel")
+    hit = [e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name]
+    check(hit, f"the profiler saw {kernel}")
     return sum(e.time_range.elapsed_us() for e in hit) / len(hit) / 1e3, len(hit)
 
 
@@ -1086,18 +1153,24 @@ def phase_profile(torch, card, mode, run, unprofiled_s):
     calls per tracer step (one iteration of one chunk: two tube_corr
     launches) and the device time per tube_corr launch."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     reset_counters()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        profiler_warmup(torch)
+        with record_function("chip_smoke run"):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     events = prof.events()
+    span = next(e.time_range for e in events
+                if e.name == "chip_smoke run" and e.device_type == DeviceType.CPU)
+    # the range's own device annotation spans the whole run: not device work
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.name.startswith("Activity Buffer")]
+           and not e.name.startswith("Activity Buffer") and "spin_kernel" not in e.name
+           and e.name != "chip_smoke run"]
     check(dev, f"the profiler recorded device work in the {mode} path")
     busy_us, end = 0.0, -1.0
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
@@ -1110,7 +1183,8 @@ def phase_profile(torch, card, mode, run, unprofiled_s):
         hit = [e for e in dev if any(nm in e.name for nm in names)]
         per[label] = (sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit))
     host_launch = [e for e in events if e.device_type == DeviceType.CPU
-                   and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")]
+                   and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+                   and span.start <= e.time_range.start <= span.end]
     launch_ms = sum(e.time_range.elapsed_us() for e in host_launch) / 1e3
     print(f"[profile {mode}] run 3 under torch.profiler: {wall:.3f} s; card busy "
           f"{busy_s * 1e3:.3f} ms, idle {1 - busy_s / wall:.4f} of the profiled run and "
@@ -1218,8 +1292,10 @@ def main() -> int:
                                for m in ("exact", "tube")}
     k3["device_ms_per_run"] = {m: profiles[m]["kernels"]["K3 (and the map build's)"]
                                for m in ("unfused", "tube")}
+    k4["device_ms_per_run"] = {"unfused": profiles["unfused"]["kernels"]["K4"]}
     print(f"[K1] device time per profiled run (ms, launches): {json.dumps(k1['device_ms_per_run'])}; "
-          f"[K3] {json.dumps(k3['device_ms_per_run'])} (tube: the map build) [{card}]", flush=True)
+          f"[K3] {json.dumps(k3['device_ms_per_run'])} (tube: the map build); "
+          f"[K4] {json.dumps(k4['device_ms_per_run'])} [{card}]", flush=True)
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "pnr_tpu") or m.startswith(("jax.", "pnr_tpu.")))
     check(not loaded, f"no module of jax or of pnr_tpu was imported (found {loaded})")

@@ -24,14 +24,21 @@
 //   index.
 // * K4, `_pallas_conv_yx`: the y pass then the x pass of a separable
 //   correlation, edge-replicated, with the y-smoothed plane kept out of
-//   device memory. `conv_yx_kernel` below: one block per (z, y tile, x
-//   tile) of kTileY x kTileX outputs. The block stages the edge-clamped
-//   (kTileY + 2hy) x (kTileX + 2hx) input window in shared memory
-//   (widening uint8 to float32 as it loads), runs the y pass into a shared
-//   kTileY x (kTileX + 2hx) temporary and the x pass into device memory.
-//   At hy = hx = 18 (sigma 6) that is 40 KB of shared memory for any
-//   plane width, where the TPU kernel holds one whole z-plane.
-//
+//   device memory. `conv_yx_kernel`: a 256-thread block walks a run of y
+//   tiles of ty x 128 outputs (ty 64, 32 or 16: the tallest whose shared
+//   memory lets four blocks share an SM) down one x tile of one plane. It
+//   stages the edge-clamped input rows in shared memory in the input's
+//   own type, with 16-byte `cp.async` from each row's aligned chunk (rows
+//   start at any byte: a table holds each row's offset; columns outside
+//   the volume take the edge value), into a ring that holds the current
+//   tile's window and the next tile's new rows, which are in flight while
+//   the block works. The y pass is register-blocked: a thread slides a
+//   register window down one window column and forms kYxRun = 16 rows, so
+//   it reads (16 + 4 ceil(nky / 4)) / 16 window values an output, not
+//   nky; it covers the window's 128 + nkx - 1 columns (1.28x the outputs
+//   at sigma 6). In the x pass a half-warp takes a row and a lane forms 8
+//   outputs from a register window of float4 reads of the y-smoothed row.
+//   The taps are staged in shared memory and read as float4.
 // Both compute each output voxel by one code path that depends only on its
 // coordinates: the clamped reads, the taps and their order are the same
 // wherever the block borders or a thread's run fall, so a tile of the
@@ -50,12 +57,18 @@
 //   load, so the kernel streams near the device-memory rate.
 // * K4 does 2 FLOPs per tap in each pass, 148 FLOPs/voxel at 37 + 37 taps
 //   (~0.116 ms) against 5 B/voxel from uint8 (~0.078 ms): FLOPs set the
-//   bound. The staged window costs (kTileX + 2hx) / kTileX more y-pass work
-//   (1.56x at hx = 18); a wider tile or a register-blocked y pass is later
-//   work.
+//   bound. The kernel issues ~1.28 nky + nkx fused multiply-adds a voxel
+//   (the y pass's halo columns), ~2/3 of its y pass's instructions and
+//   ~9/10 of its x pass's. Per 4 taps the y pass makes 6 shared reads (4
+//   values, the int4 of row offsets, the float4 of taps) for 64 of them
+//   and the x pass a float4 of values and one of taps for 32. Narrower
+//   runs and lanes (8 rows, 4 outputs) kept the shared-memory pipe nearly
+//   as busy as the FMA pipes and were slower on the card (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -65,11 +78,16 @@ constexpr int kColsX = 32;     // threads of a column block along x
 constexpr int kColsO = 4;      // threads of a column block along the other axis
 constexpr int kRowSeg = 128;   // x outputs of one warp in the x kernel (4 a lane)
 constexpr int kRows = 8;       // rows (warps) of an x-kernel block
-constexpr int kThreads = 256;
-constexpr int kTileX = 64;
-constexpr int kTileY = 32;
-constexpr int kBlockX = 64;
-constexpr int kBlockY = 4;
+constexpr int kYxTileX = 128;  // x outputs of a K4 block: four a lane of one warp
+constexpr int kYxRun = 16;     // y-pass outputs a K4 thread forms down its column
+constexpr int kYxLane = 8;     // x-pass outputs a K4 lane forms along its row (16 lanes a row)
+constexpr int kYxWarps = 8;
+constexpr int kYxThreads = 32 * kYxWarps;
+constexpr int kSmemLimit = 232448;  // shared memory a block can take
+constexpr int kYxBlocks = 132 * 16;  // K4's grid: ~16 blocks on each of the H100's SMs
+// K4's tile heights, tallest first: the tallest whose block takes at most
+// a quarter of the shared memory (four blocks an SM), else the last
+constexpr int kYxTileYs[] = {64, 32, 16};
 
 struct Taps {
   float t[kMaxTaps];
@@ -214,47 +232,332 @@ conv1d_axis_x_kernel(const T* __restrict__ in, float* __restrict__ out, int Y, i
   }
 }
 
+// K4's block geometry for tiles of ty x kYxTileX outputs (size: bytes of
+// an input element), in the order of its dynamic shared memory:
+// * the y and x taps, each padded to a multiple of 4 (read as float4);
+// * `rows` int offsets of the current window's rows: the byte offset in
+//   the ring of window column 0 of each row (ty + 4 ceil(nky / 4) rows:
+//   the y pass's register window reads up to 4 rows past the last it
+//   uses, which it never multiplies; they fall on slots of the next
+//   tile's rows);
+// * `nring` int offsets of the ring's slots (padded to a multiple of 4);
+// * the y-smoothed rows, ty x tmpw float32 (tmpw = kYxTileX + 4 ceil(nkx
+//   / 4): the x pass's float4 reads run up to 4 columns past the last it
+//   uses);
+// * the ring of input rows, nring = 2 ty + nky - 1 slots of `pitch` bytes:
+//   the current tile's window (ty + nky - 1 rows) and the next tile's ty
+//   new rows. A slot holds a margin that takes the columns left of the
+//   volume, then the row's 16-byte chunks, read at the row's lead (its
+//   first byte's address mod 16).
+// The y pass forms `ncols` = kYxTileX + nkx - 1 columns: the x pass's
+// reach. ops/conv.yx_geom mirrors it.
+struct YxGeom {
+  int ty, ncols, rows, nring, margin, pitch, tmpw, smem;
+};
+
+__host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
+
+__host__ __device__ __forceinline__ YxGeom yx_geom(int nky, int nkx, int size, int ty) {
+  YxGeom g;
+  g.ty = ty;
+  g.ncols = kYxTileX + nkx - 1;
+  g.rows = ty + 4 * ((nky + 3) / 4);
+  g.nring = 2 * ty + nky - 1;
+  g.margin = round16((nkx / 2) * size);
+  g.pitch = g.margin + round16(g.ncols * size + 15);
+  g.tmpw = kYxTileX + 4 * ((nkx + 3) / 4);
+  g.smem = 16 * ((nky + 3) / 4 + (nkx + 3) / 4) + 4 * g.rows + 16 * ((g.nring + 3) / 4) +
+           4 * ty * g.tmpw + g.nring * g.pitch;
+  return g;
+}
+
 template <typename T>
-__global__ void conv_yx_kernel(const T* __restrict__ in, float* __restrict__ out, int Y, int X,
-                               Taps ky, int nky, Taps kx, int nkx) {
-  extern __shared__ float smem[];
-  const int hy = nky / 2, hx = nkx / 2;
-  const int wx = kTileX + 2 * hx;  // window width (x)
-  const int wy = kTileY + 2 * hy;  // window height (y)
-  float* win = smem;               // wy x wx input window
-  float* tmp = smem + wy * wx;     // kTileY x wx y-smoothed rows
-  const int z = blockIdx.z;
-  const int y0 = blockIdx.y * kTileY, x0 = blockIdx.x * kTileX;
-  const T* plane = in + (long long)z * Y * X;
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+__device__ __forceinline__ float lds(const unsigned char* p) {
+  return (float)*reinterpret_cast<const T*>(p);
+}
 
-  for (int k = tid; k < wy * wx; k += kThreads) {
-    const int wyy = k / wx, wxx = k - wyy * wx;
-    const int gy = min(max(y0 + wyy - hy, 0), Y - 1);
-    const int gx = min(max(x0 + wxx - hx, 0), X - 1);
-    win[k] = (float)__ldg(plane + (long long)gy * X + gx);
-  }
-  __syncthreads();
-
-  // y pass: tmp[r][c] = sum_j ky[j] * win[r + j][c]
-  for (int k = tid; k < kTileY * wx; k += kThreads) {
-    const int r = k / wx, c = k - r * wx;
-    float acc = 0.0f;
-    for (int j = 0; j < nky; ++j) acc = fmaf(ky.t[j], win[(r + j) * wx + c], acc);
-    tmp[k] = acc;
-  }
-  __syncthreads();
-
-  // x pass: out[y0 + r][x0 + c] = sum_j kx[j] * tmp[r][c + j]
-  for (int r = threadIdx.y; r < kTileY; r += kBlockY) {
-    const int gy = y0 + r;
-    for (int c = threadIdx.x; c < kTileX; c += kBlockX) {
-      const int gx = x0 + c;
-      if (gy >= Y || gx >= X) continue;
-      float acc = 0.0f;
-      for (int j = 0; j < nkx; ++j) acc = fmaf(kx.t[j], tmp[r * wx + c + j], acc);
-      out[((long long)z * Y + gy) * X + gx] = acc;
+// One group of 4 y taps (k) on a thread's register window e0 | .. | e4
+// (window rows 4q .. 4q + 19 of its run: output u takes row 4q + t + u for
+// tap 4q + t); `nt` < 4 applies only the first nt. The last group of a
+// sum has nt = nky mod 4 (1 or 3: nky is odd).
+__device__ __forceinline__ void y_group(const float4 k, const float (&e0)[4], const float (&e1)[4],
+                                        const float (&e2)[4], const float (&e3)[4],
+                                        const float (&e4)[4], float (&acc)[kYxRun], int nt) {
+  const float e[20] = {e0[0], e0[1], e0[2], e0[3], e1[0], e1[1], e1[2], e1[3], e2[0], e2[1],
+                       e2[2], e2[3], e3[0], e3[1], e3[2], e3[3], e4[0], e4[1], e4[2], e4[3]};
+  const float kk[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t < nt) {
+#pragma unroll
+      for (int u = 0; u < kYxRun; ++u) acc[u] = fmaf(kk[t], e[t + u], acc[u]);
     }
+  }
+}
+
+// Load the 4 window rows whose offsets `o` holds, column `col`, into e.
+template <typename T>
+__device__ __forceinline__ void y_load(const unsigned char* col, const int4 o, float (&e)[4]) {
+  e[0] = lds<T>(col + o.x);
+  e[1] = lds<T>(col + o.y);
+  e[2] = lds<T>(col + o.z);
+  e[3] = lds<T>(col + o.w);
+}
+
+// One group of 4 x taps on a lane's y-smoothed values e0 | e1 | e2
+// (columns 4q .. 4q + 11 of its run of 8 outputs: output u takes column
+// 4q + t + u for tap 4q + t); `nt` < 4 applies only the first nt.
+__device__ __forceinline__ void x_group(const float4 k, const float4 e0, const float4 e1,
+                                        const float4 e2, float (&acc)[kYxLane], int nt) {
+  const float e[12] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w, e2.x, e2.y, e2.z, e2.w};
+  const float kk[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t < nt) {
+#pragma unroll
+      for (int u = 0; u < kYxLane; ++u) acc[u] = fmaf(kk[t], e[t + u], acc[u]);
+    }
+  }
+}
+
+// Start copying window rows j = j0 .. j1 - 1 of a block's walk (global
+// row clamp(yb - hy + j)) into their ring slots (slot j mod nring, s0 =
+// j0 mod nring), warp w taking rows j0 + w, j0 + w + 8, ..., with 16-byte
+// cp.async from the chunk at or below the row's first in-volume byte
+// (gxa); records each slot's offset of window column 0.
+template <typename T>
+__device__ __forceinline__ void yx_stage(unsigned char* ring, int* slotoff, const T* plane,
+                                         const YxGeom& g, int Y, int X, int yb, int hy, int j0,
+                                         int j1, int s0, int gxa, int nleft, int len) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j = j0 + warp; j < j1; j += kYxWarps) {
+    int slot = s0 + (j - j0);
+    if (slot >= g.nring) slot -= g.nring;
+    const int gy = clampi(yb - hy + j, Y);
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(plane + (size_t)(unsigned)gy * (unsigned)X + gxa);
+    const int lead = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+    const int nch = (lead + len + 15) >> 4;
+    const int off = slot * g.pitch + g.margin;
+    for (int c = lane; c < nch; c += 32) cp_async16(ring + off + 16 * c, src - lead + 16 * c);
+    if (lane == 0) slotoff[slot] = off + lead - nleft * (int)sizeof(T);
+  }
+}
+
+// K4. Block (bx, by, z) walks the y tiles t0 .. t1 - 1 (t0 = by * tiles)
+// of the x tile x0 = bx * kYxTileX in plane z; for tile t it forms the
+// outputs (z, t ty .. t ty + ty - 1, x0 .. x0 + kYxTileX - 1):
+// 1. staging: the taps go to shared memory; the block's first window
+//    (global rows clamp(t0 ty - hy + j), j < ty + nky - 1; columns x0 - hx
+//    .. x0 - hx + ncols - 1) is copied into the ring (yx_stage), and while
+//    it works on tile t the ty rows that tile t + 1 adds are in flight into
+//    the slots of the rows that tile t no longer reads; landed rows'
+//    columns outside the volume take the edge value, and the window's
+//    rows get their slots' offsets;
+// 2. y pass: thread i takes the (column, run) items i, i + 256, ... of the
+//    ncols x (ty / kYxRun) items (stepped without division) and forms
+//    kYxRun rows of its column from a register window of 20 rows that it
+//    fills down the column, 4 rows a tap group, through the row offsets
+//    (int4); the five quarters of the window take turns, so no value
+//    moves;
+// 3. x pass: half-warp h of warp w takes rows 2w + h, 2w + h + 16, ... and
+//    its lane l forms outputs x0 + 8l .. x0 + 8l + 7 from a register
+//    window of three float4 of its y-smoothed row, which take turns.
+// The taps are read as float4 from shared memory (one broadcast read a
+// group). Each sum is fused multiply-adds in tap order from 0: the y
+// output over the clamped inputs, the x output over the y outputs.
+template <typename T>
+__global__ void __launch_bounds__(kYxThreads, 4)
+conv_yx_kernel(const T* __restrict__ in, float* __restrict__ out, int Y, int X,
+               const __grid_constant__ YxGeom g, int tiles, const __grid_constant__ Taps ky,
+               int nky, const __grid_constant__ Taps kx, int nkx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ty = g.ty;
+  const int ngy = (nky + 3) >> 2, ngx = (nkx + 3) >> 2;  // tap groups
+  float* sky = reinterpret_cast<float*>(smem);
+  float* skx = sky + 4 * ngy;
+  int* rowoff = reinterpret_cast<int*>(skx + 4 * ngx);
+  int* slotoff = rowoff + g.rows;
+  float* tmp = reinterpret_cast<float*>(slotoff + 4 * ((g.nring + 3) >> 2));
+  unsigned char* ring = reinterpret_cast<unsigned char*>(tmp + ty * g.tmpw);
+  const int hy = nky >> 1, hx = nkx >> 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int z = blockIdx.z, x0 = blockIdx.x * kYxTileX;
+  const int t0 = blockIdx.y * tiles, nt = min(tiles, (Y + ty - 1) / ty - t0);
+  const int yb = t0 * ty;
+  const int cx = x0 - hx;  // the global x of window column 0
+  const int gxa = max(cx, 0), gxb = min(cx + g.ncols - 1, X - 1);
+  const int nleft = gxa - cx, clast = gxb - cx;
+  const bool xedge = nleft > 0 || clast < g.ncols - 1;
+  const int len = (gxb - gxa + 1) * (int)sizeof(T);
+  const int staged = ty + nky - 1;
+  const T* plane = in + (size_t)z * (unsigned)Y * (unsigned)X;
+
+  for (int i = threadIdx.x; i < 4 * ngy; i += kYxThreads) sky[i] = i < nky ? ky.t[i] : 0.0f;
+  for (int i = threadIdx.x; i < 4 * ngx; i += kYxThreads) skx[i] = i < nkx ? kx.t[i] : 0.0f;
+  // the slots the first window leaves empty need a valid offset, as the
+  // y pass's register window may read them (never to multiply): the first
+  // step's copies record theirs, so only a walk of one tile sets them here
+  // (no other thread writes them then)
+  if (nt == 1)
+    for (int s = staged + threadIdx.x; s < g.nring; s += kYxThreads)
+      slotoff[s] = s * g.pitch + g.margin;
+  yx_stage(ring, slotoff, plane, g, Y, X, yb, hy, 0, staged, 0, gxa, nleft, len);
+  cp_async_commit();
+  const float4* ky4 = reinterpret_cast<const float4*>(sky);
+  const float4* kx4 = reinterpret_cast<const float4*>(skx);
+  const int4* ro4 = reinterpret_cast<const int4*>(rowoff);
+  const int fully = nky >> 2, party = nky & 3, fullx = nkx >> 2, partx = nkx & 3;
+  const int nruns = ty / kYxRun;
+  int s_win = 0;             // slot of the current window's row 0
+  int s_new = staged;        // slot of the next tile's first new row
+  if (s_new >= g.nring) s_new -= g.nring;
+
+  for (int k = 0; k < nt; ++k) {
+    // the rows that landed for this window: all of it, then ty a tile
+    const int j_hi = k * ty + staged, j_lo = k == 0 ? 0 : j_hi - ty;
+    if (k + 1 < nt)
+      yx_stage(ring, slotoff, plane, g, Y, X, yb, hy, j_hi, j_hi + ty, s_new, gxa, nleft, len);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (xedge) {
+      int s = s_win + (j_lo - k * ty);
+      if (s >= g.nring) s -= g.nring;
+      for (int j = warp; j < j_hi - j_lo; j += kYxWarps) {
+        int sj = s + j;
+        if (sj >= g.nring) sj -= g.nring;
+        T* row = reinterpret_cast<T*>(ring + slotoff[sj]);
+        const T a = row[nleft], b = row[clast];
+        for (int c = lane; c < nleft; c += 32) row[c] = a;
+        for (int c = clast + 1 + lane; c < g.ncols; c += 32) row[c] = b;
+      }
+    }
+    for (int r = threadIdx.x; r < g.rows; r += kYxThreads) {
+      int sr = s_win + r;
+      while (sr >= g.nring) sr -= g.nring;
+      rowoff[r] = slotoff[sr];
+    }
+    __syncthreads();
+
+    // y pass: tmp[r][c] = sum_j ky[j] * win[r + j][c]. nky is odd, so the
+    // last group is partial and every full group loads the next 4 rows.
+    int c = threadIdx.x, run = 0;
+    while (c >= g.ncols) {
+      c -= g.ncols;
+      ++run;
+    }
+    while (run < nruns) {
+      const int r0 = run * kYxRun;
+      const unsigned char* col = ring + c * (int)sizeof(T);
+      const int4* ro = ro4 + (r0 >> 2);
+      float acc[kYxRun], A[4], B[4], C[4], D[4], E[4];
+#pragma unroll
+      for (int u = 0; u < kYxRun; ++u) acc[u] = 0.0f;
+      y_load<T>(col, ro[0], A);
+      y_load<T>(col, ro[1], B);
+      y_load<T>(col, ro[2], C);
+      y_load<T>(col, ro[3], D);
+      y_load<T>(col, ro[4], E);
+      int q = 0;
+      for (; q + 5 <= fully; q += 5) {
+        y_group(ky4[q], A, B, C, D, E, acc, 4);
+        y_load<T>(col, ro[q + 5], A);
+        y_group(ky4[q + 1], B, C, D, E, A, acc, 4);
+        y_load<T>(col, ro[q + 6], B);
+        y_group(ky4[q + 2], C, D, E, A, B, acc, 4);
+        y_load<T>(col, ro[q + 7], C);
+        y_group(ky4[q + 3], D, E, A, B, C, acc, 4);
+        y_load<T>(col, ro[q + 8], D);
+        y_group(ky4[q + 4], E, A, B, C, D, acc, 4);
+        y_load<T>(col, ro[q + 9], E);
+      }
+      const int rem = fully - q;
+      if (rem == 0) {
+        y_group(ky4[q], A, B, C, D, E, acc, party);
+      } else {
+        y_group(ky4[q], A, B, C, D, E, acc, 4);
+        y_load<T>(col, ro[q + 5], A);
+        if (rem == 1) {
+          y_group(ky4[q + 1], B, C, D, E, A, acc, party);
+        } else {
+          y_group(ky4[q + 1], B, C, D, E, A, acc, 4);
+          y_load<T>(col, ro[q + 6], B);
+          if (rem == 2) {
+            y_group(ky4[q + 2], C, D, E, A, B, acc, party);
+          } else {
+            y_group(ky4[q + 2], C, D, E, A, B, acc, 4);
+            y_load<T>(col, ro[q + 7], C);
+            if (rem == 3) {
+              y_group(ky4[q + 3], D, E, A, B, C, acc, party);
+            } else {
+              y_group(ky4[q + 3], D, E, A, B, C, acc, 4);
+              y_load<T>(col, ro[q + 8], D);
+              y_group(ky4[q + 4], E, A, B, C, D, acc, party);
+            }
+          }
+        }
+      }
+      float* t = tmp + r0 * g.tmpw + c;
+#pragma unroll
+      for (int u = 0; u < kYxRun; ++u) t[u * g.tmpw] = acc[u];
+      c += kYxThreads;
+      while (c >= g.ncols) {
+        c -= g.ncols;
+        ++run;
+      }
+    }
+    __syncthreads();
+
+    // x pass: out[y0 + r][x0 + 8l' + u] = sum_j kx[j] * tmp[r][8l' + u + j],
+    // l' = lane mod 16: a half-warp takes a row, a lane 8 outputs from a
+    // register window of three float4 that take turns
+    const int y0 = yb + k * ty;
+    for (int r = 2 * warp + (lane >> 4); r < ty; r += 2 * kYxWarps) {
+      const int gy = y0 + r;
+      if (gy >= Y) break;
+      const float4* s4 = reinterpret_cast<const float4*>(tmp + r * g.tmpw) + 2 * (lane & 15);
+      float acc[kYxLane];
+#pragma unroll
+      for (int u = 0; u < kYxLane; ++u) acc[u] = 0.0f;
+      float4 a = s4[0], b = s4[1], c = s4[2];
+      int q = 0;
+      for (; q + 3 <= fullx; q += 3) {
+        x_group(kx4[q], a, b, c, acc, 4);
+        a = s4[q + 3];
+        x_group(kx4[q + 1], b, c, a, acc, 4);
+        b = s4[q + 4];
+        x_group(kx4[q + 2], c, a, b, acc, 4);
+        c = s4[q + 5];
+      }
+      if (q == fullx) {
+        x_group(kx4[q], a, b, c, acc, partx);
+      } else if (q + 1 == fullx) {
+        x_group(kx4[q], a, b, c, acc, 4);
+        a = s4[q + 3];
+        x_group(kx4[q + 1], b, c, a, acc, partx);
+      } else {
+        x_group(kx4[q], a, b, c, acc, 4);
+        a = s4[q + 3];
+        x_group(kx4[q + 1], b, c, a, acc, 4);
+        b = s4[q + 4];
+        x_group(kx4[q + 2], c, a, b, acc, partx);
+      }
+      const int xo = x0 + kYxLane * (lane & 15);
+      float* d = out + ((size_t)z * (unsigned)Y + (unsigned)gy) * (unsigned)X + xo;
+      if ((X & 3) == 0 && xo + kYxLane <= X) {
+        *reinterpret_cast<float4*>(d) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        *reinterpret_cast<float4*>(d + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < kYxLane; ++u)
+          if (xo + u < X) d[u] = acc[u];
+      }
+    }
+    s_win += ty;
+    if (s_win >= g.nring) s_win -= g.nring;
+    s_new += ty;
+    if (s_new >= g.nring) s_new -= g.nring;
   }
 }
 
@@ -316,6 +619,36 @@ cudaError_t launch_conv1d(const T* in, float* out, int Z, int Y, int X, int axis
   return cudaGetLastError();
 }
 
+bool taps_ok(int n) { return n >= 1 && n <= kMaxTaps && n % 2 == 1; }
+
+// K4's launch (ops/conv.conv_yx_plan mirrors it): the tile height, its
+// geometry, the y tiles a block walks (enough blocks for ~16 an SM, the
+// walks evened out), grid and block, and whether it fits the card's
+// limits.
+struct YxLaunch {
+  dim3 grid, block;
+  YxGeom g;
+  int tiles;
+  bool ok;
+};
+
+YxLaunch conv_yx_launch(int Z, int Y, int X, int nky, int nkx, int size) {
+  YxLaunch l{};
+  for (int ty : kYxTileYs) {
+    l.g = yx_geom(nky, nkx, size, ty);
+    if (l.g.smem <= kSmemLimit / 4) break;
+  }
+  const int gx = (X + kYxTileX - 1) / kYxTileX, gy = (Y + l.g.ty - 1) / l.g.ty;
+  const long long per = (long long)gx * gy * Z / kYxBlocks;
+  l.tiles = (int)(per < 1 ? 1 : per > gy ? gy : per);
+  const int groups = (gy + l.tiles - 1) / l.tiles;
+  l.tiles = (gy + groups - 1) / groups;
+  l.grid = dim3(gx, groups, Z);
+  l.block = dim3(kYxThreads, 1, 1);
+  l.ok = l.g.smem <= kSmemLimit && l.grid.y <= 65535 && l.grid.z <= 65535;
+  return l;
+}
+
 }  // namespace
 
 extern "C" {
@@ -325,7 +658,7 @@ extern "C" {
 // edge-replicated, into float32; `grad_border` doubles the end planes.
 int pnr_conv1d_axis(const void* in, int in_is_u8, void* out, int Z, int Y, int X, int axis,
                     const float* taps, int ntaps, int grad_border, void* stream) {
-  if (ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0 || axis < 0 || axis > 2)
+  if (!taps_ok(ntaps) || axis < 0 || axis > 2)
     return (int)cudaErrorInvalidValue;
   const Taps t = load_taps(taps, ntaps);
   cudaStream_t s = (cudaStream_t)stream;
@@ -350,28 +683,39 @@ int pnr_conv1d_plan(int Z, int Y, int X, int axis, int ntaps, int vec4, int* out
 // (Z, Y, X) uint8 or float32 volume, edge-replicated, into float32.
 int pnr_conv_yx(const void* in, int in_is_u8, void* out, int Z, int Y, int X, const float* ky,
                 int nky, const float* kx, int nkx, void* stream) {
-  if (nky < 1 || nky > kMaxTaps || nkx < 1 || nkx > kMaxTaps) return (int)cudaErrorInvalidValue;
+  if (!taps_ok(nky) || !taps_ok(nkx)) return (int)cudaErrorInvalidValue;
+  const YxLaunch l = conv_yx_launch(Z, Y, X, nky, nkx, in_is_u8 ? 1 : 4);
+  if (!l.ok) return (int)cudaErrorInvalidValue;
   const Taps ty = load_taps(ky, nky), tx = load_taps(kx, nkx);
-  const int wx = kTileX + 2 * (nkx / 2), wy = kTileY + 2 * (nky / 2);
-  const size_t smem = (size_t)(wy + kTileY) * wx * sizeof(float);
-  const dim3 grid((X + kTileX - 1) / kTileX, (Y + kTileY - 1) / kTileY, Z);
-  const dim3 block(kBlockX, kBlockY);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (in_is_u8) {
     err = cudaFuncSetAttribute(conv_yx_kernel<unsigned char>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, l.g.smem);
     if (err != cudaSuccess) return (int)err;
-    conv_yx_kernel<unsigned char><<<grid, block, smem, s>>>((const unsigned char*)in, (float*)out,
-                                                            Y, X, ty, nky, tx, nkx);
+    conv_yx_kernel<unsigned char><<<l.grid, l.block, l.g.smem, s>>>(
+        (const unsigned char*)in, (float*)out, Y, X, l.g, l.tiles, ty, nky, tx, nkx);
   } else {
     err = cudaFuncSetAttribute(conv_yx_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               l.g.smem);
     if (err != cudaSuccess) return (int)err;
-    conv_yx_kernel<float><<<grid, block, smem, s>>>((const float*)in, (float*)out, Y, X, ty, nky,
-                                                    tx, nkx);
+    conv_yx_kernel<float><<<l.grid, l.block, l.g.smem, s>>>((const float*)in, (float*)out, Y, X,
+                                                            l.g, l.tiles, ty, nky, tx, nkx);
   }
   return (int)cudaGetLastError();
+}
+
+// K4's launch for a (Z, Y, X) volume: out[0..11] = grid x, y, z, block x,
+// y, z, dynamic shared bytes, tile height, tile width, y-pass run, y tiles
+// a block walks and 1 if it fits. Returns cudaErrorInvalidValue for taps K4 does not take.
+int pnr_conv_yx_plan(int Z, int Y, int X, int nky, int nkx, int in_is_u8, int* out) {
+  if (!taps_ok(nky) || !taps_ok(nkx)) return (int)cudaErrorInvalidValue;
+  const YxLaunch l = conv_yx_launch(Z, Y, X, nky, nkx, in_is_u8 ? 1 : 4);
+  const int v[12] = {(int)l.grid.x, (int)l.grid.y, (int)l.grid.z, (int)l.block.x,
+                     (int)l.block.y, (int)l.block.z, l.g.smem, l.g.ty, kYxTileX, kYxRun,
+                     l.tiles, (int)l.ok};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -108,17 +110,6 @@ __device__ __forceinline__ unsigned int float_to_ordered(float f) {
 
 __device__ __forceinline__ float ordered_to_float(unsigned int u) {
   return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Start copying plane z's window into `buf`: row r holds the bytes of

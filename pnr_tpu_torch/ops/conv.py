@@ -3,7 +3,8 @@
 Port of pnr_tpu/ops/pallas_conv.py. `conv1d_axis` replaces
 `pallas_conv1d_along_axis` (K3, Pallas `_pallas_conv`) and `conv_yx`
 replaces `pallas_conv_yx` (K4, Pallas `_pallas_conv_yx`); the CUDA
-kernels are in csrc/conv.cu (`conv1d_axis_kernel`, `conv_yx_kernel`).
+kernels are in csrc/conv.cu (`conv1d_axis_cols_kernel`,
+`conv1d_axis_x_kernel`, `conv_yx_kernel`).
 Both take a (Z, Y, X) uint8 or float32 volume, correlate with
 edge-replicated borders and return float32.
 
@@ -25,11 +26,16 @@ K3 also runs the tube map build's 1-D correlations (ops/gaussian.py
 `conv1d_along_axis`, counted there): `launch_conv1d` is the one launch
 both wrappers share. `conv1d_plan` is K3's launch geometry, as the C side
 forms it (`pnr_conv1d_plan`), and `thread_outputs` / `thread_reads` say
-which outputs a thread forms and which inputs it loads.
+which outputs a thread forms and which inputs it loads. `conv_yx_plan`
+is K4's launch (`pnr_conv_yx_plan`); `yx_geom`, `yx_walk`, `yx_y_items`
+and `yx_x_outputs` mirror its shared-memory layout, a block's walk down
+its y tiles with the ring of staged rows, and the work of each thread,
+for the CPU tests.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +57,21 @@ COLS_X = 32
 COLS_O = 4
 ROW_SEG = 128
 ROWS = 8
+#: K4's geometry (csrc/conv.cu): the x outputs of a block (a half-warp's
+#: row), the y-pass rows a thread forms down its column, the x-pass
+#: outputs a lane forms along its row, the warps of a block, its tile
+#: heights (tallest first: the tallest whose block takes at most a
+#: quarter of SMEM_LIMIT, else the last) and the shared memory a block can
+#: take (ops/frangi_fused.SMEM_LIMIT too, whose module imports this one)
+YX_TILE_X = 128
+YX_RUN = 16
+YX_LANE = 8
+YX_WARPS = 8
+YX_TILE_YS = (64, 32, 16)
+SMEM_LIMIT = 232448
+#: the blocks K4's plan aims for (~16 on each of the H100's 132 SMs): a
+#: block walks as many y tiles as leaves about that many
+YX_BLOCKS = 132 * 16
 
 
 def _taps(kernel, name: str) -> np.ndarray:
@@ -197,6 +218,10 @@ def _conv_yx_cuda(vol, kernel_y, kernel_x):
     _check_volume(vol)
     ky, kx = _taps(kernel_y, "conv_yx"), _taps(kernel_x, "conv_yx")
     z, y, x = (int(s) for s in vol.shape)
+    plan = conv_yx_plan((z, y, x), int(ky.size), int(kx.size), vol.dtype == torch.uint8)
+    if not plan.ok:
+        raise ValueError(f"conv_yx: a ({z}, {y}, {x}) volume needs a grid of {plan.grid} blocks, "
+                         "past the card's 65535 along y and z")
     out = torch.empty((z, y, x), dtype=torch.float32, device=vol.device)
     cuda.check(
         cuda.library().pnr_conv_yx(
@@ -207,6 +232,174 @@ def _conv_yx_cuda(vol, kernel_y, kernel_x):
         "pnr_conv_yx",
     )
     CONV_YX_LAUNCHES += 1
+    return out
+
+
+class YxGeom(NamedTuple):
+    """K4's block for tiles of `ty` x YX_TILE_X outputs (csrc/conv.cu
+    `yx_geom`): the y pass's columns (`ncols`, the x pass's reach), the
+    window's rows (its register window reads up to 4 past the last it
+    uses), the ring's slots (the current window and the next tile's new
+    rows), a slot's left margin and pitch in bytes, the pitch of the
+    y-smoothed rows in floats, and the dynamic shared bytes (the taps
+    padded to multiples of 4, row and slot offsets, y-smoothed rows,
+    ring)."""
+
+    ty: int
+    ncols: int
+    rows: int
+    nring: int
+    margin: int
+    pitch: int
+    tmpw: int
+    smem: int
+
+
+def _round16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def yx_geom(nky: int, nkx: int, itemsize: int, ty: int) -> YxGeom:
+    ncols = YX_TILE_X + nkx - 1
+    rows = ty + 4 * -(-nky // 4)
+    nring = 2 * ty + nky - 1
+    margin = _round16((nkx // 2) * itemsize)
+    pitch = margin + _round16(ncols * itemsize + 15)
+    tmpw = YX_TILE_X + 4 * -(-nkx // 4)
+    smem = (16 * (-(-nky // 4) + -(-nkx // 4)) + 4 * rows + 16 * -(-nring // 4)
+            + 4 * ty * tmpw + nring * pitch)
+    return YxGeom(ty, ncols, rows, nring, margin, pitch, tmpw, smem)
+
+
+class YxPlan(NamedTuple):
+    """K4's launch: grid and block (x, y, z), dynamic shared bytes, the
+    tile's height and width, the rows a y-pass thread forms, whether the
+    grid fits the card's limits, the block's geometry and the y tiles a
+    block walks."""
+
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int, int]
+    smem: int
+    ty: int
+    tx: int
+    run: int
+    ok: bool
+    geom: YxGeom
+    tiles: int
+
+
+@functools.lru_cache(maxsize=256)
+def conv_yx_plan(shape: Sequence[int], nky: int, nkx: int, in_is_u8: bool,
+                 blocks: int = YX_BLOCKS) -> YxPlan:
+    """K4's launch for a (Z, Y, X) volume (csrc/conv.cu `conv_yx_launch`,
+    which aims for YX_BLOCKS blocks; the CPU tests ask for fewer, so that
+    small volumes take long walks); raises with the shape and taps where
+    K4 takes no such taps."""
+    z, y, x = (int(s) for s in shape)
+    for n in (nky, nkx):
+        if n < 1 or n > MAX_TAPS or n % 2 == 0:
+            raise ValueError(f"conv_yx of a {(z, y, x)} volume with {nky} y and {nkx} x taps: "
+                             f"K4 takes an odd number of taps <= {MAX_TAPS}")
+    itemsize = 1 if in_is_u8 else 4
+    for ty in YX_TILE_YS:
+        geom = yx_geom(nky, nkx, itemsize, ty)
+        if geom.smem <= SMEM_LIMIT // 4:
+            break
+    gx, gy = -(-x // YX_TILE_X), -(-y // geom.ty)
+    tiles = min(gy, max(1, gx * gy * z // blocks))
+    groups = -(-gy // tiles)
+    tiles = -(-gy // groups)
+    grid = (gx, groups, z)
+    ok = geom.smem <= SMEM_LIMIT and grid[1] <= 65535 and grid[2] <= 65535
+    return YxPlan(grid, (32 * YX_WARPS, 1, 1), geom.smem, geom.ty, YX_TILE_X, YX_RUN, ok, geom,
+                  tiles)
+
+
+def yx_walk(plan: YxPlan, shape: Sequence[int], nky: int, nkx: int, itemsize: int, base: int,
+            b):
+    """K4's block b = (bx, by, bz) walking its y tiles, for a volume whose
+    first element is at byte address `base`, step by step as the kernel
+    takes them. Returns (nleft, clast, init, first, steps): the columns
+    left of window column `nleft` take its value and those right of
+    `clast` take clast's; `init` the (slot, offset) pairs set before any
+    copy (a walk of one tile: the slots its window leaves empty); `first` the copies of the first window; each step (y0, copies,
+    landed, rowslot): the copies in flight into the ring while the step
+    works (the next tile's new rows), the slots whose rows landed for it,
+    and the slot each of its window rows reads (at the offset last
+    recorded for the slot). A copy is (slot, dst, src, nch, offset): nch
+    16-byte chunks from the aligned byte address src to ring byte dst,
+    and the offset of window column 0 recorded for the slot."""
+    _, yy, xx = (int(s) for s in shape)
+    g = plan.geom
+    ty, hy = g.ty, nky // 2
+    bx, by, bz = b
+    gy_tiles = -(-yy // ty)
+    t0 = by * plan.tiles
+    nt = min(plan.tiles, gy_tiles - t0)
+    yb, cx = t0 * ty, bx * YX_TILE_X - nkx // 2
+    gxa, gxb = max(cx, 0), min(cx + g.ncols - 1, xx - 1)
+    nleft, clast = gxa - cx, gxb - cx
+    length = (gxb - gxa + 1) * itemsize
+    staged = ty + nky - 1
+
+    def stage(j0, j1):
+        out = []
+        for j in range(j0, j1):
+            slot = j % g.nring
+            gy = min(max(yb - hy + j, 0), yy - 1)
+            src = base + ((bz * yy + gy) * xx + gxa) * itemsize
+            lead = src & 15
+            dst = slot * g.pitch + g.margin
+            out.append((slot, dst, src - lead, (lead + length + 15) >> 4,
+                        dst + lead - nleft * itemsize))
+        return out
+
+    # a walk of one tile has no copies in flight to record these slots
+    init = [(s, s * g.pitch + g.margin) for s in range(staged, g.nring)] if nt == 1 else []
+    first = stage(0, staged)
+    steps = []
+    for k in range(nt):
+        j_hi = k * ty + staged
+        j_lo = 0 if k == 0 else j_hi - ty
+        copies = stage(j_hi, j_hi + ty) if k + 1 < nt else []
+        landed = [j % g.nring for j in range(j_lo, j_hi)]
+        rowslot = [(k * ty + r) % g.nring for r in range(g.rows)]
+        steps.append((yb + k * ty, copies, landed, rowslot))
+    return nleft, clast, init, first, steps
+
+
+def yx_y_items(plan: YxPlan, t: int):
+    """The (column, first row) items of the y pass that thread t of a K4
+    block forms, stepped as the kernel steps them (no division)."""
+    g = plan.geom
+    c, run, out = t, 0, []
+    while c >= g.ncols:
+        c, run = c - g.ncols, run + 1
+    while run < g.ty // YX_RUN:
+        out.append((c, run * YX_RUN))
+        c += plan.block[0]
+        while c >= g.ncols:
+            c, run = c - g.ncols, run + 1
+    return out
+
+
+def yx_x_outputs(plan: YxPlan, shape: Sequence[int], b, t):
+    """The (z, y, x) outputs thread t of K4's block b = (bx, by, bz) forms
+    in the x pass of each tile of its walk (warp t // 32 takes rows 2 (t
+    // 32) + half, + 16, ..., the half-warp `half` = t % 32 // 16; a lane
+    YX_LANE x), with the step and the tile row each comes from."""
+    _, yy, xx = (int(s) for s in shape)
+    bx, by, bz = b
+    warp, lane = divmod(t, 32)
+    xo = bx * YX_TILE_X + YX_LANE * (lane % 16)
+    out = []
+    t0 = by * plan.tiles
+    for k in range(min(plan.tiles, -(-yy // plan.ty) - t0)):
+        for r in range(2 * warp + lane // 16, plan.ty, 2 * YX_WARPS):
+            gy = (t0 + k) * plan.ty + r
+            if gy >= yy:
+                break
+            out += [(bz, gy, x, k, r) for x in range(xo, min(xo + YX_LANE, xx))]
     return out
 
 

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "pnr_conv1d_axis": (_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P),
     "pnr_conv1d_plan": (_I, _I, _I, _I, _I, _I, _P),
     "pnr_conv_yx": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P),
+    "pnr_conv_yx_plan": (_I, _I, _I, _I, _I, _I, _P),
     "pnr_probe": (_P, _P, _I, _P),
 }
 

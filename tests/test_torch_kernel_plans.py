@@ -1,4 +1,4 @@
-"""The launch plans of K1 and K3 (pnr_tpu_torch/ops/frangi_fused.py,
+"""The launch plans of K1, K3 and K4 (pnr_tpu_torch/ops/frangi_fused.py,
 pnr_tpu_torch/ops/conv.py), checked on the CPU.
 
 K1 runs one block per (y tile, x tile) column of the stack, walking z with
@@ -7,6 +7,12 @@ memory; `fused_plan` sizes its tile so that the rings fit one block, and
 `ring_schedule` is the order in which a block fills and reads them. K3's
 `conv1d_plan` is its grid: a thread owns a run of outputs along z or y (a
 register window of inputs), or four x outputs of a warp's row segment.
+K4's `conv_yx_plan` is its grid and its block's shared memory; the block
+walks a column of y tiles and stages their input rows into a ring, 16-byte
+chunks at a time (`yx_walk`),
+its threads form y-pass runs down the window's columns (`yx_y_items`) and
+eight x outputs a lane (`yx_x_outputs`); the tests simulate a block's
+walk byte by byte and its two passes from what it staged.
 These tests hold the plans to what the kernels need: the shared memory
 fits, every output voxel is formed by exactly one block or thread, and
 each block's window and rings hold every input its outputs read. The C
@@ -233,3 +239,206 @@ def test_fused_cap_is_the_filter_stages_peak():
     assert reconstruct.FUSED_MAX_VOXELS == reconstruct.FRANGI_BUDGET_BYTES // 13
     assert 4.6e9 < reconstruct.FUSED_MAX_VOXELS < 4.7e9
     assert reconstruct.UNFUSED_MAX_VOXELS < reconstruct.FUSED_MAX_VOXELS
+
+
+#: (shape, y taps, x taps, uint8): the main stack at sigma 6, ragged
+#: shapes (a plane smaller than one tile, Y and X no multiple of the tile,
+#: X no multiple of 4 or 16), 1 to 127 taps, and a tall plane whose
+#: blocks walk many tiles around their ring
+YX_CASES = {
+    "main_sigma6_u8": ((128, 640, 640), 37, 37, True),
+    "tiny_u8": ((2, 5, 7), 13, 13, True),
+    "tiny_f32": ((2, 5, 7), 25, 3, False),
+    "ragged_u8": ((3, 70, 150), 37, 37, True),
+    "ragged_f32": ((3, 70, 150), 13, 25, False),
+    "x136_f32": ((6, 40, 136), 25, 13, False),
+    "x136_u8": ((6, 40, 136), 1, 37, True),
+    "row_u8_127": ((1, 1, 130), 127, 127, True),
+    "row_f32_127": ((1, 1, 130), 127, 127, False),
+    "tall_u8": ((2, 300, 130), 25, 13, True),
+}
+
+
+@pytest.mark.parametrize("u8", [True, False])
+def test_k4_plan_fits_shared_memory_across_sigmas(u8):
+    """At every sigma from 0.5 to 21 K4's block fits the card's shared
+    memory; from uint8 (the filter's input) four blocks share an SM."""
+    for sigma in SIGMA_SWEEP:
+        n = len(gaussian_kernel(sigma))
+        plan = conv.conv_yx_plan((128, 640, 640), n, n, u8)
+        g = plan.geom
+        assert plan.ok and plan.smem == g.smem <= conv.SMEM_LIMIT
+        assert plan.smem == conv.yx_geom(n, n, 1 if u8 else 4, plan.ty).smem
+        assert plan.ty in conv.YX_TILE_YS and plan.ty % conv.YX_RUN == 0
+        # the tallest tile whose block lets four share an SM, else the last
+        fits = [ty for ty in conv.YX_TILE_YS
+                if conv.yx_geom(n, n, 1 if u8 else 4, ty).smem <= conv.SMEM_LIMIT // 4]
+        assert plan.ty == (fits[0] if fits else conv.YX_TILE_YS[-1])
+        if u8:
+            # several blocks an SM: four up to sigma 16, three to sigma 21
+            assert (4 if sigma <= 16 else 3) * plan.smem <= conv.SMEM_LIMIT
+        assert (plan.tx, plan.run, plan.block) == (128, 16, (256, 1, 1))
+        assert g.rows % 4 == 0 and g.pitch % 16 == 0 and g.margin % 16 == 0 and g.tmpw % 4 == 0
+        # the ring holds a window and the next tile's rows, and the rows
+        # the register window reads past the window map to distinct slots
+        assert g.nring == 2 * plan.ty + n - 1 >= g.rows
+
+
+def test_k4_plan_at_the_main_shape():
+    # sigmas 2, 4, 6 from uint8 (13, 25, 37 taps): 32-row tiles, a block
+    # walks 5 of a column's 20 (2,560 blocks)
+    assert [conv.conv_yx_plan((128, 640, 640), n, n, True)[:7] for n in (13, 25, 37)] == [
+        ((5, 4, 128), (256, 1, 1), 32432, 32, 128, 16, True),
+        ((5, 4, 128), (256, 1, 1), 37680, 32, 128, 16, True),
+        ((5, 4, 128), (256, 1, 1), 44912, 32, 128, 16, True)]
+    assert conv.conv_yx_plan((128, 640, 640), 37, 37, True).tiles == 5
+    # a tile of the tiled engines: walks of 2
+    plan = conv.conv_yx_plan((55, 640, 640), 37, 37, True)
+    assert (plan.grid, plan.tiles) == ((5, 10, 55), 2)
+    assert conv.conv_yx_plan((2, 5, 7), 37, 37, True).tiles == 1
+    assert not conv.conv_yx_plan((65536, 1, 1), 3, 3, True).ok
+    # a tall plane: the walks keep the grid's y within 65535 blocks
+    plan = conv.conv_yx_plan((1, 65536 * 32 + 1, 1), 13, 13, True)
+    assert plan.ok and plan.grid[1] <= 65535 < -(-(65536 * 32 + 1) // plan.ty)
+
+
+def test_k4_plan_raises_with_the_shapes():
+    with pytest.raises(ValueError, match=r"\(128, 640, 640\) volume with 129 y and 37 x taps"):
+        conv.conv_yx_plan((128, 640, 640), 129, 37, True)
+    with pytest.raises(ValueError, match=r"\(4, 8, 8\) volume with 3 y and 4 x taps"):
+        conv.conv_yx_plan((4, 8, 8), 3, 4, False)
+    with pytest.raises(ValueError, match="odd number of taps <= 127"):
+        conv.conv_yx_plan((4, 8, 8), 0, 3, True)
+
+
+@pytest.mark.parametrize("blocks", [conv.YX_BLOCKS, 1])
+@pytest.mark.parametrize("case", list(YX_CASES))
+def test_k4_threads_own_each_output_once(case, blocks):
+    """Every output voxel is formed by exactly one (block, step of its
+    walk, thread) of the x pass, and the y pass's items cover each (window
+    column, run) of a tile exactly once."""
+    shape, nky, nkx, u8 = YX_CASES[case]
+    plan = conv.conv_yx_plan(shape, nky, nkx, u8, blocks)
+    assert plan.ok and plan.grid[2] == shape[0]
+    assert (plan.grid[1] - 1) * plan.tiles < -(-shape[1] // plan.ty) <= plan.grid[1] * plan.tiles
+    g = plan.geom
+    items = [it for t in range(plan.block[0]) for it in conv.yx_y_items(plan, t)]
+    assert sorted(items) == [(c, r0) for c in range(g.ncols) for r0 in range(0, g.ty, conv.YX_RUN)]
+    zs = min(shape[0], 2)
+    owner = np.zeros((zs,) + tuple(shape[1:]), np.int32)
+    gx, gy, _ = plan.grid
+    # the blocks of two z planes: z only offsets a block's plane
+    for b in itertools.product(range(gx), range(gy), range(zs)):
+        for t in range(plan.block[0]):
+            for z, y, x, k, r in conv.yx_x_outputs(plan, shape, b, t):
+                assert y == (b[1] * plan.tiles + k) * plan.ty + r
+                assert 0 <= x - b[0] * plan.tx < plan.tx
+                owner[z, y, x] += 1
+    assert (owner == 1).all()
+
+
+def _round_up16(v):
+    return (v + 15) & ~15
+
+
+def _walk_block(plan, vol, nky, nkx, base, b, mem, lo):
+    """A K4 block's walk as the kernel takes it, on a simulated device
+    memory `mem` (the volume's bytes at address `base`, `lo` the address
+    of mem[0]) and a shared-memory byte array for the ring: the first
+    window's copies, then each step's copies of the next tile's rows (made
+    to land at once, before the step reads its window, so that a slot the
+    step still reads would be caught), the edge fill of the rows that
+    landed for it and its window read through the row slots. Yields (y0,
+    window) per step, the window being the staged rows x ncols; checks that
+    every copy and read stays in its slot and in the volume's chunks."""
+    g = plan.geom
+    size = vol.itemsize
+    ring = np.full(g.nring * g.pitch, 0xA5, np.uint8)
+    slotoff = np.full(g.nring, -1)
+    nleft, clast, init, first, steps = conv.yx_walk(plan, vol.shape, nky, nkx, size, base, b)
+    for slot, off in init:
+        slotoff[slot] = off
+
+    def copy(copies):
+        for slot, dst, src, nch, off in copies:
+            assert dst == slot * g.pitch + g.margin and dst + 16 * nch <= (slot + 1) * g.pitch
+            # whole aligned chunks that never leave the volume's first and last
+            assert src % 16 == 0 and lo <= src and src + 16 * nch <= lo + mem.size
+            ring[dst: dst + 16 * nch] = mem[src - lo: src - lo + 16 * nch]
+            slotoff[slot] = off
+
+    copy(first)
+    staged = g.ty + nky - 1
+    for y0, copies, landed, rowslot in steps:
+        copy(copies)
+        for slot in landed:
+            row = ring[slotoff[slot]: slotoff[slot] + g.ncols * size].view(vol.dtype)
+            row[:nleft] = row[nleft]
+            row[clast + 1:] = row[clast]
+        assert len(rowslot) == g.rows and len(set(rowslot)) == g.rows
+        assert not set(rowslot[:staged]) & {c[0] for c in copies}
+        for slot in rowslot:
+            off = slotoff[slot]
+            assert off % size == 0 and slot * g.pitch <= off
+            assert off + g.ncols * size <= (slot + 1) * g.pitch
+        yield y0, np.stack([ring[slotoff[s]: slotoff[s] + g.ncols * size].view(vol.dtype)
+                            for s in rowslot[:staged]])
+
+
+@pytest.mark.parametrize("blocks", [conv.YX_BLOCKS, 1])
+@pytest.mark.parametrize("case", [c for c in YX_CASES if not c.startswith("main")])
+@pytest.mark.parametrize("lead", [0, 1, 2, 3])
+def test_k4_blocks_stage_and_read_exactly_their_clamped_window(case, lead, blocks):
+    """Each block stages, tile by tile of its walk, the edge-clamped window
+    that its taps reach, for a volume at any alignment (uint8 rows at any
+    byte, float32 at any word); each y-pass run and x lane reads within its
+    buffers, and the two passes computed from what was staged (float64,
+    the kernel's items and lanes) give the edge-replicated y-then-x
+    correlation."""
+    shape, nky, nkx, u8 = YX_CASES[case]
+    # the first element's address mod 16: any byte for uint8, any word for float32
+    lead = (0, 1, 7, 13)[lead] if u8 else 4 * lead
+    rng = np.random.default_rng(5)
+    vol = rng.integers(0, 256, shape).astype(np.uint8 if u8 else np.float32)
+    ky, kx = rng.random(nky), rng.random(nkx)
+    plan = conv.conv_yx_plan(shape, nky, nkx, u8, blocks)
+    g = plan.geom
+    gy4 = 4 * -(-nky // 4)
+    # reference: edge-replicated y then x correlation in float64
+    v = vol.astype(np.float64)
+    yi = np.clip(np.arange(shape[1])[:, None] + np.arange(nky) - nky // 2, 0, shape[1] - 1)
+    xi = np.clip(np.arange(shape[2])[:, None] + np.arange(nkx) - nkx // 2, 0, shape[2] - 1)
+    ref = np.einsum("zyjx,j->zyx", v[:, yi, :], ky)
+    ref = np.einsum("zyxj,j->zyx", ref[:, :, xi], kx)
+    base = 4096 + 64 + lead
+    raw = vol.view(np.uint8).reshape(-1)
+    lo = base & ~15
+    mem = np.zeros(_round_up16(base + raw.size) - lo, np.uint8)
+    mem[base - lo: base - lo + raw.size] = raw
+    out = np.full(shape, np.nan)
+    items = {t: conv.yx_y_items(plan, t) for t in range(plan.block[0])}
+    for b in itertools.product(*(range(n) for n in plan.grid)):
+        xs = {t: conv.yx_x_outputs(plan, shape, b, t) for t in range(plan.block[0])}
+        for k, (y0, win) in enumerate(_walk_block(plan, vol, nky, nkx, base, b, mem, lo)):
+            assert y0 == (b[1] * plan.tiles + k) * plan.ty
+            ys = np.clip(y0 - nky // 2 + np.arange(g.ty + nky - 1), 0, shape[1] - 1)
+            cs_ = np.clip(b[0] * plan.tx - nkx // 2 + np.arange(g.ncols), 0, shape[2] - 1)
+            np.testing.assert_array_equal(win, vol[b[2]][np.ix_(ys, cs_)])
+            tmp = np.full((g.ty, g.tmpw), np.nan)
+            for t in range(plan.block[0]):
+                for c, r0 in items[t]:
+                    # the register window: rows r0 .. r0 + 16 + 4 ceil(nky / 4) - 1
+                    assert r0 + conv.YX_RUN + gy4 <= g.rows
+                    w = win[r0: r0 + conv.YX_RUN + nky - 1, c].astype(np.float64)
+                    tmp[r0: r0 + conv.YX_RUN, c] = [w[u: u + nky] @ ky for u in range(conv.YX_RUN)]
+            assert not np.isnan(tmp[:, : g.ncols]).any()
+            for t in range(plan.block[0]):
+                # the lane's float4 reads: tmp columns 8l .. 8l + 4 (nkx // 4) + 11,
+                # l = lane mod 16
+                assert 8 * (t % 16) + 4 * (nkx // 4) + 12 <= g.tmpw
+                for z, y, x, kk, r in xs[t]:
+                    if kk == k:
+                        c = x - b[0] * plan.tx
+                        assert c + nkx - 1 < g.ncols
+                        out[z, y, x] = tmp[r, c: c + nkx] @ kx
+    np.testing.assert_allclose(out, ref, rtol=1e-12)

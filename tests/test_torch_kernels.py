@@ -3,7 +3,9 @@ K1 (Frangi; also at the shapes likely to trip its plane rings: Z below
 2hz + 1, dimensions of 2, odd sizes, shrunk tiles, an unaligned uint8
 view), K2 (exact ZNCC sums), K3 and K4 (the unfused filter's 1-D and
 fused y-x correlations; K3 at 1 to 127 taps, every axis, 4-wide and
-1-wide columns, unaligned views) with the unfused and tiled Frangi
+1-wide columns, unaligned views; K4 at 13 to 127 taps, X no multiple of
+4 or 16, uint8 views at odd bytes, blocks that walk several y tiles, and
+slabs and tiles bitwise the whole) with the unfused and tiled Frangi
 engines on them, the C side's launch plans against ops/frangi_fused.py's
 and ops/conv.py's, K7's build-and-launch check, the tube map build's 1-D
 correlation, `tube_corr` (the tube likelihood, K5's and K6's
@@ -113,15 +115,95 @@ def test_conv1d_axis_kernel_matches_plain(dev, taps, dtype):
         check_conv(kern, conv.conv1d_axis_plain(vol, k, axis, grad))
 
 
-@pytest.mark.parametrize("shape", [(6, 40, 136), (3, 70, 150), (2, 5, 7)])
-def test_conv_yx_kernel_matches_plain(dev, shape):
+#: K4's (y taps, x taps): the unfused filter's sigmas 2, 4, 6 and 21
+#: (13, 25, 37 and 127 taps) and a pair that differs
+K4_TAPS = {
+    "13": (gaussian_kernel(2.0),) * 2,
+    "25": (gaussian_kernel(4.0),) * 2,
+    "37": (gaussian_kernel(6.0),) * 2,
+    "127": (gaussian_kernel(21.0),) * 2,
+    "13_9": (gaussian_kernel(2.0), gaussian_kernel(1.5)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("taps", list(K4_TAPS))
+@pytest.mark.parametrize("shape", [(6, 40, 136), (3, 70, 150), (2, 5, 7), (4, 19, 131)])
+def test_conv_yx_kernel_matches_plain(dev, shape, taps, dtype):
+    # X at 136 (a multiple of 4, not of 16), 150, 7 and 131 (neither)
+    ky, kx = K4_TAPS[taps]
     vol = torch.from_numpy(noisy_tube(shape)).to(dev)
-    for ky, kx in ((gaussian_kernel(6.0),) * 2, (gaussian_kernel(2.0), gaussian_kernel(1.5))):
-        for v in (vol, vol.to(torch.float32)):
-            n = conv.CONV_YX_LAUNCHES
-            kern = conv.conv_yx(v, ky, kx)
-            assert conv.CONV_YX_LAUNCHES == n + 1
-            check_conv(kern, conv.conv_yx_plain(v, ky, kx))
+    if dtype == "f32":
+        vol = vol.to(torch.float32) / 7.0
+    n = conv.CONV_YX_LAUNCHES
+    kern = conv.conv_yx(vol, ky, kx)
+    assert conv.CONV_YX_LAUNCHES == n + 1
+    check_conv(kern, conv.conv_yx_plain(vol, ky, kx))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 13])
+def test_conv_yx_kernel_unaligned_u8_matches_plain(dev, offset):
+    """A uint8 volume that starts at an odd byte: every row arrives at its
+    lead within its 16-byte chunks."""
+    shape = (5, 37, 150)
+    base = torch.empty(int(np.prod(shape)) + offset, dtype=torch.uint8, device=dev)
+    vol = base[offset:].view(shape).copy_(torch.from_numpy(noisy_tube(shape)))
+    assert vol.data_ptr() % 16 != 0
+    for ky, kx in (K4_TAPS["37"], K4_TAPS["13_9"]):
+        kern = conv.conv_yx(vol, ky, kx)
+        check_conv(kern, conv.conv_yx_plain(vol, ky, kx))
+        assert torch.equal(kern, conv.conv_yx(vol.clone(), ky, kx))
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+def test_conv_yx_kernel_tiles_are_bitwise_the_whole(dev, dtype):
+    """K4 on a z slab, and on a y tile with its halo, gives the kept
+    outputs bitwise as K4 on the whole volume: each output depends only on
+    its coordinates, wherever the blocks fall."""
+    ky = kx = K4_TAPS["37"][0]
+    h = len(ky) // 2
+    vol = torch.from_numpy(noisy_tube((9, 150, 140))).to(dev)
+    if dtype == "f32":
+        vol = vol.to(torch.float32) / 7.0
+    whole = conv.conv_yx(vol, ky, kx)
+    assert torch.equal(conv.conv_yx(vol[3:7].contiguous(), ky, kx), whole[3:7])
+    for y0, y1 in ((0, 41), (41, 97), (97, 150)):
+        lo, hi = max(y0 - h, 0), min(y1 + h, vol.shape[1])
+        tile = conv.conv_yx(vol[:, lo:hi].contiguous(), ky, kx)
+        assert torch.equal(tile[:, y0 - lo: y1 - lo], whole[:, y0:y1])
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+def test_conv_yx_kernel_walks_match_plain(dev, dtype):
+    """A volume whose blocks walk several y tiles around their ring of
+    rows (Y and X no multiple of the tile), against the plain version and
+    bitwise against its own z slabs, which walk fewer."""
+    shape = (100, 450, 300)
+    ky = kx = K4_TAPS["37"][0]
+    assert conv.conv_yx_plan(shape, len(ky), len(kx), dtype == "u8").tiles > 1
+    vol = torch.from_numpy(noisy_tube(shape)).to(dev)
+    if dtype == "f32":
+        vol = vol.to(torch.float32) / 7.0
+    kern = conv.conv_yx(vol, ky, kx)
+    check_conv(kern, conv.conv_yx_plain(vol, ky, kx))
+    assert conv.conv_yx_plan((7,) + shape[1:], len(ky), len(kx), dtype == "u8").tiles == 1
+    assert torch.equal(conv.conv_yx(vol[40:47].contiguous(), ky, kx), kern[40:47])
+
+
+def test_conv_yx_plan_is_the_c_sides(dev):
+    import ctypes
+
+    lib = cuda.library()
+    out = (ctypes.c_int * 12)()
+    for shape, (nky, nkx), u8 in itertools.product(
+            ((128, 640, 640), (55, 640, 640), (100, 450, 300), (2, 5, 7), (1, 1, 130),
+             (65536, 1, 1)),
+            ((1, 1), (13, 13), (25, 25), (37, 37), (127, 127), (37, 3), (3, 127)), (True, False)):
+        assert lib.pnr_conv_yx_plan(*shape, nky, nkx, int(u8), ctypes.cast(out, ctypes.c_void_p)) == 0
+        plan = conv.conv_yx_plan(shape, nky, nkx, u8)
+        assert list(out) == [*plan.grid, *plan.block, plan.smem, plan.ty, plan.tx, plan.run,
+                             plan.tiles, int(plan.ok)]
+    assert lib.pnr_conv_yx_plan(4, 8, 8, 129, 3, 1, ctypes.cast(out, ctypes.c_void_p)) != 0
 
 
 def test_conv_kernels_reject_what_they_cannot_take(dev):
@@ -136,6 +218,14 @@ def test_conv_kernels_reject_what_they_cannot_take(dev):
         conv.conv_yx(vol.to(torch.float64), np.ones(3), np.ones(3))
     with pytest.raises(ValueError, match="contiguous"):
         conv.conv1d_axis(vol.transpose(1, 2), np.ones(3, np.float32), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.conv_yx(vol.transpose(1, 2), np.ones(3, np.float32), np.ones(3, np.float32))
+    # the plan's ok flag: a grid past 65535 blocks along z
+    n = conv.CONV_YX_LAUNCHES
+    with pytest.raises(ValueError, match=r"\(65536, 1, 1\) volume.*65535"):
+        conv.conv_yx(torch.zeros((65536, 1, 1), dtype=torch.uint8, device=dev), np.ones(3),
+                     np.ones(3))
+    assert conv.CONV_YX_LAUNCHES == n
 
 
 @pytest.mark.parametrize("case", list(FRANGI_CASES))
