@@ -78,11 +78,40 @@ Phases, each of which exits non-zero on failure:
    host's kernel-launch calls (tube: also per tracer step, one step being
    one iteration of one chunk, and the device time per tube_corr launch);
 12. the exact and tube paths on a small stack on the card and on the CPU
-   (plain versions) must agree; no module of jax or of pnr_tpu was loaded.
+   (plain versions) must agree; no module of jax or of pnr_tpu was loaded;
+13. [K2 2d], [maps 2d], [tube_corr 2d]: on the 2-D main plane (1, 4096,
+   4096) (make_volume, one plane): K2 on one-plane patches (pz = 1) for a
+   tracer chunk (T=128, B=20) and B=1 scoring at K2's bars, bitwise over
+   two launches, with its slabs, shared memory and times; the 2-D map
+   build (y and x passes on K3) within 1e-5, and K3 on the plane timed;
+   tube_corr on one-plane windows for the tracer and scoring rows at its
+   bars, timed as in phase 8;
+14. [soma]: `soma_extraction` on the card and on the CPU plain path on the
+   main stack with two soma blobs (multi_neuron_soma_phantom's recipe at x
+   = 160 and 480), somaradius 4: the eroded, smoothed stack bitwise, and
+   the soma maps, thresholds and soma nodes equal; the stage's time, its
+   parts, threshold and regions printed;
+15. [main soma]: the CLI on that stack with
+   `-p 2,4,6 4 10 0.5 3 2 100 20 2 4 9`: SOMA nodes in the SWC, stage
+   timings and run 1's launches of K1, K2 and K3;
+16. [main 2d exact], [main 2d tube]: the CLI on the 2-D main plane with
+   `-p 2,4,6 0 10 0.5 3 2 100 20 1 4 9`, twice, then once under the
+   profiler: the SWC's median y within 2 of 2048 and every z 0, K3 and K2
+   (exact) or K3 and tube_corr (tube) launched, and no K1;
+17. [tiled 2d]: `frangi2d_tiled` at `pick_blocks_2d`'s blocks bitwise
+   `frangi2d` on a (1, 9216, 9216) plane (85 Mpx, over the 80-Mpx
+   cutover), with both routes' peak device bytes per pixel;
+18. [quality]: branching_neuron_phantom_2d (exact and tube),
+   multi_neuron_soma_phantom (somaradius 4) and branching_neuron_phantom
+   (exact) through the pipeline on the card and on the CPU plain path,
+   scored against gold with the port's `compare_swc` (tests/
+   _torch_phantoms.py, imported with tests/ on sys.path): the card's F1
+   within 0.05 of the CPU's and each phantom test's own bars on the card.
 
 The line before the last is a JSON object describing each kernel (its
-launches on its path, error, times, bound and library time); the last line
-is {"ok": true, "device": {...}}.
+launches on its path, error, times, bound and library time; the 2-D and
+soma paths' launches and the one-plane rows' times under `launches_2d`,
+`launches_soma` and `plane`); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -104,6 +133,14 @@ SIGMAS = (2.0, 4.0, 6.0)
 ZDIST = 2.0
 MAIN_SHAPE = (128, 640, 640)
 MAIN_PARAMS = ["2,4,6", "0", "10", "0.5", "3", "2", "100", "20", "2", "4", "9"]
+#: the 2-D main path: one plane of bench.py's recipe (16.8 Mpx), zdist 1
+PLANE_SHAPE = (1, 4096, 4096)
+PLANE_PARAMS = ["2,4,6", "0", "10", "0.5", "3", "2", "100", "20", "1", "4", "9"]
+#: the soma path: the main stack with two soma blobs, somaradius 4
+SOMA_PARAMS = ["2,4,6", "4", "10", "0.5", "3", "2", "100", "20", "2", "4", "9"]
+SOMA_X = (160, 480)
+#: a plane over the 2-D filter's 80-Mpx tiling cutover (85 Mpx)
+TILED_PLANE_SHAPE = (1, 9216, 9216)
 #: the device every phase runs on (the kernels need a CUDA device)
 DEVICE = "cuda"
 #: the card's published peaks (H100 SXM, NVIDIA's data sheet): device
@@ -118,11 +155,21 @@ EIG_FLOPS = 250
 #: multiply-adds, clamps, floors), the trilinear sample (7 lerps) and the
 #: three sums
 K2_SAMPLE_FLOPS = 60
+#: FLOPs of one K2 template sample on a one-plane patch: K2_SAMPLE_FLOPS
+#: less the z coordinate (2 fused multiply-adds, a clamp, a floor and the
+#: fraction: 8) and four of the seven lerps (3 each): the y and x
+#: coordinates, the bilinear sample (3 lerps) and the three sums
+K2_PLANE_SAMPLE_FLOPS = K2_SAMPLE_FLOPS - 8 - 4 * 3
 #: FLOPs of one tube_corr line sample: its point and window coordinates
 #: (3 multiplies, 3 adds, 3 subtractions, 12 clamps), six hat weights, four
 #: z-y weight products, 24 fused multiply-adds, the x contraction of three
 #: channels, the mask and the sum over the line (3 + 3)
 HAT_ROW_FLOPS = 112
+#: FLOPs of one tube_corr line sample in a one-plane window: HAT_ROW_FLOPS
+#: less the z coordinate (a multiply, an add, a subtraction, 4 clamps: 7),
+#: the two z hat weights (8), the four z-y weight products (the y weight is
+#: the tap weight) and 12 of the 24 fused multiply-adds (24)
+HAT_ROW_PLANE_FLOPS = HAT_ROW_FLOPS - 7 - 8 - 4 - 24
 #: FLOPs of one tube ZNCC per query and sigma from its three sums: 10
 #: arithmetic, a clamp, the gate, a division and a square root (~8 each)
 #: and the running max
@@ -141,6 +188,20 @@ def make_volume(shape, seed=0):
     z, y, x = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
     d2 = (y - shape[1] / 2) ** 2 + ((z - shape[0] / 2) * ZDIST) ** 2
     vol = 200.0 * np.exp(-d2 / (2 * 9.0)) * (0.7 + 0.3 * np.sin(x / 4.0))
+    return np.clip(vol + rng.normal(0, 5, shape), 0, 255).astype(np.uint8)
+
+
+def make_soma_volume(shape, seed=0):
+    """make_volume's stack with two soma blobs on the tube axis at x in
+    SOMA_X, drawn by multi_neuron_soma_phantom's recipe (tests/
+    _torch_phantoms.py): a Gaussian of sd 5 voxels, z scaled by zdist, at
+    1.2x the tube's peak (200), combined by maximum before the noise."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
+    d2 = (y - shape[1] / 2) ** 2 + ((z - shape[0] / 2) * ZDIST) ** 2
+    vol = 200.0 * np.exp(-d2 / (2 * 9.0)) * (0.7 + 0.3 * np.sin(x / 4.0))
+    for sx in SOMA_X:
+        np.maximum(vol, 1.2 * 200.0 * np.exp(-(d2 + (x - sx) ** 2) / (2 * 5.0**2)), out=vol)
     return np.clip(vol + rng.normal(0, 5, shape), 0, 255).astype(np.uint8)
 
 
@@ -612,7 +673,7 @@ def k2_sample_grid(torch, eng, vol, corner, qs):
         tv, tu, tw, _ = tab[si, :k].unbind(-1)
         rz, ry, rx = ze.sample_coords(qs[..., None], tv, tu, tw)
         zyx = torch.stack([rz, ry, rx], -1) + cf
-        grids.append(torch.stack([zyx[..., 2 - i] / (vol.shape[2 - i] - 1) * 2.0 - 1.0
+        grids.append(torch.stack([zyx[..., 2 - i] / max(vol.shape[2 - i] - 1, 1) * 2.0 - 1.0
                                   for i in range(3)], -1).reshape(-1, 3))
         shapes.append(tuple(rz.shape))
     return torch.cat(grids).reshape(1, 1, 1, -1, 3), shapes
@@ -730,14 +791,15 @@ def tube_queries(rng, shape, t, b, axis_sd, anywhere=0.25):
 
 def hat_touched_bytes(torch, rel, origin, pdims, zpitch, ypitch, elem=4):
     """Distinct field bytes that tube_corr's line samples read: per row
-    (rz, ry, rx, _) the two z and two y taps' runs of six elements (two x
-    taps, three channels) from the row's window origin `origin` (element
-    offsets, one per row), with the kernel's tap clamping."""
+    (rz, ry, rx, _) the two z (one in a one-plane window) and two y taps'
+    runs of six elements (two x taps, three channels) from the row's
+    window origin `origin` (element offsets, one per row), with the
+    kernel's tap clamping."""
     r = rel.reshape(-1, 4)
-    taps = [torch.clamp(torch.floor(r[:, i]).long(), 0, pdims[i] - 2) for i in range(3)]
+    taps = [torch.clamp(torch.floor(r[:, i]).long(), 0, max(pdims[i] - 2, 0)) for i in range(3)]
     start = origin.reshape(-1) + taps[0] * zpitch + taps[1] * ypitch + 3 * taps[2]
     dev = rel.device
-    offs = (torch.arange(2, device=dev)[:, None, None] * zpitch
+    offs = (torch.arange(2 if pdims[0] > 1 else 1, device=dev)[:, None, None] * zpitch
             + torch.arange(2, device=dev)[None, :, None] * ypitch
             + torch.arange(6, device=dev)[None, None, :]).reshape(-1)
     return int(torch.unique(start[:, None] + offs[None, :]).numel()) * elem
@@ -860,7 +922,8 @@ def tube_corr_yardstick(torch, eng, field, lay, corners, pos, d):
                                      field.element_size())
     glob = torch.cat(glob, 1).permute(1, 0, 2, 3)  # (S, T, M, 3) zyx
     want = torch.cat(want, 1).permute(1, 0, 2, 3).reshape(s_, -1, 3)
-    grid = torch.stack([glob[..., 2 - i] / (dims[2 - i] - 1) * 2.0 - 1.0 for i in range(3)], -1)
+    grid = torch.stack([glob[..., 2 - i] / max(dims[2 - i] - 1, 1) * 2.0 - 1.0
+                        for i in range(3)], -1)
     grid = grid.reshape(s_, 1, 1, -1, 3)
     fin = field.view(s_, z_, y_, x3_ // 3, 3).permute(0, 4, 1, 2, 3)
 
@@ -892,7 +955,9 @@ def tube_corr_row(torch, card, eng, field, label, lay, corners, pos, d, single):
     t, n = pos.shape[:2]
     # the field bytes the samples touch, pos and dirs in, the corners, corr and sig out
     nbytes = touched + 2 * pos.numel() * 4 + corners.numel() * 4 + 2 * t * n * 4
-    flops = real * HAT_ROW_FLOPS + t * n * eng.s_count * ZNCC_FLOPS
+    one_plane = all(pdims[0] == 1 for _, _, pdims in lay.groups)
+    flops = (real * (HAT_ROW_PLANE_FLOPS if one_plane else HAT_ROW_FLOPS)
+             + t * n * eng.s_count * ZNCC_FLOPS)
     # per call in runs of 20 back-to-back calls, as the tracer makes them
     # between its other small launches; and one call alone after a sync
     ms, library_ms = time_turns_ms(torch, (kern, lib), calls=20)
@@ -978,8 +1043,8 @@ def phase_bf16(torch):
     check(err < 8e-3 and flips < 0.03, "bf16 field: corr max error < 8e-3, sigma flips < 3%")
 
 
-def cli_argv(src, workdir, tag, mode):
-    return ["-i", src, "-p", *MAIN_PARAMS, "--device", DEVICE, "--zncc-mode", mode,
+def cli_argv(src, workdir, tag, mode, params=MAIN_PARAMS):
+    return ["-i", src, "-p", *params, "--device", DEVICE, "--zncc-mode", mode,
             "-o", os.path.join(workdir, f"{tag}.swc"),
             "--metrics", os.path.join(workdir, f"{tag}.json"), "--quiet"]
 
@@ -1014,6 +1079,11 @@ PATH_KERNELS = {
     "exact": ("frangi3d_fused", "exact_sums"),
     "tube": ("frangi3d_fused", "conv1d_along_axis", "tube_corr_trace", "tube_corr_score"),
     "unfused": ("conv1d_axis", "conv_yx", "exact_sums"),
+    # the soma stage's xy Gaussian on K3, then the exact path
+    "soma": ("conv1d_axis", "frangi3d_fused", "exact_sums"),
+    # the 2-D filter's Gaussians on K3; the 2-D map build on K3
+    "2d exact": ("conv1d_axis", "exact_sums"),
+    "2d tube": ("conv1d_axis", "conv1d_along_axis", "tube_corr_trace", "tube_corr_score"),
 }
 
 
@@ -1042,19 +1112,25 @@ def counting_seed_scoring():
     return counts, undo
 
 
-def phase_main(torch, card, src, workdir, mode):
+def phase_main(torch, card, src, workdir, mode, label=None, shape=MAIN_SHAPE,
+               params=MAIN_PARAMS, runs=(1, 2)):
+    """The CLI on the stack at `src` in `mode`, `runs` times; run 1's kernel
+    launches (counts set to 0 just before it); the SWC must lie on the
+    tube axis. `label` names the path (default: the mode)."""
     from pnr_tpu_torch import cli
 
+    label = label or mode
+    plane = shape[0] == 1
     launches = wall = None
-    for run in (1, 2):
-        tag = f"{mode}{run}"
+    for run in runs:
+        tag = f"{label.replace(' ', '_')}{run}"
         if run == 1:
             scoring, undo = counting_seed_scoring()
             reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            rc = cli.main(cli_argv(src, workdir, tag, mode))
+            rc = cli.main(cli_argv(src, workdir, tag, mode, params))
         finally:
             if run == 1:
                 undo()
@@ -1063,29 +1139,39 @@ def phase_main(torch, card, src, workdir, mode):
         if run == 1:
             launches = read_counters()
             launches["seed_scoring"] = dict(scoring)
-        check(rc == 0, f"{mode} CLI run {run} exited {rc}")
+        check(rc == 0, f"{label} CLI run {run} exited {rc}")
         rows = np.loadtxt(os.path.join(workdir, f"{tag}.swc"), comments="#", ndmin=2)
         entry = json.load(open(os.path.join(workdir, f"{tag}.json")))["stacks"][0]
         ys, zs = rows[:, 3], rows[:, 4]  # id type x y z r parent
-        print(f"[main {mode}] run {run}: {e2e:.3f} s end to end, {len(rows)} SWC nodes, median y "
+        print(f"[main {label}] run {run}: {e2e:.3f} s end to end, {len(rows)} SWC nodes, median y "
               f"{np.median(ys):.3f} z {np.median(zs):.3f}, seeds {entry.get('n_raw_seeds')} raw / "
               f"{entry['n_seeds']} selected, {entry['trace_count']} traces [{card}]", flush=True)
-        print(f"[main {mode}] run {run} stages (s): {json.dumps(entry['timings_s'])}", flush=True)
-        check(len(rows) > 10, f"{mode} path SWC has more than 10 nodes")
-        check(abs(np.median(ys) - MAIN_SHAPE[1] / 2) <= 3, f"{mode}: median node y within 3 of 320")
-        check(abs(np.median(zs) - MAIN_SHAPE[0] / 2) <= 3, f"{mode}: median node z within 3 of 64")
+        print(f"[main {label}] run {run} stages (s): {json.dumps(entry['timings_s'])}", flush=True)
+        check(len(rows) > 10, f"{label} path SWC has more than 10 nodes")
+        if plane:
+            check(abs(np.median(ys) - shape[1] / 2) <= 2,
+                  f"{label}: median node y within 2 of {shape[1] // 2}")
+            check(bool((zs == 0).all()), f"{label}: every node at z = 0")
+        else:
+            check(abs(np.median(ys) - shape[1] / 2) <= 3,
+                  f"{label}: median node y within 3 of {shape[1] // 2}")
+            check(abs(np.median(zs) - shape[0] / 2) <= 3,
+                  f"{label}: median node z within 3 of {shape[0] // 2}")
         if run == 1:
-            print(f"[main {mode}] kernel launches during run 1: {json.dumps(launches)}", flush=True)
-            check(all(launches[k] > 0 for k in PATH_KERNELS[mode]),
-                  f"the {mode} path launched {', '.join(PATH_KERNELS[mode])}")
-            check(launches["frangi3d_fused"] == len(SIGMAS) + 1,
-                  f"the {mode} path launched K1 once per sigma and its decode")
+            print(f"[main {label}] kernel launches during run 1: {json.dumps(launches)}",
+                  flush=True)
+            check(all(launches[k] > 0 for k in PATH_KERNELS[label]),
+                  f"the {label} path launched {', '.join(PATH_KERNELS[label])}")
+            want_k1 = 0 if plane else len(SIGMAS) + 1
+            check(launches["frangi3d_fused"] == want_k1,
+                  f"the {label} path launched K1 {want_k1} times (once per sigma and its decode "
+                  f"on a 3-D stack, never on a plane)")
             if mode == "exact":
                 n = launches["seed_scoring"]["exact_sums"]
                 check(0 < n < launches["exact_sums"],
                       "K2 was launched both by seed scoring and by the tracer")
         wall = e2e
-    return launches, wall
+    return launches, wall, rows
 
 
 def phase_main_unfused(torch, card, main_np):
@@ -1193,16 +1279,17 @@ def phase_profile(torch, card, mode, run, unprofiled_s):
         f"{k} {ms:.3f} ms in {n} launches" for k, (ms, n) in per.items() if n)
         + f"; {len(dev)} device ops; {len(host_launch)} host kernel-launch calls taking "
           f"{launch_ms:.3f} ms", flush=True)
-    if mode == "tube":
+    if mode.endswith("tube"):
         steps = read_counters()["tube_corr_trace"] // 2
         ms, n = per["tube_corr (K5, K6)"]
-        print(f"[profile tube] {steps} tracer steps: {len(host_launch) / max(steps, 1):.1f} host "
+        print(f"[profile {mode}] {steps} tracer steps: {len(host_launch) / max(steps, 1):.1f} host "
               f"kernel-launch calls per step (the whole run's calls over its steps); tube_corr "
               f"{ms / max(n, 1) * 1e3:.3f} us of device time per launch [{card}]", flush=True)
     k1 = "K1 (frangi_fused, decode_stats)"
     k3 = "K3 (and the map build's)"
     want = {"exact": (k1, "K2"), "tube": (k1, k3, "tube_corr (K5, K6)"),
-            "unfused": (k3, "K4", "K2")}[mode]
+            "unfused": (k3, "K4", "K2"), "2d exact": (k3, "K2"),
+            "2d tube": (k3, "tube_corr (K5, K6)")}[mode]
     check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {mode} path")
     top = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
     print(f"[profile {mode}] top device ops:\n" + top, flush=True)
@@ -1228,6 +1315,305 @@ def phase_small_agreement(torch, mode):
           f"{cpu.trace_count}, median |dy| {dy:.3f} |dz| {dz:.3f}", flush=True)
     check(overlap >= 0.9, f"small stack, {mode}: seed sets agree")
     check(len(gpu.tree) > 10 and dy < 2.0 and dz < 2.0, f"small stack, {mode}: trees agree")
+
+
+# -- the 2-D (one-plane) and soma paths -----------------------------------
+
+
+def plane_queries(rng, shape, t, b, anywhere=0.25):
+    """Trace clouds on a one-plane stack: centres near the tube axis (y =
+    h / 2), a share anywhere on the plane, B particles within 4 pixels of
+    each centre, z = 0; directions in the plane, half roughly along x."""
+    _, h, w = shape
+    centre = np.stack([rng.uniform(0, w - 1, t), rng.normal(h / 2, 2.0, t)], -1)
+    move = rng.random(t) < anywhere
+    centre[move] = np.stack([rng.uniform(0, w - 1, t), rng.uniform(0, h - 1, t)], -1)[move]
+    xy = centre[:, None, :] + (rng.uniform(-4, 4, (t, b, 2)) if b > 1 else 0.0)
+    pos = np.concatenate([xy, np.zeros((t, b, 1))], -1)
+    a = rng.uniform(0, 2 * np.pi, (t, b))
+    a[: t // 2] = rng.normal(0, 0.3, (t // 2, b))
+    d = np.stack([np.cos(a), np.sin(a), np.zeros_like(a)], -1)
+    return pos.astype(np.float32), d.astype(np.float32)
+
+
+def phase_k2_2d(torch, card, plane_vol):
+    """K2 on one-plane patches (pz = 1) of the 2-D main plane against its
+    plain version: one tracer chunk (T=128, B=20) and B=1 scoring, at K2's
+    bars and bitwise over two launches; slabs per trace, shared memory per
+    block, time per call back to back, the plain version's, grid_sample's
+    at the same samples, and the bound."""
+    import torch.nn.functional as F
+
+    from pnr_tpu_torch.ops import zncc_exact as ze
+    from pnr_tpu_torch.ops.zncc_exact import (
+        ExactPatchEngine, ZnccTemplates, exact_corr_from_sums, exact_sums, exact_sums_plain,
+    )
+
+    dev = plane_vol.device
+    eng = ExactPatchEngine(ZnccTemplates(SIGMAS, True), 2, dev)
+    rng = np.random.default_rng(21)
+    out, worst = {}, 0.0
+    for key, t, b in (("t128_b20", 128, 20), ("t512_b1", 512, 1)):
+        pos, d = (torch.from_numpy(a).to(dev) for a in plane_queries(rng, PLANE_SHAPE, t, b))
+        corner = eng.corners(plane_vol.shape, pos.mean(dim=1))
+        qs = eng.qinfo(plane_vol, corner, pos, d)
+        dims = eng.dims(plane_vol.shape)
+        plan = ze.kernel_plan(dims, b, len(SIGMAS))
+        smem = ze.smem_bytes(plan, dims[1], b, len(SIGMAS))
+
+        def kern():
+            return exact_sums(plane_vol, corner, qs, eng.tables, dims)
+
+        sk = kern()
+        same = bool(torch.equal(sk, kern()))
+        sp = exact_sums_plain(plane_vol, corner, qs, eng.tables, dims)
+        col_err = [float((sk[..., i] - sp[..., i]).abs().max()) /
+                   max(float(sp[..., i].abs().max()), 1.0) for i in range(3)]
+        ck, sgk = exact_corr_from_sums(eng.tables, sk)
+        cp, sgp = exact_corr_from_sums(eng.tables, sp)
+        cerr = float((ck - cp).abs().max())
+        agree = float((sgk == sgp).float().mean())
+        worst = max(worst, cerr)
+        grid, shapes = k2_sample_grid(torch, eng, plane_vol, corner, qs)
+        vol_f = plane_vol.to(torch.float32)[None, None]
+
+        def lib():
+            return F.grid_sample(vol_f, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+
+        ms, lib_ms = time_turns_ms(torch, (kern, lib), calls=20)
+        plain_ms = time_ms(torch, lambda: exact_sums_plain(plane_vol, corner, qs, eng.tables, dims))
+        samples = t * b * int(eng.tables.cnt.sum())
+        nbytes = (min(t * dims[0] * dims[1] * dims[2], plane_vol.numel()) + qs.numel() * 4
+                  + corner.numel() * 4 + eng.tables.tab.numel() * 4 + sk.numel() * 4)
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "slabs": plan.nz,
+                    "smem_bytes": smem, "samples": samples, "max_col_err": max(col_err),
+                    **bound(nbytes, samples * K2_PLANE_SAMPLE_FLOPS)}
+        print(f"[K2 2d] {PLANE_SHAPE} T={t} B={b} patch {dims}: {plan.nz} slab of {plan.step} "
+              f"floors a trace, {smem} bytes of shared memory a block; sums max|d|/max|plain| per "
+              f"column {', '.join(f'{e:.3e}' for e in col_err)}; corr max|d| {cerr:.3e}; sigma "
+              f"agreement {agree:.4f}; two launches bitwise equal {same}; {ms:.4f} ms per call "
+              f"back to back, grid_sample (sampling only) {lib_ms:.4f}, plain {plain_ms:.3f}; "
+              f"bound {out[key]['bound_ms']:.5f} ms ({out[key]['bound_by']}) [{card}]", flush=True)
+        check(plan.nz == 1 and plan.step == 0, "K2 2d: one slab of one plane a trace")
+        check(max(col_err) < 1e-5, f"K2 2d T={t} B={b}: sums within 1e-5 of each column's scale")
+        check(cerr < 3e-4 and agree > 0.97,
+              f"K2 2d T={t} B={b}: corr atol 3e-4 and sigma agreement > 97%")
+        check(same, f"K2 2d T={t} B={b}: two launches bitwise equal")
+        del grid
+    return {"max_abs_err": worst, **out}
+
+
+def phase_maps_2d(torch, card, plane_vol):
+    """The 2-D map build (y and x passes on K3) of the main plane against
+    the plain shift-and-add; K3 on the plane timed along x from uint8 and
+    along y from float32 at sigma 6 (the 2-D Gaussians' passes)."""
+    from pnr_tpu_torch.ops import conv, gaussian
+    from pnr_tpu_torch.ops.gaussian import gaussian_kernel
+    from pnr_tpu_torch.ops.zncc_fast import (
+        TubeZnccModel, build_tube_maps_packed, build_tube_maps_packed_plain,
+    )
+
+    model = TubeZnccModel(SIGMAS, True)
+    n0 = gaussian.LAUNCHES
+    field = build_tube_maps_packed(plane_vol, model)
+    launches = gaussian.LAUNCHES - n0
+    plain = build_tube_maps_packed_plain(plane_vol, model)
+    s_, z, y, x3 = field.shape
+    errs = col_errs(field.view(s_, z, y, x3 // 3, 3), plain.view(s_, z, y, x3 // 3, 3))
+    del plain
+    print(f"[maps 2d] {PLANE_SHAPE} sigmas {SIGMAS}: field {tuple(field.shape)} "
+          f"{field.numel() * 4 / 1e9:.3f} GB, {launches} K3 launches; max|d|/max(|plain|,1) per "
+          f"channel {', '.join(f'{e:.3e}' for e in errs)}", flush=True)
+    check(launches == 6 * len(SIGMAS), "2-D map build: y and x passes only (6 K3 launches a sigma)")
+    check(max(errs) < 1e-5, "2-D map build: per channel max|d| / max(|plain|, 1) < 1e-5")
+    ms = time_ms(torch, lambda: build_tube_maps_packed(plane_vol, model))
+    plain_ms = time_ms(torch, lambda: build_tube_maps_packed_plain(plane_vol, model))
+    k = gaussian_kernel(SIGMAS[-1])
+    n = plane_vol.numel()
+    vf = plane_vol.to(torch.float32)
+    k3 = {}
+    for label, v, axis, inb in (("x from u8", plane_vol, 2, 1), ("y from f32", vf, 1, 4)):
+        e = conv_err(conv.conv1d_axis(v, k, axis), conv.conv1d_axis_plain(v, k, axis))
+        check(e < 1e-5, f"K3 on the plane, {label}: within 1e-5 of max|plain|")
+        k3[label] = {"ms": time_ms(torch, lambda v=v, axis=axis: conv.conv1d_axis(v, k, axis)),
+                     "plain_ms": time_ms(torch, lambda v=v, axis=axis:
+                                         conv.conv1d_axis_plain(v, k, axis)),
+                     "max_rel_err": e, **bound(n * (inb + 4), n * 2 * len(k))}
+    print(f"[maps 2d] build: kernel route {ms:.3f} ms, plain {plain_ms:.3f} ms; K3 on the plane, "
+          f"{len(k)} taps: " + "; ".join(
+              f"{lb} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
+              f"{r['bound_by']}, max|d|/max|plain| {r['max_rel_err']:.3e})" for lb, r in k3.items())
+          + f" [{card}]", flush=True)
+    return field, {"max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms, "k3": k3}
+
+
+def phase_tube_corr_2d(torch, card, field):
+    """tube_corr on the main plane's one-plane windows against its plain
+    chain: the tracer's row (T=128, N=20) and the scoring row (T=512,
+    B=1), at the existing bars, timed as phase_tube_corr times them."""
+    from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine, TubeZnccModel
+
+    dev = field.device
+    eng = TubePatchEngine(TubeZnccModel(SIGMAS, True), 2, 1.0, device=dev)
+    rng = np.random.default_rng(22)
+    pos, d = (torch.from_numpy(a).to(dev) for a in plane_queries(rng, PLANE_SHAPE, 128, 20))
+    lay, corners, err5 = tube_corr_compare(torch, eng, field, "tube_corr 2d tracer", pos, d, False)
+    check(all(g[2][0] == 1 for g in lay.groups), "tube_corr 2d: one-plane windows")
+    k5 = {"max_abs_err": err5, **tube_corr_row(torch, card, eng, field, "tube_corr 2d tracer",
+                                               lay, corners, pos, d, False)}
+    pos, d = (torch.from_numpy(a).to(dev) for a in plane_queries(rng, PLANE_SHAPE, 512, 1))
+    lay, corners, err6 = tube_corr_compare(torch, eng, field, "tube_corr 2d scoring", pos, d, True)
+    k6 = {"max_abs_err": err6, **tube_corr_row(torch, card, eng, field, "tube_corr 2d scoring",
+                                               lay, corners, pos, d, True)}
+    return k5, k6
+
+
+def phase_soma(torch, card, soma_np):
+    """`soma_extraction` on the card and on the CPU plain path on the soma
+    stack: the eroded, smoothed stack (K3's x pass from u8 and y pass from
+    f32) bitwise, and the soma maps, thresholds and soma nodes equal; the
+    stage's parts on the card."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.graph.nodes import NodeList
+    from pnr_tpu_torch.ops.gaussian import imgaussian_xy
+    from pnr_tpu_torch.ops.morphology import imerode_xy
+    from pnr_tpu_torch.ops.thresholds import maxentropy_th
+    from pnr_tpu_torch.pipeline.reconstruct import soma_extraction
+
+    cfg = PNRConfig.from_cli_params(SOMA_PARAMS)
+    r = float(cfg.somaradius)
+    out = []
+    for dev in (DEVICE, "cpu"):
+        nodes, parts = NodeList(), {}
+        if dev == DEVICE:
+            soma_extraction(soma_np, cfg, NodeList(), dev)  # warm-up
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smap = soma_extraction(soma_np, cfg, nodes, dev, parts)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        e8 = imgaussian_xy(imerode_xy(torch.from_numpy(soma_np).to(dev), r), r).cpu()
+        out.append((smap, nodes, dt, e8, maxentropy_th(e8), parts))
+    (smap_c, nodes_c, dt_c, e8_c, th_c, parts), (smap_h, nodes_h, dt_h, e8_h, th_h, _) = out
+    e8d = (e8_c.int() - e8_h.int()).abs()
+    rows = [(nodes_c.x[i], nodes_c.y[i], nodes_c.z[i], nodes_c.sig[i]) for i in range(1, len(nodes_c))]
+    same_nodes = rows == [(nodes_h.x[i], nodes_h.y[i], nodes_h.z[i], nodes_h.sig[i])
+                          for i in range(1, len(nodes_h))]
+    print(f"[soma] {soma_np.shape} somaradius {r:g}: stage {dt_c:.3f} s on the card, {dt_h:.3f} s "
+          f"on the CPU plain path; threshold {th_c} (CPU {th_h}); {len(rows)} regions: "
+          + ", ".join(f"({x:.1f}, {y:.1f}, {z:.1f}) r {sg:.2f}" for x, y, z, sg in rows)
+          + f"; eroded, smoothed stack max|d| {int(e8d.max())} on "
+          f"{float((e8d > 0).float().mean()):.3e} of voxels; soma maps equal "
+          f"{np.array_equal(smap_c, smap_h)}, nodes equal {same_nodes} [{card}]", flush=True)
+    print(f"[soma] the stage's parts on the card (s): {json.dumps(parts)} [{card}]", flush=True)
+    check(int(e8d.max()) == 0, "soma: the card's eroded, smoothed stack is the CPU's, bitwise")
+    check(np.array_equal(smap_c, smap_h), "soma: the card's soma map is the CPU's")
+    check(th_c == th_h and same_nodes, "soma: the card's threshold and soma nodes are the CPU's")
+    return {"card_s": dt_c, "cpu_s": dt_h, "threshold": th_c, "regions": len(rows),
+            "parts_s": parts}
+
+
+def phase_tiled_2d(torch, card):
+    """`frangi2d_tiled` at `pick_blocks_2d`'s blocks bitwise the monolithic
+    `frangi2d` on a plane over the 80-Mpx cutover; the peak device bytes
+    per pixel of both routes."""
+    from pnr_tpu_torch.ops.frangi import frangi2d
+    from pnr_tpu_torch.ops.frangi_blocked import frangi2d_tiled, pick_blocks_2d
+    from pnr_tpu_torch.pipeline import reconstruct
+
+    t0 = time.perf_counter()
+    img = torch.from_numpy(make_volume(TILED_PLANE_SHAPE, seed=3)[0]).to(DEVICE)
+    made = time.perf_counter() - t0
+    n = img.numel()
+    check(n > reconstruct.FRANGI2D_TILED_PIXELS, "the plane is over the 2-D tiling cutover")
+    by, bx = pick_blocks_2d(tuple(img.shape), SIGMAS)
+    peaks = {
+        "frangi2d": peak_bytes_per_voxel(torch, lambda: frangi2d(img, SIGMAS), n),
+        f"frangi2d_tiled ({by}, {bx})": peak_bytes_per_voxel(
+            torch, lambda: frangi2d_tiled(img, SIGMAS, block_y=by, block_x=bx), n),
+    }
+    times = {}
+    for label, fn in (("frangi2d", lambda: frangi2d(img, SIGMAS)),
+                      ("frangi2d_tiled", lambda: frangi2d_tiled(img, SIGMAS, block_y=by,
+                                                                block_x=bx))):
+        times[label] = time_ms(torch, fn, reps=3)
+    mono = frangi2d(img, SIGMAS)
+    tiled = frangi2d_tiled(img, SIGMAS, block_y=by, block_x=bx)
+    same = [bool(torch.equal(tiled[i], mono[i])) for i in (0, 3, 4)]
+    jmin_eq, jmax_eq = float(tiled[1]) == float(mono[1]), float(tiled[2]) == float(mono[2])
+    print(f"[tiled 2d] {TILED_PLANE_SHAPE} (made in {made:.3f} s), blocks ({by}, {bx}): J, Vx, Vy "
+          f"bitwise {same}, Jmin {jmin_eq}, Jmax {jmax_eq}; frangi2d {times['frangi2d']:.3f} ms, "
+          f"tiled {times['frangi2d_tiled']:.3f} ms; peak device bytes per pixel above the plane "
+          f"{json.dumps({k: round(v, 3) for k, v in peaks.items()})} [{card}]", flush=True)
+    check(all(same) and jmin_eq and jmax_eq, "frangi2d_tiled is bitwise frangi2d at 85 Mpx")
+    return {"blocks": [by, bx], "peaks": peaks, "ms": times}
+
+
+#: the quality phantoms' configurations: tests/test_phantom_neuron.py's
+#: CFG (tube mode, sigmas (2, 3)), with Test2DPhantom's zdist 1.0,
+#: TestMultiNeuronSoma's somaradius 4, and TestBranchingNeuronExact's exact
+#: mode at ni 40; each phantom's own bars
+PHANTOM_CFG = dict(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=2.0, step=2, ni=60,
+                   np=16, zdist=2.0, nodepervol=4, vol=9, wave_size=32, zncc_mode="tube")
+QUALITY = {
+    "2d exact": ("branching_neuron_phantom_2d", dict(zdist=1.0, zncc_mode="exact"),
+                 (0.75, 0.85, 0.0)),
+    "2d tube": ("branching_neuron_phantom_2d", dict(zdist=1.0), (0.75, 0.85, 0.0)),
+    "soma": ("multi_neuron_soma_phantom", dict(somaradius=4), (0.75, 0.8, 0.0)),
+    "3d exact": ("branching_neuron_phantom", dict(zncc_mode="exact", ni=40), (0.8, 0.85, 0.85)),
+}
+
+
+def phase_quality(torch, card):
+    """The phantoms through the pipeline on the card and on the CPU plain
+    path in the same process, scored with the port's `compare_swc`
+    against gold: the card's F1 within 0.05 of the CPU's, and each
+    phantom test's bars on the card."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_phantoms as phantoms
+
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.graph.nodes import SOMA
+    from pnr_tpu_torch.io.swc import read_swc, save_nodelist
+    from pnr_tpu_torch.pipeline import reconstruction_func
+    from pnr_tpu_torch.utils.swc_compare import compare_swc
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_quality_", dir=HERE)
+    try:
+        for key, (name, over, (rmin, pmin, fmin)) in QUALITY.items():
+            vol, gold = getattr(phantoms, name)()
+            cfg = PNRConfig(**{**PHANTOM_CFG, **over})
+            scores = []
+            for i, dev in enumerate((DEVICE, "cpu")):
+                res = reconstruction_func(vol, cfg, verbose=False, device=dev)
+                path = os.path.join(tmp, f"{key.replace(' ', '_')}_{i}.swc")
+                save_nodelist(res.tree, path)
+                scores.append((compare_swc(read_swc(path), gold, dist=4.0, resample=1.0), res))
+            (sc, rc_), (sh, _) = scores
+            print(f"[quality] {key} ({name}): card recall {sc.recall:.4f} precision "
+                  f"{sc.precision:.4f} F1 {sc.f1:.4f}; CPU recall {sh.recall:.4f} precision "
+                  f"{sh.precision:.4f} F1 {sh.f1:.4f}; paired |dF1| {abs(sc.f1 - sh.f1):.4f}",
+                  flush=True)
+            check(abs(sc.f1 - sh.f1) <= 0.05, f"quality {key}: card F1 within 0.05 of the CPU's")
+            check(sc.recall > rmin and sc.precision > pmin and sc.f1 > fmin,
+                  f"quality {key}: the phantom's bars on the card (recall > {rmin}, precision > "
+                  f"{pmin}, F1 > {fmin})")
+            if key.startswith("2d"):
+                check(np.allclose(rc_.tree.z[1:], 0.0, atol=1.0), f"quality {key}: in the plane")
+            if key == "soma":
+                somas = [(rc_.n0.x[i], rc_.n0.y[i]) for i in range(1, len(rc_.n0))
+                         if rc_.n0.type[i] == SOMA]
+                check(len(somas) == 2 and all(
+                    min(np.hypot(x - sx, y - sy) for x, y in somas) < 3.0
+                    for sx, sy in ((24, 28), (104, 68))), "quality soma: both somas found")
+            out[key] = {"card": [sc.recall, sc.precision, sc.f1],
+                        "cpu": [sh.recall, sh.precision, sh.f1]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -1259,28 +1645,64 @@ def main() -> int:
     del main_vol, field
     phase_bf16(torch)
     torch.cuda.empty_cache()
-    launches, profiles = {}, {}
+    # the 2-D kernels' routes on the 2-D main plane
+    plane_np = make_volume(PLANE_SHAPE)
+    plane_vol = torch.from_numpy(plane_np).to(DEVICE)
+    k2_2d = phase_k2_2d(torch, card, plane_vol)
+    field_2d, maps_2d = phase_maps_2d(torch, card, plane_vol)
+    k5_2d, k6_2d = phase_tube_corr_2d(torch, card, field_2d)
+    del plane_vol, field_2d
+    torch.cuda.empty_cache()
+    soma_np = make_soma_volume(MAIN_SHAPE)
+    soma = phase_soma(torch, card, soma_np)
+    launches, profiles, stages = {}, {}, {}
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
         src = os.path.join(workdir, "stack.npy")
         np.save(src, main_np)
         for mode in ("exact", "tube"):
-            launches[mode], run2_s = phase_main(torch, card, src, workdir, mode)
+            launches[mode], run2_s, _ = phase_main(torch, card, src, workdir, mode)
 
             def run(mode=mode):
                 rc = cli.main(cli_argv(src, workdir, f"{mode}3", mode))
                 check(rc == 0, f"profiled {mode} CLI run exited {rc}")
 
             profiles[mode] = phase_profile(torch, card, mode, run, run2_s)
+        # the soma path: the CLI on the soma stack, exact mode
+        soma_src = os.path.join(workdir, "soma.npy")
+        np.save(soma_src, soma_np)
+        launches["soma"], _, rows = phase_main(torch, card, soma_src, workdir, "exact", "soma",
+                                               params=SOMA_PARAMS, runs=(1,))
+        n_soma = int((rows[:, 1] == 1).sum())
+        print(f"[main soma] {n_soma} SOMA rows in the SWC; K1 {launches['soma']['frangi3d_fused']}, "
+              f"K2 {launches['soma']['exact_sums']}, K3 {launches['soma']['conv1d_axis']} launches "
+              f"in run 1", flush=True)
+        check(n_soma > 0, "the soma path's SWC has SOMA nodes")
+        # the 2-D path: the CLI on the 2-D main plane, exact and tube mode
+        plane_src = os.path.join(workdir, "plane.npy")
+        np.save(plane_src, plane_np)
+        for mode in ("exact", "tube"):
+            label = f"2d {mode}"
+            launches[label], run2_s, _ = phase_main(torch, card, plane_src, workdir, mode, label,
+                                                    PLANE_SHAPE, PLANE_PARAMS)
+
+            def run(mode=mode):
+                rc = cli.main(cli_argv(plane_src, workdir, f"plane_{mode}3", mode, PLANE_PARAMS))
+                check(rc == 0, f"profiled 2-D {mode} CLI run exited {rc}")
+
+            profiles[label] = phase_profile(torch, card, label, run, run2_s)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    del soma_np, plane_np
     launches["unfused"], run2_s = phase_main_unfused(torch, card, main_np)
     cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), fused_frangi=False)
     profiles["unfused"] = phase_profile(
         torch, card, "unfused",
         lambda: reconstruction_func(main_np, cfg, verbose=False, device=DEVICE), run2_s)
+    tiled_2d = phase_tiled_2d(torch, card)
     for mode in ("exact", "tube"):
         phase_small_agreement(torch, mode)
+    quality = phase_quality(torch, card)
     k2_ms, k2_seen = profiles["exact"]["kernels"]["K2"]
     k2.update({"device_ms_per_exact_run": k2_ms, "profiled_launches": k2_seen,
                "seed_scoring_launches": launches["exact"]["seed_scoring"]["exact_sums"],
@@ -1303,6 +1725,23 @@ def main() -> int:
           f"{json.dumps(maps)}; launches in the tube path's run 1 "
           f"{launches['tube']['conv1d_along_axis']}", flush=True)
     print(f"[unfused] {json.dumps(unfused)}", flush=True)
+    print(f"[2d] maps {json.dumps(maps_2d)}; tiled {json.dumps(tiled_2d)}; soma "
+          f"{json.dumps(soma)}; quality {json.dumps(quality)}", flush=True)
+    k2["launches_2d"] = launches["2d exact"]["exact_sums"]
+    k2["launches_soma"] = launches["soma"]["exact_sums"]
+    k2["plane"] = k2_2d
+    k2["device_ms_per_2d_run"] = profiles["2d exact"]["kernels"]["K2"]
+    k5.update({"launches_2d": launches["2d tube"]["tube_corr_trace"], "plane": k5_2d})
+    k6.update({"launches_2d": launches["2d tube"]["tube_corr_score"], "plane": k6_2d})
+    k3.update({"launches_2d": {m: launches[f"2d {m}"]["conv1d_axis"] for m in ("exact", "tube")},
+               "launches_2d_map_build": launches["2d tube"]["conv1d_along_axis"],
+               "launches_soma": launches["soma"]["conv1d_axis"], "plane": maps_2d["k3"]})
+    k3["device_ms_per_run"].update({m: profiles[m]["kernels"]["K3 (and the map build's)"]
+                                   for m in ("2d exact", "2d tube")})
+    k1["launches_soma"] = launches["soma"]["frangi3d_fused"]
+    for m in ("2d exact", "2d tube"):
+        print(f"[2d] device time per profiled {m} run (ms, launches): "
+              f"{json.dumps(profiles[m]['kernels'])} [{card}]", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.3f} s in all [{card}]", flush=True)
     kernels = [
         {"name": "frangi3d_fused", "route": "cuda",

@@ -42,7 +42,7 @@ def print_help_params() -> None:
 python -m pnr_tpu_torch -i <inimg_file> -p <neuritesigmas somaradius tolerance znccth kappa step ni np zdist nodepervol vol> [-o out.swc] [--metrics M] [--zncc-mode exact|tube] [--quiet] [--device cuda]
 inimg_file     The input image (.tif / .v3draw / .npy).
 neuritesigmas  Comma-delimited Gaussian cross-section sigmas.
-somaradius     Minimum soma radius (0: no soma detection; >0 not ported yet).
+somaradius     Minimum soma radius (0: no soma detection).
 tolerance      Local maxima tolerance (typically 10).
 znccth         Correlation threshold (0.5).
 kappa          Von Mises concentration (2).

@@ -52,7 +52,10 @@
 //
 // The caller's corners are clamped again into the field, and the tap
 // corner into [0, p - 2], so a bad input can never read outside the field.
-// Every window dimension must be >= 2 (the wrapper checks).
+// Every window dimension must be >= 2 (the wrapper checks), but for a
+// one-plane field (Z = 1, a 2-D stack): its windows have pz = 1, every
+// sample's rz is 0 (JAX's `_rel_coords` at l == 1) and it weighs plane 0
+// alone, reading nothing past it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,11 +104,13 @@ __device__ __forceinline__ float hat(float r, int k) {
 
 // Trilinear samples of the three channels at window coordinates (rz, ry,
 // rx) in the window whose element (0, 0, 0) is at `w`; pitches in elements.
+// A one-plane window (pz = 1) has one z tap, plane 0.
 template <typename E>
 __device__ __forceinline__ void sample3(const E* __restrict__ w, long long zpitch,
                                         long long ypitch, int pz, int py, int px, float rz,
                                         float ry, float rx, float out[3]) {
-  const int z0 = tap0(rz, pz), y0 = tap0(ry, py), x0 = tap0(rx, px);
+  const int nz = pz > 1 ? 2 : 1;
+  const int z0 = pz > 1 ? tap0(rz, pz) : 0, y0 = tap0(ry, py), x0 = tap0(rx, px);
   const float wz[2] = {hat(rz, z0), hat(rz, z0 + 1)};
   const float wy[2] = {hat(ry, y0), hat(ry, y0 + 1)};
   const float wx0 = hat(rx, x0), wx1 = hat(rx, x0 + 1);
@@ -114,6 +119,7 @@ __device__ __forceinline__ void sample3(const E* __restrict__ w, long long zpitc
   const E* base = w + (long long)z0 * zpitch + (long long)y0 * ypitch + 3 * x0;
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
+    if (a >= nz) break;
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const float wzy = wz[a] * wy[b];
@@ -169,8 +175,9 @@ __global__ void __launch_bounds__(kThreads)
                             p.win_hi[g][2]);
     const float ry = clampf(__fsub_rn(clampf(qy, 0.0f, p.vol_hi[1]), (float)cy), 0.0f,
                             p.win_hi[g][1]);
-    const float rz = clampf(__fsub_rn(clampf(qz, 0.0f, p.vol_hi[0]), (float)cz), 0.0f,
-                            p.win_hi[g][0]);
+    const float rz = Z == 1 ? 0.0f
+                            : clampf(__fsub_rn(clampf(qz, 0.0f, p.vol_hi[0]), (float)cz), 0.0f,
+                                     p.win_hi[g][0]);
     const E* win = field + ((long long)s * Z + cz) * zpitch + (long long)cy * ypitch + 3LL * cx;
     float m[3];
     sample3(win, zpitch, ypitch, pz, py, px, rz, ry, rx, m);

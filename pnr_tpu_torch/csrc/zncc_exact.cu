@@ -32,6 +32,10 @@
 //   block's shared memory (at sigmas (2,4,6), step 2: (56, 88, 82) u8, two
 //   slabs of 29 planes, 225 KB each at an 88-byte row pitch; at sigmas
 //   (2,3) the whole patch, 117 KB).
+// * One plane. A 2-D stack's patch has pz = 1 and `qinfo` pins rz to 0:
+//   the plan is one slab of that one plane (step 0) and a cluster of one
+//   block; a sample is the bilinear value of the plane (JAX's `trilinear`
+//   at l == 1), and no plane past it is loaded or read.
 // * Clusters. Trace t is one cluster of min(nslab, 8) blocks on
 //   neighbouring SMs; block r loads slabs r, r+8, ... one at a time. The
 //   rows of a stack of any width X start at any byte, so TMA's 16-byte
@@ -227,16 +231,18 @@ exact_sums_kernel(const unsigned char* __restrict__ vol, int Z, int Y, int X,
   const int lead_z = (int)(plane & 3), lead_y = X & 3;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ngroups = (B + kQG - 1) / kQG;
+  // a one-plane patch: one slab of one plane that owns floor 0
+  const bool flat = pz == 1;
   int iter = 0;
 
   for (int sl = rank; sl < nslab; sl += ncl) {
     const int z0 = sl * step;
-    const int zend = min(z0 + step, pz - 1);  // owned floors [z0, zend)
+    const int zend = flat ? 1 : min(z0 + step, pz - 1);  // owned floors [z0, zend)
     const float z0f = (float)z0, zendf = (float)zend;
     const unsigned char* origin = pbase + z0 * plane;
     const int lead0 = (int)(reinterpret_cast<uintptr_t>(origin) & 3);
     __syncthreads();  // the previous slab's readers are done
-    load_slab(slab, pitch, vol, total, origin, plane, X, zend - z0 + 1, py);
+    load_slab(slab, pitch, vol, total, origin, plane, X, flat ? 1 : zend - z0 + 1, py);
     __syncthreads();
 
     for (int s = 0; s < S; ++s) {
@@ -285,15 +291,20 @@ exact_sums_kernel(const unsigned char* __restrict__ vol, int Z, int Y, int X,
             const float r11a = byte_to_float(p[l00]), r11b = byte_to_float(p[l00 + 1]);
             const float r21a = byte_to_float(p[pitch + l01]);
             const float r21b = byte_to_float(p[pitch + l01 + 1]);
-            const float r12a = byte_to_float(p[splane + l10]);
-            const float r12b = byte_to_float(p[splane + l10 + 1]);
-            const float r22a = byte_to_float(p[splane + pitch + l11]);
-            const float r22b = byte_to_float(p[splane + pitch + l11 + 1]);
             const float plane1 = (1.0f - yf) * ((1.0f - xf) * r11a + xf * r11b) +
                                  yf * ((1.0f - xf) * r21a + xf * r21b);
-            const float plane2 = (1.0f - yf) * ((1.0f - xf) * r12a + xf * r12b) +
-                                 yf * ((1.0f - xf) * r22a + xf * r22b);
-            const float val = ((1.0f - zf) * plane1 + zf * plane2) - m0[q];
+            float val;
+            if (flat) {
+              val = plane1 - m0[q];
+            } else {
+              const float r12a = byte_to_float(p[splane + l10]);
+              const float r12b = byte_to_float(p[splane + l10 + 1]);
+              const float r22a = byte_to_float(p[splane + pitch + l11]);
+              const float r22b = byte_to_float(p[splane + pitch + l11 + 1]);
+              const float plane2 = (1.0f - yf) * ((1.0f - xf) * r12a + xf * r12b) +
+                                   yf * ((1.0f - xf) * r22a + xf * r22b);
+              val = ((1.0f - zf) * plane1 + zf * plane2) - m0[q];
+            }
             acc[q][0] += val;
             acc[q][1] += val * val;
             acc[q][2] += val * e.w;
@@ -361,16 +372,18 @@ extern "C" {
 
 // vol: uint8 (Z, Y, X); corner: int32 (T, 3) zyx, each patch inside vol;
 // qs: float32 (T, B, 16); tab: float32 (S, Kmax, 4) rows (v, u, w, g);
-// cnt: int32 (S,); patch (pz, py, px), every dimension >= 2, cut into
-// nslab slabs of `step` owned floors, rows of `pitch` bytes in shared
-// memory; out: float32 (T, B, S, 4).
+// cnt: int32 (S,); patch (pz, py, px), py and px >= 2, cut into nslab
+// slabs of `step` owned floors (pz >= 2), or pz = 1 with one slab of step
+// 0 (a 2-D stack); rows of `pitch` bytes in shared memory; out: float32
+// (T, B, S, 4).
 int pnr_exact_sums(const void* vol, int Z, int Y, int X, const void* corner, const void* qs,
                    int T, int B, const void* tab, const void* cnt, int S, int Kmax, int pz, int py,
                    int px, int nslab, int step, int pitch, void* out, void* stream) {
   if (T == 0 || B == 0) return 0;
-  if (pz < 2 || py < 2 || px < 2 || nslab < 1 || step < 1 || pitch < px + 3 ||
-      pitch % 4 != 0 || (long long)(nslab - 1) * step >= pz - 1 ||
-      (long long)nslab * step < pz - 1)
+  if (py < 2 || px < 2 || pitch < px + 3 || pitch % 4 != 0) return kErrPlan;
+  if (pz == 1 ? (nslab != 1 || step != 0)
+              : (pz < 2 || nslab < 1 || step < 1 || (long long)(nslab - 1) * step >= pz - 1 ||
+                 (long long)nslab * step < pz - 1))
     return kErrPlan;
   const size_t smem = smem_bytes(py, pitch, step, B, S);
   if (smem > kMaxSmem) return kErrPlan;

@@ -1,8 +1,9 @@
 """Multi-scale 3-D Frangi vesselness with principal-direction output.
 
-Port of pnr_tpu/ops/frangi.py (`frangi3d`, `_quantize_dir`,
-`normalize_to_u8`; parity target `Frangi::frangi3d`,
-pnr-vaa3d/frangi.cpp:152-289). Per voxel and scale, with
+Port of pnr_tpu/ops/frangi.py (`frangi3d`, `frangi2d`, `_quantize_dir`,
+`normalize_to_u8`; parity targets `Frangi::frangi3d`,
+pnr-vaa3d/frangi.cpp:152-289, and `Frangi::frangi2d`, :392-505). Per
+voxel and scale, with
 Ra=|l2|/|l3|, Rb=|l1|/sqrt(|l2 l3|), S=||lambda||:
 
     J = (1 - exp(-Ra^2/2a^2)) * exp(-Rb^2/2b^2) * (1 - exp(-S^2/2C^2)),
@@ -17,6 +18,10 @@ ops/hessian.py, ops/conv.py), on the CPU the plain chain; eigen,
 vesselness and merge are torch ops on either, as JAX runs them as XLA.
 `frangi3d_plain` is that plain chain on any device: the plain version
 the CUDA kernel K1 (ops/frangi_fused.py) is held to.
+
+`frangi2d` is the 2-D (single-slice) filter: `hessian2d` (its Gaussian on
+K3 on a card), then the closed-form 2 x 2 eigen-decomposition with the
+reference's eigen-axis swap, as torch ops on either device.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from typing import Sequence
 import torch
 
 from pnr_tpu_torch.ops.eig3 import eigh3x3_vessel
-from pnr_tpu_torch.ops.hessian import hessian3d, hessian3d_plain
+from pnr_tpu_torch.ops.hessian import hessian2d, hessian3d, hessian3d_plain
 
 _FLT_MIN = 1.175494e-38
 
@@ -109,6 +114,68 @@ def frangi3d_plain(
 ):
     """`frangi3d` through the plain chain on any device (K1's plain version)."""
     return _frangi3d(hessian3d_plain, vol, sigmas, zdist, alpha, beta, c, blackwhite, False)
+
+
+def frangi2d(
+    img: torch.Tensor,
+    sigmas: Sequence[float],
+    beta_one: float = 0.5,
+    beta_two: float = 15.0,
+    blackwhite: bool = False,
+    keep_first_scale: bool = False,
+):
+    """Multi-scale 2-D Frangi over a (Y, X) image on its device
+    (frangi.cpp:392-505).
+
+    Replicates the reference's eigen-axis swap (frangi.cpp:444): Lambda1
+    carries the larger |mu|; the emitted direction is the eigenvector v2
+    when the swap triggers. Returns (J, Jmin, Jmax, Vx, Vy, Vz) with
+    Vz == 0; `keep_first_scale` appends the first scale's response (see
+    `frangi3d`)."""
+    beta_term = 2.0 * beta_one * beta_one
+    c_term = 2.0 * beta_two * beta_two
+    j = jmin = v1 = None
+    out_vx = out_vy = None
+    for si, sig in enumerate(sigmas):
+        dyy, dxy, dxx = hessian2d(img, float(sig))
+        tmp = torch.sqrt((dxx - dyy) ** 2 + 4.0 * dxy * dxy)
+        v2x = 2.0 * dxy
+        v2y = dyy - dxx + tmp
+        mag = torch.sqrt(v2x * v2x + v2y * v2y)
+        safe = mag > 0
+        den = torch.where(safe, mag, torch.ones_like(mag))
+        v2x = torch.where(safe, v2x / den, v2x)
+        v2y = torch.where(safe, v2y / den, v2y)
+        v1x, v1y = -v2y, v2x
+        mu1 = 0.5 * (dxx + dyy + tmp)
+        mu2 = 0.5 * (dxx + dyy - tmp)
+        check = mu1.abs() < mu2.abs()
+        lam1 = torch.where(check, mu2, mu1)
+        lam2 = torch.where(check, mu1, mu2)
+        vecx = torch.where(check, v2x, v1x)
+        vecy = torch.where(check, v2y, v1y)
+        lam1 = torch.where(lam1 == 0, torch.full_like(lam1, _FLT_MIN), lam1)
+        rb = (lam2 / lam1) ** 2
+        s2 = lam1 * lam1 + lam2 * lam2
+        v = torch.exp(-rb / beta_term) * (1.0 - torch.exp(-s2 / c_term))
+        gate = (lam1 < 0) if blackwhite else (lam1 > 0)
+        v = torch.where(gate, torch.zeros_like(v), v)
+        vecn = torch.sqrt(vecx * vecx + vecy * vecy)
+        vecn = torch.where(vecn > 0, vecn, torch.ones_like(vecn))
+        qx, qy = _quantize_dir(vecx / vecn), _quantize_dir(vecy / vecn)
+        if si == 0:
+            j, jmin = v, v.min()
+            v1 = v if keep_first_scale else None
+            out_vx, out_vy = qx, qy
+        else:
+            upd = v > j
+            j = torch.where(upd, v, j)
+            out_vx = torch.where(upd, qx, out_vx)
+            out_vy = torch.where(upd, qy, out_vy)
+    out_vz = torch.zeros_like(out_vx)
+    if keep_first_scale:
+        return j, jmin, j.max(), out_vx, out_vy, out_vz, v1
+    return j, jmin, j.max(), out_vx, out_vy, out_vz
 
 
 def normalize_to_u8(j: torch.Tensor, jmin: torch.Tensor, jmax: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Tiled and Z-blocked Frangi for stacks whose working set exceeds the card.
 
 Port of pnr_tpu/ops/frangi_blocked.py (`frangi_halo_z`, `frangi_halo_y`,
-`pick_blocks`, `frangi3d_tiled`, `frangi3d_blocked`). Each engine runs the
+`pick_blocks`, `frangi3d_tiled`, `frangi3d_blocked`, `pick_blocks_2d`,
+`frangi2d_tiled`). Each 3-D engine runs the
 unfused `frangi3d` (ops/frangi.py: K4 and K3 on a card, the plain chain
 on the CPU) on overlapping tiles, so peak memory is the outputs plus one
 tile's working set, and returns what `frangi3d` returns on the whole
@@ -12,7 +13,8 @@ Where JAX carries the outputs through a `fori_loop` (`frangi3d_tiled`)
 or stacks `lax.map` tiles (`frangi3d_blocked`), the port runs a Python
 loop over the tiles and writes each kept block in place into outputs
 allocated once; Jmin and Jmax stay 0-d tensors on the device.
-`frangi2d_tiled` and `pick_blocks_2d` wait for the 2-D path.
+`frangi2d_tiled` does the same for the 2-D filter (`frangi2d`) on a
+(Y, X) image tiled along both axes.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from pnr_tpu_torch.ops.frangi import frangi3d
+from pnr_tpu_torch.ops.frangi import frangi2d, frangi3d
 
 
 def frangi_halo_z(sigmas, zdist) -> int:
@@ -55,6 +57,63 @@ def pick_blocks(
     if (min(bz, z) + 2 * hz) * (min(by, y) + 2 * hy) * x > tile_vox_budget * 1.5:
         return None
     return bz, by
+
+
+def pick_blocks_2d(
+    shape_yx: Tuple[int, int],
+    sigmas: Tuple[float, ...],
+    tile_pix_budget: int = 32 * 1024 * 1024,
+):
+    """(block_y, block_x) for `frangi2d_tiled` with a ~32-Mpix tile (JAX's
+    budget)."""
+    h = frangi_halo_y(sigmas)
+    y, x = shape_yx
+    side = max(256, int(tile_pix_budget**0.5) - 2 * h)
+    by = min(y, side)
+    bx = min(x, max(256, tile_pix_budget // (by + 2 * h) - 2 * h))
+    return by, bx
+
+
+def frangi2d_tiled(
+    img: torch.Tensor,
+    sigmas: Tuple[float, ...],
+    beta_one: float = 0.5,
+    beta_two: float = 15.0,
+    block_y: int = 4096,
+    block_x: int = 4096,
+):
+    """2-axis tiled 2-D Frangi over a (Y, X) image, bitwise `frangi2d`
+    (borders included), with O(outputs + tile) peak memory: the aligned
+    windows of `frangi3d_tiled` along y and x (halo `frangi_halo_y`).
+    Returns (J, Jmin, Jmax, Vx, Vy); the caller adds the zero Vz."""
+    y, x = img.shape
+    h = frangi_halo_y(sigmas)
+    by, bx = min(block_y, y), min(block_x, x)
+    wy, wx = min(by + 2 * h, y), min(bx + 2 * h, x)
+    ny, nx = -(-y // by), -(-x // bx)
+    if ny * nx == 1:
+        return frangi2d(img, sigmas, beta_one, beta_two)[:5]
+
+    j, jmin, jmax, vx, vy, _ = _outputs((y, x), img.device)
+    for i in range(ny * nx):
+        iy, ix = divmod(i, nx)
+        y0 = min(iy * by, y - by)
+        x0 = min(ix * bx, x - bx)
+        sy = min(max(y0 - h, 0), y - wy)
+        sx = min(max(x0 - h, 0), x - wx)
+        tile = img[sy : sy + wy, sx : sx + wx].contiguous()
+        jt, _, _, vxt, vyt, _, v1 = frangi2d(tile, sigmas, beta_one, beta_two,
+                                             keep_first_scale=True)
+        keep = (slice(y0 - sy, y0 - sy + by), slice(x0 - sx, x0 - sx + bx))
+        out = (slice(y0, y0 + by), slice(x0, x0 + bx))
+        jc = jt[keep]
+        j[out] = jc
+        # Jmin reduces the first-scale response over the kept block, which
+        # is bitwise the monolithic first-scale response there
+        jmin = torch.minimum(jmin, v1[keep].min())
+        jmax = torch.maximum(jmax, jc.max())
+        vx[out], vy[out] = vxt[keep], vyt[keep]
+    return j, jmin, jmax, vx, vy
 
 
 def _outputs(shape, device):

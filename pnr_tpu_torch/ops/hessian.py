@@ -1,7 +1,8 @@
 """Hessian of the Gaussian-smoothed volume via repeated first differences.
 
-Port of pnr_tpu/ops/hessian.py (`hessian3d`; parity target
-`Frangi::hessian3d`, pnr-vaa3d/frangi.cpp:291-390): each second
+Port of pnr_tpu/ops/hessian.py (`hessian3d`, `hessian2d`; parity targets
+`Frangi::hessian3d`, pnr-vaa3d/frangi.cpp:291-390, and `hessian2d`,
+:507-561): each second
 derivative is the first-difference operator applied twice (central
 differences in the interior, one-sided at the borders, i.e.
 `jnp.gradient` semantics), scaled by sigma^2. Cross terms derive from the
@@ -13,6 +14,9 @@ runs the TPU branch, nine K3 launches (ops/conv.py) with the taps
 g1 = (-0.5, 0, 0.5) and g2 = sigma^2 * g1 and `grad_border`, in JAX's
 order; a CPU tensor runs `hessian3d_plain`, the `gradient` * sigma^2
 chain that JAX computes on the CPU.
+
+`hessian2d` is JAX's on every backend: `imgaussian2d` (K3 on a card, the
+shift-and-add on the CPU), then `gradient` twice and * sigma^2.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Tuple
 import torch
 
 from pnr_tpu_torch.ops.conv import conv1d_axis
-from pnr_tpu_torch.ops.gaussian import imgaussian3d, imgaussian3d_plain
+from pnr_tpu_torch.ops.gaussian import imgaussian2d, imgaussian3d, imgaussian3d_plain
 
 
 def gradient(f: torch.Tensor, axis: int) -> torch.Tensor:
@@ -82,3 +86,16 @@ def hessian3d_plain(vol: torch.Tensor, sigma: float, zdist: float) -> Tuple[torc
     dxy = gradient(dx, 1) * s2
     dxz = gradient(dx, 0) * s2
     return dzz, dyy, dyz, dxx, dxy, dxz
+
+
+def hessian2d(img: torch.Tensor, sigma: float) -> Tuple[torch.Tensor, ...]:
+    """Scaled Hessian components of a (Y, X) image on its device:
+    (Dyy, Dxy, Dxx), each * sigma^2."""
+    f = imgaussian2d(img, sigma)
+    s2 = float(sigma) * float(sigma)
+    dy = gradient(f, 0)
+    dyy = gradient(dy, 0) * s2
+    dx = gradient(f, 1)
+    dxx = gradient(dx, 1) * s2
+    dxy = gradient(dx, 0) * s2
+    return dyy, dxy, dxx

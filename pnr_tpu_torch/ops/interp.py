@@ -4,7 +4,8 @@ Port of pnr_tpu/ops/interp.py `trilinear` (parity target
 `Tracker::interp`, pnr-vaa3d/tracker.cpp:2138-2215): coordinates are
 clamped to [0, dim-1.001] before the floor, so both gather corners stay
 in range and out-of-volume queries sample the nearest edge. The eight
-corners are read with one flat gather each.
+corners are read with one flat gather each. A one-plane volume (l == 1)
+ignores z and samples bilinearly, in JAX's order of operations.
 """
 
 from __future__ import annotations
@@ -29,6 +30,12 @@ def trilinear(vol: torch.Tensor, x: torch.Tensor, y: torch.Tensor, z: torch.Tens
     yc = torch.clamp(y, 0.0, h - 1.001)
     y1 = torch.floor(yc)
     yf = yc - y1
+    if l == 1:
+        i0 = y1.long() * w + x1.long()
+        r1a, r1b = torch.gather(flat, 1, i0), torch.gather(flat, 1, i0 + 1)
+        r2a, r2b = torch.gather(flat, 1, i0 + w), torch.gather(flat, 1, i0 + w + 1)
+        out = (1 - yf) * ((1 - xf) * r1a + xf * r1b) + yf * ((1 - xf) * r2a + xf * r2b)
+        return out.reshape(shape)
     zc = torch.clamp(z, 0.0, l - 1.001)
     z1 = torch.floor(zc)
     zf = zc - z1

@@ -111,7 +111,7 @@ def corr_from_sums(tables: TubeTables, s1, s2, s3):
 def rel_coords(tables: TubeTables, vdims, pdims, corner, pos, dirs, g0, g1) -> torch.Tensor:
     """(T, g1-g0, N*NV, 4) rows (rz, ry, rx, 0): the samples p + v*dir of
     sigmas [g0, g1), clamped to the volume, then into the (pz, py, px)
-    window at `corner` (T, 3) zyx."""
+    window at `corner` (T, 3) zyx; rz is 0 on a one-plane volume."""
     l, h, w = vdims
     pz, py, px = pdims
     t, n = pos.shape[:2]
@@ -122,7 +122,10 @@ def rel_coords(tables: TubeTables, vdims, pdims, corner, pos, dirs, g0, g1) -> t
     cf = corner.to(torch.float32)[:, None, None, :]
     rx = torch.clamp(torch.clamp(pts[..., 0], 0.0, w - 1.001) - cf[..., 2], 0.0, px - 1.001)
     ry = torch.clamp(torch.clamp(pts[..., 1], 0.0, h - 1.001) - cf[..., 1], 0.0, py - 1.001)
-    rz = torch.clamp(torch.clamp(pts[..., 2], 0.0, l - 1.001) - cf[..., 0], 0.0, pz - 1.001)
+    if l == 1:
+        rz = torch.zeros_like(rx)
+    else:
+        rz = torch.clamp(torch.clamp(pts[..., 2], 0.0, l - 1.001) - cf[..., 0], 0.0, pz - 1.001)
     return torch.stack([rz, ry, rx, torch.zeros_like(rx)], dim=-1)
 
 
@@ -252,8 +255,11 @@ class KernelParams:
             p.vol_hi[i] = float(np.float32(d - 1.001))
         covered = []
         for g, (g0, g1, pdims) in enumerate(groups):
-            if min(pdims) < 2:
-                raise ValueError(f"tube_corr needs every window dimension >= 2, got {tuple(pdims)}")
+            # a window is >= 2 in every dimension, but for pz = 1 on a
+            # one-plane volume
+            if min(pdims[1:]) < 2 or pdims[0] < (1 if vdims[0] == 1 else 2):
+                raise ValueError(f"tube_corr needs every window dimension >= 2 (pz = 1 only on a "
+                                 f"one-plane volume), got {tuple(pdims)} in {tuple(vdims)}")
             if any(pd > d for pd, d in zip(pdims, vdims)):
                 raise ValueError(f"window {tuple(pdims)} exceeds the volume {tuple(vdims)}")
             for i, pd in enumerate(pdims):

@@ -109,7 +109,9 @@ class SlabPlan(NamedTuple):
     """The z slabs of a (pz, py, px) patch: slab i owns the sample floors
     z1 in [i*step, min((i+1)*step, pz-1)) and holds planes i*step ..
     min((i+1)*step, pz-1), one plane past what it owns; rows are `pitch`
-    bytes in shared memory."""
+    bytes in shared memory. A one-plane patch (pz == 1, a 2-D stack) has
+    one slab with step 0: it holds the plane and owns floor 0, and its
+    samples are bilinear in that plane."""
 
     nz: int
     step: int
@@ -117,6 +119,8 @@ class SlabPlan(NamedTuple):
 
     def bounds(self, pz: int):
         """[(first owned floor, end of owned floors)] per slab."""
+        if pz == 1:
+            return [(0, 1)]
         return [(i * self.step, min((i + 1) * self.step, pz - 1)) for i in range(self.nz)]
 
 
@@ -129,11 +133,17 @@ def row_pitch(px: int) -> int:
 
 def slab_plan(patch_shape, budget: int) -> SlabPlan:
     """Cut the patch into the fewest z slabs of at most `budget` bytes of
-    shared memory each, as even as whole planes allow."""
+    shared memory each, as even as whole planes allow; a one-plane patch
+    is one slab of one plane (one block a cluster)."""
     pz, py, px = (int(d) for d in patch_shape)
-    if min(pz, py, px) < 2:
-        raise ValueError(f"exact_sums needs every patch dimension >= 2, got {(pz, py, px)}")
+    if min(py, px) < 2 or pz < 1:
+        raise ValueError(f"exact_sums needs py, px >= 2 and pz >= 1, got {(pz, py, px)}")
     pitch = row_pitch(px)
+    if pz == 1:
+        if py * pitch > int(budget):
+            raise ValueError(f"the plane of the patch {(pz, py, px)} needs {py * pitch} bytes, "
+                             f"the budget is {budget}")
+        return SlabPlan(nz=1, step=0, pitch=pitch)
     planes = int(budget) // (py * pitch)
     if planes < 2:
         raise ValueError(
@@ -341,10 +351,7 @@ class ExactPatchEngine:
         self, templates: ZnccTemplates, step: float, device,
         tables: TemplateTables = None,
     ):
-        if templates.is2d:
-            raise NotImplementedError(
-                "2-D stacks are not ported yet (ROADMAP.md, port queue: 2-D)"
-            )
+        self.is2d = templates.is2d
         self.tables = tables if tables is not None else template_tables(templates, device)
         # patch reach (build_exact_bank): template extent upper bounds
         rz_max = rxy_max = 1.0
@@ -360,13 +367,13 @@ class ExactPatchEngine:
 
     def dims(self, vol_shape) -> Tuple[int, int, int]:
         """Patch (pz, py, px); py keeps the JAX engine's multiple of 8 so
-        both packages cut the same patches."""
+        both packages cut the same patches; one plane on a 2-D stack."""
         l, h, w = vol_shape[-3:]
         half_xy = self.allow + self.reach_xy
         half_z = self.allow + self.reach_z
         py = min(_roundup(2 * half_xy + 2, 8), h)
         px = min(2 * half_xy + 2, w)
-        pz = min(2 * half_z + 2, l)
+        pz = 1 if l == 1 else min(2 * half_z + 2, l)
         return pz, py, px
 
     def corners(self, vol_shape, center: torch.Tensor) -> torch.Tensor:
@@ -383,7 +390,7 @@ class ExactPatchEngine:
         l, h, w = (int(d) for d in vol.shape)
         pz, py, px = self.dims(vol.shape)
         vx, vy, vz = dirs[..., 0], dirs[..., 1], dirs[..., 2]
-        u, wv = local_frame(vx, vy, vz, False)
+        u, wv = local_frame(vx, vy, vz, self.is2d)
         cf = corner.to(torch.float32)
         rzp = pos[..., 2] - cf[:, None, 0]
         ryp = pos[..., 1] - cf[:, None, 1]
@@ -391,6 +398,10 @@ class ExactPatchEngine:
         zhi = torch.clamp((l - 1.001) - cf[:, 0], max=pz - 1.001)[:, None]
         yhi = torch.clamp((h - 1.001) - cf[:, 1], max=py - 1.001)[:, None]
         xhi = torch.clamp((w - 1.001) - cf[:, 2], max=px - 1.001)[:, None]
+        if l == 1:
+            # one plane: every sample lies in it (JAX's _qinfo)
+            rzp = torch.zeros_like(rzp)
+            zhi = torch.zeros_like(zhi)
         # m0: the volume value at the particle, inside its patch
         ci = corner.long()
         pzi = torch.clamp(torch.round(rzp).long(), 0, pz - 1) + ci[:, None, 0]

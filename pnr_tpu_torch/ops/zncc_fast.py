@@ -66,23 +66,24 @@ def field_from_numpy(maps: np.ndarray, device) -> torch.Tensor:
 # -- map builds ---------------------------------------------------------
 
 
-def _separable(vol: torch.Tensor, k, conv) -> torch.Tensor:
-    """x, then y, then z correlation with the same 1-D kernel."""
-    return conv(conv(conv(vol, k, 2), k, 1), k, 0)
+def _separable(vol: torch.Tensor, k, conv, is2d: bool) -> torch.Tensor:
+    """x, then y, then (but for a 2-D model) z correlation with the same
+    1-D kernel."""
+    v = conv(conv(vol, k, 2), k, 1)
+    return v if is2d else conv(v, k, 0)
 
 
 def _tube_map_planes(img: torch.Tensor, model: TubeZnccModel, conv=conv1d_along_axis):
-    """Per-sigma (M1, M2, M3) float32 map volumes of a (Z, Y, X) volume."""
-    if model.is2d:
-        raise NotImplementedError("2-D stacks are not ported yet (ROADMAP.md, port queue: 2-D)")
+    """Per-sigma (M1, M2, M3) float32 map volumes of a (Z, Y, X) volume;
+    a 2-D model (a one-plane volume) correlates along y and x only."""
     f = img.to(torch.float32)
     f2 = f * f
     for i in range(len(model.sigmas)):
         box = np.ones(2 * model.box_half[i] + 1, np.float32)
         yield (
-            _separable(f, model.gauss_kernels[i], conv),
-            _separable(f, box, conv),
-            _separable(f2, box, conv),
+            _separable(f, model.gauss_kernels[i], conv, model.is2d),
+            _separable(f, box, conv, model.is2d),
+            _separable(f2, box, conv, model.is2d),
         )
 
 
@@ -215,8 +216,6 @@ class TubePatchEngine:
         self, model: TubeZnccModel, step: float, zdist: float = 1.0, reuse: int = 1,
         device="cuda", tables: TubeTables = None,
     ):
-        if model.is2d:
-            raise NotImplementedError("2-D stacks are not ported yet (ROADMAP.md, port queue: 2-D)")
         self.tables = tables if tables is not None else tube_tables(model, device)
         self.s_count = len(model.sigmas)
         self.nv = max(len(v) for v in model.v_grids)
@@ -230,9 +229,11 @@ class TubePatchEngine:
     vol_dims = staticmethod(vol_dims)
 
     def dims(self, vol_dims) -> Tuple[int, int, int]:
-        """The sigma_max window in every axis (eval_fused's)."""
+        """The sigma_max window in every axis (eval_fused's); one plane on
+        a one-plane volume."""
+        l, h, w = vol_dims
         ext = _ext(self.half)
-        return tuple(int(min(ext, d)) for d in vol_dims)
+        return 1 if l == 1 else int(min(ext, l)), int(min(ext, h)), int(min(ext, w))
 
     def groups(self, vol_dims):
         """[(g0, g1, (pz, py, px))]: contiguous sigma runs sharing window dims."""
@@ -241,7 +242,7 @@ class TubePatchEngine:
         for v2 in self.v2_per_sigma:
             ez = _ext(self.cloud_z + v2 + 1)
             exy = _ext(self.cloud_xy + v2 + 1)
-            dims.append((int(min(ez, l)), int(min(exy, h)), int(min(exy, w))))
+            dims.append((1 if l == 1 else int(min(ez, l)), int(min(exy, h)), int(min(exy, w))))
         out, g0 = [], 0
         for i in range(1, self.s_count + 1):
             if i == self.s_count or dims[i] != dims[g0]:

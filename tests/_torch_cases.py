@@ -215,3 +215,38 @@ ENGINE_CASES = {
     # h and w under the window: the windows are clipped to the volume
     "degenerate": ((20, 12, 14), (2.0, 3.0), 1, False),
 }
+
+
+# 2-D (one-plane) stacks
+
+
+def plane_tube(shape=(1, 72, 96), radius=2.5, seed=4, angle=0.35):
+    """A noisy bright line across a single plane, at `angle` to x."""
+    rng = np.random.default_rng(seed)
+    _, y, x = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
+    cy, cx = shape[1] / 2.0, shape[2] / 2.0
+    d = (y - cy) * np.cos(angle) - (x - cx) * np.sin(angle)
+    vol = 200.0 * np.exp(-d * d / (2 * radius**2)) * (0.75 + 0.25 * np.sin(x / 5.0))
+    return np.clip(vol + rng.normal(0, 4, shape), 0, 255).astype(np.uint8)
+
+
+def queries_2d(shape, t=T, n=B, seed=0, edges=False):
+    """`queries` in the plane: t clouds of n particles within 4 pixels of
+    centres spread over the plane (the first two on opposite corners; with
+    `edges`, every centre on a corner or an edge), z = 0, directions in
+    the xy plane."""
+    rng = np.random.default_rng(seed)
+    _, h, w = shape
+    centre = np.stack([rng.uniform(0, w - 1, t), rng.uniform(0, h - 1, t)], -1)
+    centre[0] = (0.0, 0.0)
+    if t > 1:
+        centre[1] = (w - 1.0, h - 1.0)
+    if edges:
+        for i in range(t):
+            centre[i] = [(w - 1) * (i % 2), (h - 1) * ((i // 2) % 2)] if i % 3 else \
+                [(w - 1) * (i % 2), centre[i, 1]]
+    xy = centre[:, None, :] + rng.uniform(-4, 4, (t, n, 2))
+    pos = np.concatenate([xy, np.zeros((t, n, 1))], -1)
+    a = rng.uniform(0, 2 * np.pi, (t, n))
+    d = np.stack([np.cos(a), np.sin(a), np.zeros_like(a)], -1)
+    return pos.astype(np.float32), d.astype(np.float32)

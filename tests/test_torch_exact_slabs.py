@@ -83,11 +83,29 @@ def test_slab_plan_sweep():
             assert plan.nz == -(-(pz - 1) // (planes - 1))
 
 
+@pytest.mark.parametrize("py", [2, 3, 17, 64])
+@pytest.mark.parametrize("px", [2, 3, 17, 64])
+def test_slab_plan_of_one_plane(py, px):
+    """A one-plane patch (a 2-D stack) is one slab of one plane, step 0,
+    owning floor 0; its shared memory is the plane."""
+    plan = slab_plan((1, py, px), 232_448)
+    assert (plan.nz, plan.step, plan.pitch) == (1, 0, row_pitch(px))
+    assert plan.bounds(1) == [(0, 1)]
+    kp = kernel_plan((1, py, px), 20, 3)
+    assert (kp.nz, kp.step) == (1, 0)
+    assert smem_bytes(kp, py, 20, 3) == (-(-py * kp.pitch // 16) * 16 + zncc_exact._RED_BYTES
+                                        + 12 * 20 * 3 + 4 * 16 * 20)
+
+
 def test_slab_plan_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match=">= 2"):
-        slab_plan((1, 8, 8), 10_000)
+        slab_plan((8, 1, 8), 10_000)
     with pytest.raises(ValueError, match=">= 2"):
         slab_plan((8, 8, 1), 10_000)
+    with pytest.raises(ValueError, match=">= 2"):
+        slab_plan((1, 8, 1), 10_000)
+    with pytest.raises(ValueError, match="plane of the patch"):
+        slab_plan((1, 8, 8), 8 * 12 - 1)
     with pytest.raises(ValueError, match="two planes"):
         slab_plan((8, 8, 8), 2 * 8 * 12 - 1)
 

@@ -18,9 +18,11 @@ PORT_MODULES = (
     "pnr_tpu_torch",
     "pnr_tpu_torch.__main__",
     "pnr_tpu_torch.cli",
+    "pnr_tpu_torch.compare",
     "pnr_tpu_torch.config",
     "pnr_tpu_torch.utils.runtime",
     "pnr_tpu_torch.utils.exporters",
+    "pnr_tpu_torch.utils.swc_compare",
     "pnr_tpu_torch.native",
     "pnr_tpu_torch.hostpath.threefry",
     "pnr_tpu_torch.io.volume",
@@ -38,6 +40,8 @@ PORT_MODULES = (
     "pnr_tpu_torch.ops.frangi",
     "pnr_tpu_torch.ops.frangi_fused",
     "pnr_tpu_torch.ops.frangi_blocked",
+    "pnr_tpu_torch.ops.morphology",
+    "pnr_tpu_torch.ops.thresholds",
     "pnr_tpu_torch.ops.interp",
     "pnr_tpu_torch.ops.zncc",
     "pnr_tpu_torch.ops.zncc_model",
@@ -78,10 +82,12 @@ def test_port_imports_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "pnr_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "pnr_tpu_torch", "tests/_torch_phantoms.py",
+                                  "tests/_torch_cases.py"])
 def test_sources_import_no_reference_module(path):
-    """No import statement of chip_smoke.py or the port names jax or
-    pnr_tpu, not even inside a function."""
+    """No import statement of chip_smoke.py, the port, or the jax-free
+    test helpers that chip_smoke.py and the card tests import names jax
+    or pnr_tpu, not even inside a function."""
     root = os.path.join(REPO, path)
     files = [root] if root.endswith(".py") else [
         os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")

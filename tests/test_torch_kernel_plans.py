@@ -171,6 +171,10 @@ CONV_PLAN_CASES = {
     "long_taps_vec4": ((9, 12, 136), 127),
     "one_tap": ((5, 7, 130), 1),
     "tiny": ((2, 2, 2), 37),
+    # one plane (a 2-D stack): the soma and 2-D Gaussians and the 2-D map
+    # build run K3 along y and x only
+    "one_plane_vec4": ((1, 40, 64), 25),
+    "one_plane_odd": ((1, 23, 37), 13),
 }
 
 
@@ -205,6 +209,36 @@ def test_k3_plan_shared_memory_and_limits():
     assert conv.conv1d_plan((128, 640, 640), 0, 19, True).grid == (16, 5, 160)
     assert conv.conv1d_plan((128, 640, 640), 1, 3, False).grid == (80, 20, 32)
     assert not conv.conv1d_plan((4, 70000, 70000), 0, 3, True).ok
+
+
+def test_k3_plan_of_a_4096_plane():
+    """The 2-D main stack's plane (1, 4096, 4096): y and x grids within
+    the card's limits, one z block."""
+    y = conv.conv1d_plan((1, 4096, 4096), 1, 25, True)
+    x = conv.conv1d_plan((1, 4096, 4096), 2, 25, True)
+    assert y.ok and x.ok
+    assert y.grid == (512, 32, 1) and x.grid == (32, 512, 1)
+
+
+def test_tube_corr_takes_one_plane_windows_only_on_a_one_plane_volume():
+    """`KernelParams` accepts pz = 1 where the volume has one plane (the
+    2-D tube engine's windows) and refuses it on a 3-D volume, and
+    refuses py or px under 2 on either."""
+    from pnr_tpu_torch.ops import tube_corr as tc
+    from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine
+
+    eng = TubePatchEngine(TubeZnccModel((2.0, 4.0, 6.0), True), 2.0, 1.0, device="cpu")
+    plane = (1, 4096, 4096)
+    groups = eng.groups(plane)
+    assert all(g[2][0] == 1 for g in groups) and eng.dims(plane)[0] == 1
+    p = tc.KernelParams(eng.tables, groups, plane, "cpu")
+    assert [tuple(p.struct.win[g])[0] for g in range(len(groups))] == [1] * len(groups)
+    assert p.field_shape == (3, 1, 4096, 3 * 4096)
+    with pytest.raises(ValueError, match="one-plane"):
+        tc.KernelParams(eng.tables, [(0, 3, (1, 24, 24))], (8, 64, 64), "cpu")
+    for bad in ((1, 1, 24), (1, 24, 1)):
+        with pytest.raises(ValueError, match=">= 2"):
+            tc.KernelParams(eng.tables, [(0, 3, bad)], plane, "cpu")
 
 
 def test_map_build_kernels_fit_k3():

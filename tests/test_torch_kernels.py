@@ -9,7 +9,10 @@ slabs and tiles bitwise the whole) with the unfused and tiled Frangi
 engines on them, the C side's launch plans against ops/frangi_fused.py's
 and ops/conv.py's, K7's build-and-launch check, the tube map build's 1-D
 correlation, `tube_corr` (the tube likelihood, K5's and K6's
-counterpart), and the main paths on a small stack.
+counterpart), and the main paths on a small stack; and the 2-D
+(one-plane) and soma routes: K2 on a one-plane patch, `tube_corr` on
+one-plane windows, K3 on (1, Y, X) along y and x, the soma stage, and the
+2-D and soma paths on small stacks.
 
 Every test here needs a CUDA device (the kernels have no CPU mode): they
 carry the `cuda` marker and skip without one. The file imports no jax, so
@@ -36,7 +39,9 @@ from _torch_cases import (
     ZNCC_VOLUMES,
     as_numpy,
     noisy_tube,
+    plane_tube,
     queries,
+    queries_2d,
     tube,
     tube_queries,
 )
@@ -501,7 +506,7 @@ def test_exact_sums_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         exact_sums(vol.transpose(1, 2), corner, qs, eng.tables, dims)
     with pytest.raises(ValueError, match=">= 2"):
-        exact_sums(vol, corner, qs, eng.tables, (1, dims[1], dims[2]))
+        exact_sums(vol, corner, qs, eng.tables, (dims[0], 1, dims[2]))
     with pytest.raises(ValueError, match="two planes"):
         exact_sums(vol, corner, qs, eng.tables, dims, slab_budget=100)
     assert zncc_exact.LAUNCHES == n
@@ -706,3 +711,196 @@ def test_tube_corr_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="CUDA tensor"):
         tube_corr.tube_corr(field, groups, corners, pos.cpu(), pos, tables)
     assert launches() == n
+
+
+# the 2-D (one-plane) and soma routes
+
+
+def plane_exact_case(dev, shape, b, edges=False, t=None):
+    vol = torch.from_numpy(plane_tube(shape, seed=5)).to(dev)
+    kw = {} if t is None else {"t": t}
+    pos, d = (torch.from_numpy(a).to(dev) for a in queries_2d(shape, n=b, edges=edges, **kw))
+    eng = ExactPatchEngine(ZnccTemplates((2.0, 4.0, 6.0), is2d=True), STEP, dev)
+    corner = eng.corners(vol.shape, pos.mean(dim=1))
+    return vol, corner, eng.qinfo(vol, corner, pos, d), eng
+
+
+@pytest.mark.parametrize("py", [2, 3, 17, 64])
+@pytest.mark.parametrize("px", [2, 3, 17, 64])
+def test_exact_sums_kernel_one_plane_matches_plain(dev, py, px):
+    """K2 on a one-plane patch (pz = 1): a plane no larger than the
+    patch, so the patch is the whole plane and every query sits at its
+    border; bitwise over two launches."""
+    vol, corner, qs, eng = plane_exact_case(dev, (1, py, px), B, edges=True)
+    dims = eng.dims(vol.shape)
+    assert dims == (1, py, px)
+    n = zncc_exact.LAUNCHES
+    kern = exact_sums(vol, corner, qs, eng.tables, dims)
+    assert zncc_exact.LAUNCHES == n + 1
+    check_exact(eng, kern, exact_sums_plain(vol, corner, qs, eng.tables, dims))
+    assert torch.equal(kern, exact_sums(vol, corner, qs, eng.tables, dims))
+
+
+@pytest.mark.parametrize("b", [1, B])
+@pytest.mark.parametrize("t", [3, 128])
+def test_exact_sums_kernel_one_plane_large_matches_plain(dev, b, t):
+    """Patches inside a (1, 200, 300) plane and on its borders."""
+    vol, corner, qs, eng = plane_exact_case(dev, (1, 200, 300), b, edges=True, t=t)
+    dims = eng.dims(vol.shape)
+    assert dims[0] == 1 and zncc_exact.kernel_plan(dims, b, 3).nz == 1
+    kern = exact_sums(vol, corner, qs, eng.tables, dims)
+    check_exact(eng, kern, exact_sums_plain(vol, corner, qs, eng.tables, dims))
+    assert torch.equal(kern, exact_sums(vol, corner, qs, eng.tables, dims))
+
+
+PLANE_TUBE_CASES = {
+    "plane": ((1, 64, 96), (2.0, 3.0), 1),
+    "plane_reuse3": ((1, 64, 96), (2.0, 3.0), 3),
+    "plane_2_4_6": ((1, 80, 120), (2.0, 4.0, 6.0), 1),
+    "plane_small": ((1, 12, 14), (2.0, 3.0), 1),
+}
+
+
+@pytest.mark.parametrize("dtype", list(TUBE_DTYPES))
+@pytest.mark.parametrize("case", list(PLANE_TUBE_CASES))
+def test_tube_corr_one_plane_matches_plain(dev, case, dtype):
+    """tube_corr on one-plane windows (pz = 1) of a (S, 1, Y, 3X) field,
+    with clouds on the plane's corners and edges, so that the field's last
+    row and column are read: the tracer's group windows and seed
+    scoring's windows."""
+    shape, sigmas, reuse = PLANE_TUBE_CASES[case]
+    model = TubeZnccModel(sigmas, True)
+    vol = torch.from_numpy(plane_tube(shape, seed=11)).to(dev)
+    field = build_tube_maps_packed(vol, model).to(TUBE_DTYPES[dtype])
+    eng = TubePatchEngine(model, STEP, 1.0, reuse=reuse, device=dev)
+    pos, d = (torch.from_numpy(a).to(dev) for a in queries_2d(shape, t=6, n=15, edges=True))
+    corners = eng.window(field, pos.mean(dim=1))
+    lay = eng.layout(field)
+    assert all(g[2][0] == 1 for g in lay.groups)
+    # the windows reach the field's last row and last column
+    hi = corners.long() + torch.tensor([g[2] for g in lay.groups], device=dev)
+    assert int(hi[..., 1].max()) == shape[1] and int(hi[..., 2].max()) == shape[2]
+    out, ksums = tube_corr.tube_corr(field, lay.groups, corners, pos, d, eng.tables, lay.params,
+                                     with_sums=True)
+    pc, ps, psums = tube_corr.tube_corr_plain(field, lay.groups, corners, pos, d, eng.tables)
+    check_samples(ksums, psums)
+    check_corr((out[0], out[1]), (pc, ps))
+    p1, d1 = pos[:, :1].contiguous(), d[:, :1].contiguous()
+    single = dtype == "f32"
+    lay1 = eng.layout(field, single)
+    c1 = eng.window(field, p1[:, 0], single)
+    kc, ks = eng.eval_fused(field, p1, d1)
+    pc1, ps1, _ = tube_corr.tube_corr_plain(field, lay1.groups, c1, p1, d1, eng.tables)
+    check_corr((kc, ks), (pc1, ps1))
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("taps", [3, 13, 25, 37])
+@pytest.mark.parametrize("shape", [(1, 40, 64), (1, 23, 37), (1, 2, 130)])
+def test_conv1d_axis_kernel_one_plane_matches_plain(dev, shape, taps, dtype):
+    """K3 on a (1, Y, X) plane along y and along x, from uint8 and float32
+    (the soma and 2-D Gaussians, the 2-D map build)."""
+    v = torch.from_numpy(plane_tube(shape, seed=3)).to(dev)
+    if dtype == "f32":
+        v = v.to(torch.float32) * 0.37
+    k = gaussian_kernel((taps // 2) / 3.0)
+    assert len(k) == taps
+    for axis in (1, 2):
+        check_conv(conv.conv1d_axis(v, k, axis), conv.conv1d_axis_plain(v, k, axis))
+
+
+def test_plane_map_build_kernel_matches_plain(dev):
+    vol = torch.from_numpy(plane_tube((1, 80, 120), seed=2)).to(dev)
+    model = TubeZnccModel((2.0, 4.0, 6.0), True)
+    n = gaussian.LAUNCHES
+    kern = build_tube_maps_packed(vol, model)
+    # y and x passes only: 6 launches a sigma
+    assert gaussian.LAUNCHES == n + 18
+    check_samples(kern.reshape(*kern.shape[:3], -1, 3), build_tube_maps_packed_plain(
+        vol, model).reshape(*kern.shape[:3], -1, 3))
+
+
+def test_soma_gaussian_and_stage_on_card_match_cpu(dev):
+    """The soma stage's erosion and xy Gaussian (on K3) on the card against
+    the CPU, and the stage's soma map, threshold and nodes."""
+    from _torch_phantoms import multi_neuron_soma_phantom
+
+    from pnr_tpu_torch.graph.nodes import NodeList
+    from pnr_tpu_torch.ops.gaussian import imgaussian_xy
+    from pnr_tpu_torch.ops.morphology import imerode_xy
+    from pnr_tpu_torch.pipeline.reconstruct import soma_extraction
+
+    vol, _ = multi_neuron_soma_phantom()
+    v = torch.from_numpy(vol)
+    n = conv.CONV1D_LAUNCHES
+    g = imgaussian_xy(imerode_xy(v.to(dev), 4.0), 4.0).cpu()
+    assert conv.CONV1D_LAUNCHES == n + 2
+    want = imgaussian_xy(imerode_xy(v, 4.0), 4.0)
+    diff = (g.int() - want.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    cfg = PNRConfig(sigmas=(2.0, 3.0), somaradius=4, zdist=2.0)
+    on_card, on_cpu = NodeList(), NodeList()
+    smap = soma_extraction(vol, cfg, on_card, dev)
+    assert np.array_equal(smap, soma_extraction(vol, cfg, on_cpu, "cpu"))
+    assert len(on_card) == len(on_cpu) == 3
+    for a in ("x", "y", "z", "sig", "type"):
+        assert list(getattr(on_card, a)) == list(getattr(on_cpu, a))
+
+
+#: the launch counters the 2-D paths must raise (the Gaussians on K3)
+PLANE_PATH_COUNTERS = {
+    "exact": ((conv, "CONV1D_LAUNCHES"), (zncc_exact, "LAUNCHES")),
+    "tube": ((conv, "CONV1D_LAUNCHES"), (gaussian, "LAUNCHES"),
+             (tube_corr, "TRACE_LAUNCHES"), (tube_corr, "SCORE_LAUNCHES")),
+}
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_plane_path_on_card_matches_plain_and_launches_kernels(dev, mode):
+    """The 2-D phantom through the pipeline on the card and on the CPU."""
+    from _torch_phantoms import branching_neuron_phantom_2d
+
+    from pnr_tpu_torch.pipeline import reconstruction_func
+
+    vol, _ = branching_neuron_phantom_2d()
+    cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=2.0, step=2, ni=60,
+                    np=16, zdist=1.0, nodepervol=4, vol=9, wave_size=32, zncc_mode=mode)
+    counters = PLANE_PATH_COUNTERS[mode]
+    before = [getattr(m, a) for m, a in counters]
+    k1 = frangi_fused.LAUNCHES
+    gpu = reconstruction_func(vol, cfg, verbose=False, device="cuda")
+    assert all(getattr(m, a) > b for (m, a), b in zip(counters, before))
+    assert frangi_fused.LAUNCHES == k1
+    cpu = reconstruction_func(vol, cfg, verbose=False, device="cpu")
+    sg = {tuple(p) for p in gpu.seeds_pos.astype(int).tolist()}
+    sc = {tuple(p) for p in cpu.seeds_pos.astype(int).tolist()}
+    assert len(sg & sc) >= 0.9 * max(len(sg), len(sc), 1)
+    assert len(gpu.tree) > 10 and np.allclose(gpu.tree.z[1:], 0.0, atol=1.0)
+    assert abs(np.median(gpu.tree.y[1:]) - np.median(cpu.tree.y[1:])) < 2.0
+
+
+def test_soma_path_on_card_matches_plain_and_launches_kernels(dev):
+    """The two-soma phantom through the exact pipeline with somaradius 4,
+    on the card and on the CPU: the same soma nodes and seeds."""
+    from _torch_phantoms import multi_neuron_soma_phantom
+
+    from pnr_tpu_torch.graph.nodes import SOMA
+    from pnr_tpu_torch.pipeline import reconstruction_func
+
+    vol, _ = multi_neuron_soma_phantom()
+    cfg = PNRConfig(sigmas=(2.0, 3.0), somaradius=4, tolerance=10.0, znccth=0.5, kappa=2.0,
+                    step=2, ni=40, np=16, zdist=2.0, nodepervol=4, vol=9, wave_size=32)
+    before = (frangi_fused.LAUNCHES, zncc_exact.LAUNCHES, conv.CONV1D_LAUNCHES)
+    gpu = reconstruction_func(vol, cfg, verbose=False, device="cuda")
+    after = (frangi_fused.LAUNCHES, zncc_exact.LAUNCHES, conv.CONV1D_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before))
+    cpu = reconstruction_func(vol, cfg, verbose=False, device="cpu")
+
+    def somas(res):
+        return [(res.n0.x[i], res.n0.y[i], res.n0.z[i]) for i in range(1, len(res.n0))
+                if res.n0.type[i] == SOMA]
+
+    assert somas(gpu) == somas(cpu) and len(somas(gpu)) == 2
+    sg = {tuple(p) for p in gpu.seeds_pos.astype(int).tolist()}
+    sc = {tuple(p) for p in cpu.seeds_pos.astype(int).tolist()}
+    assert len(sg & sc) >= 0.9 * max(len(sg), len(sc), 1)

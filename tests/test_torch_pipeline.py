@@ -130,16 +130,14 @@ def test_non_blurring_matches_jax():
         np.testing.assert_allclose(getattr(got, axis), getattr(want, axis), atol=1e-4)
 
 
-def _cli_round_trip(tmp_path, mode):
-    vol = phantom.branching_neuron_phantom()[0]
+def _run_cli(tmp_path, vol, mode, params):
     src = tmp_path / "stack.npy"
     np.save(src, vol)
     out, metrics = tmp_path / "out.swc", tmp_path / "m.json"
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [
-            sys.executable, "-m", "pnr_tpu_torch", "-i", str(src),
-            "-p", "2,3", "0", "10", "0.5", "2", "2", "20", "16", "2", "4", "9",
+            sys.executable, "-m", "pnr_tpu_torch", "-i", str(src), "-p", *params,
             "-o", str(out), "--metrics", str(metrics), "--device", "cpu", "--zncc-mode", mode,
         ],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
@@ -147,10 +145,17 @@ def _cli_round_trip(tmp_path, mode):
     assert proc.returncode == 0, proc.stderr
     assert f"zncc_mode = {mode}" in proc.stdout
     swc = read_swc(str(out))
-    assert len(swc) > 10
-    assert abs(np.median(swc[:, 3]) - 36) < 8  # the phantom's trunk row
     entry = json.loads(metrics.read_text())["stacks"][0]
     assert entry["tree_nodes"] == len(swc)
+    return swc, entry, proc.stdout
+
+
+def _cli_round_trip(tmp_path, mode):
+    vol = phantom.branching_neuron_phantom()[0]
+    swc, _, _ = _run_cli(tmp_path, vol, mode,
+                         ["2,3", "0", "10", "0.5", "2", "2", "20", "16", "2", "4", "9"])
+    assert len(swc) > 10
+    assert abs(np.median(swc[:, 3]) - 36) < 8  # the phantom's trunk row
 
 
 def test_cli_round_trip(tmp_path):
@@ -159,6 +164,29 @@ def test_cli_round_trip(tmp_path):
 
 def test_cli_tube_round_trip(tmp_path):
     _cli_round_trip(tmp_path, "tube")
+
+
+def test_cli_2d_round_trip(tmp_path):
+    """A one-plane .npy stack (zdist 1): the SWC stays in the plane."""
+    vol = phantom.branching_neuron_phantom_2d()[0]
+    swc, _, _ = _run_cli(tmp_path, vol, "exact",
+                         ["2,3", "0", "10", "0.5", "2", "2", "20", "16", "1", "4", "9"])
+    assert len(swc) > 10
+    assert abs(np.median(swc[:, 3]) - 40) < 8  # the phantom's trunk row
+    assert np.all(np.abs(swc[:, 4]) <= 1.0)
+
+
+def test_cli_soma_round_trip(tmp_path):
+    """somaradius 4 on the two-soma phantom: the soma stage runs and the
+    SWC carries soma-typed nodes near both somas."""
+    vol = phantom.multi_neuron_soma_phantom()[0]
+    swc, entry, out = _run_cli(tmp_path, vol, "tube",
+                               ["2,3", "4", "10", "0.5", "2", "2", "20", "16", "2", "4", "9"])
+    assert "somaradius = 4" in out
+    assert "soma extraction" in entry["timings_s"]
+    somas = swc[swc[:, 1] == 1]
+    for sx, sy in ((24, 28), (104, 68)):
+        assert np.hypot(somas[:, 2] - sx, somas[:, 3] - sy).min() < 10.0
 
 
 @pytest.mark.parametrize("flag", ["--watch", "--checkpoint=c.npz", "--save-midres", "--mesh=2"])
