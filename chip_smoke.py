@@ -106,7 +106,22 @@ Phases, each of which exits non-zero on failure:
    (exact) through the pipeline on the card and on the CPU plain path,
    scored against gold with the port's `compare_swc` (tests/
    _torch_phantoms.py, imported with tests/ on sys.path): the card's F1
-   within 0.05 of the CPU's and each phantom test's own bars on the card.
+   within 0.05 of the CPU's and each phantom test's own bars on the card;
+19. [batch exact], [batch tube]: four stacks (make_volume(MAIN_SHAPE,
+   seed=i)) through `reconstruction_batch`, prefetch on and off in turns
+   (on, off, off, on): every batch's trees bitwise the one-by-one run's and
+   its launches equal, each stack's seconds, peak device bytes and K1, K2,
+   K3 and tube_corr launches, the share of the fronts the prefetch hid, and
+   the prefetched batch's peak within a single run's plus two fronts'
+   modelled peaks (`front_device_bytes`);
+20. [serve]: `watch_and_reconstruct` on a directory with stacks 0 and 1,
+   stack 2 written after the first SWC, then `.stop`: three SWCs, each the
+   text of the exact batch's tree for its index;
+21. [checkpoint]: the exact main stack with a checkpoint after every wave
+   (the waves, bytes and seconds of each write), and a run cut by the trace
+   cap, checkpointed and resumed: bitwise the uninterrupted run;
+22. [midres]: the CLI with --save-midres on the main stack: every artifact
+   of pnr_tpu's list, and `_J8.tif` the batch's J8.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its path, error, times, bound and library time; the 2-D and
@@ -1436,7 +1451,15 @@ def phase_maps_2d(torch, card, plane_vol):
     for label, v, axis, inb in (("x from u8", plane_vol, 2, 1), ("y from f32", vf, 1, 4)):
         e = conv_err(conv.conv1d_axis(v, k, axis), conv.conv1d_axis_plain(v, k, axis))
         check(e < 1e-5, f"K3 on the plane, {label}: within 1e-5 of max|plain|")
-        k3[label] = {"ms": time_ms(torch, lambda v=v, axis=axis: conv.conv1d_axis(v, k, axis)),
+
+        def library(v=v, axis=axis):
+            return conv2d_replicate(torch, v, k, axis)
+
+        e_lib = conv_err(library(), conv.conv1d_axis_plain(v, k, axis))
+        check(e_lib < 1e-5, f"conv2d on the plane, {label}: within 1e-5 of max|plain|")
+        ms, lib_ms = time_turns_ms(
+            torch, [lambda v=v, axis=axis: conv.conv1d_axis(v, k, axis), library], reps=11)
+        k3[label] = {"ms": ms, "library_ms": lib_ms,
                      "plain_ms": time_ms(torch, lambda v=v, axis=axis:
                                          conv.conv1d_axis_plain(v, k, axis)),
                      "max_rel_err": e, **bound(n * (inb + 4), n * 2 * len(k))}
@@ -1445,7 +1468,25 @@ def phase_maps_2d(torch, card, plane_vol):
               f"{lb} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
               f"{r['bound_by']}, max|d|/max|plain| {r['max_rel_err']:.3e})" for lb, r in k3.items())
           + f" [{card}]", flush=True)
+    print("[maps 2d] K3 in turns with one conv2d (replicate padding and, from u8, the cast "
+          "included; TF32 off): " + "; ".join(
+              f"{lb} {r['ms']:.4f} ms, conv2d {r['library_ms']:.4f} ms" for lb, r in k3.items())
+          + f" [{card}]", flush=True)
     return field, {"max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms, "k3": k3}
+
+
+def conv2d_replicate(torch, plane, taps, axis):
+    """The library call for K3 on a (1, Y, X) plane along y (axis 1) or x
+    (axis 2): one `conv2d` of the float32 plane, edge-replicated by
+    `F.pad`, with the (1, 1, n, 1) or (1, 1, 1, n) taps."""
+    import torch.nn.functional as F
+
+    h = len(taps) // 2
+    w = torch.as_tensor(np.asarray(taps, np.float32), device=plane.device)
+    w = w.view(1, 1, -1, 1) if axis == 1 else w.view(1, 1, 1, -1)
+    pad = (0, 0, h, h) if axis == 1 else (h, h, 0, 0)
+    x = F.pad(plane.to(torch.float32)[None], pad, mode="replicate")
+    return F.conv2d(x, w)[0]
 
 
 def phase_tube_corr_2d(torch, card, field):
@@ -1616,6 +1657,301 @@ def phase_quality(torch, card):
     return out
 
 
+#: the stacks of the serving phases: make_volume(MAIN_SHAPE, seed=i)
+BATCH_STACKS = 4
+#: the stages of a stack's front (everything up to seed selection)
+FRONT_STAGES = ("soma extraction", "frangi", "seed extraction", "seed selection & sorting")
+#: the serving path's kernels, as read from the launch counters
+BATCH_KERNELS = {"K1": ("frangi3d_fused",), "K2": ("exact_sums",),
+                 "K3": ("conv1d_axis", "conv1d_along_axis"),
+                 "tube_corr": ("tube_corr_trace", "tube_corr_score")}
+
+
+def kernel_launches(counts):
+    return {k: sum(counts[n] for n in names) for k, names in BATCH_KERNELS.items()}
+
+
+def same_tree(a, b):
+    """Bitwise equal trees, raw node graphs, seeds and trace counts."""
+    if a.trace_count != b.trace_count or not np.array_equal(a.seeds_pos, b.seeds_pos):
+        return False
+    for na, nb in ((a.tree, b.tree), (a.n0, b.n0)):
+        if len(na) != len(nb) or na.nbr != nb.nbr:
+            return False
+        for f in ("x", "y", "z", "sig", "corr", "type"):
+            if not np.array_equal(np.asarray(getattr(na, f)), np.asarray(getattr(nb, f))):
+                return False
+    return True
+
+
+def run_batch(torch, vols, cfg, prefetch):
+    """One `reconstruction_batch` on the card: the results, each stack's
+    seconds (from the previous result, or the start, to its own), the
+    device's peak bytes while each stack was the newest in flight (the
+    peak reset at each result), the whole batch's peak, and the kernel
+    launches (counts set to 0 just before, read just after; per stack
+    too, read at each result: exact only without prefetch, since the
+    workers run later stacks' fronts meanwhile)."""
+    from pnr_tpu_torch.pipeline import reconstruction_batch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    results, secs, peaks, launches = [], [], [], []
+    batch_peak = 0
+    last = read_counters()
+    t0 = time.perf_counter()
+    for res in reconstruction_batch(vols, cfg, prefetch=prefetch, device=DEVICE):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results.append(res)
+        secs.append(t1 - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        peaks.append(peak)
+        batch_peak = max(batch_peak, peak)
+        now = read_counters()
+        launches.append(kernel_launches({k: now[k] - last[k] for k in now}))
+        last = now
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+    total = kernel_launches(read_counters())
+    return {"results": results, "s": secs, "peaks": peaks, "peak": batch_peak,
+            "launches": launches, "total": total}
+
+
+def phase_batch(torch, card, vols, mode):
+    """[batch exact] / [batch tube]: the stacks through
+    `reconstruction_batch` with prefetch on and off in turns (on, off,
+    off, on): every run's trees bitwise the first's, the launches of a
+    prefetched batch equal to those of one by one; per stack its seconds,
+    peak bytes and launches; the share of the front the prefetch hid; one
+    front's peak within 1% of `front_device_bytes`' model, and a prefetched
+    batch's within a single run's plus two modelled fronts'."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.pipeline import reconstruct
+
+    tag = f"batch {mode}"
+    cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), zncc_mode=mode)
+    n = len(vols)
+    held, peak = reconstruct.front_device_bytes(tuple(vols[0].shape), cfg)
+
+    def peak_above(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    # one stack alone in a fresh tracer, and one front alone (warm)
+    single_peak = peak_above(
+        lambda: reconstruct.reconstruction_func(vols[0], cfg, verbose=False, device=DEVICE))
+    tracker = reconstruct.BatchedTracker(cfg, DEVICE)
+
+    def front():
+        reconstruct._stack_front(vols[0], cfg, torch.device(DEVICE), verbose=False,
+                                 tracker=tracker)
+
+    front()
+    front_peak = peak_above(front)
+    del tracker
+    print(f"[{tag}] one front's peak {front_peak} bytes ({front_peak / vols[0].size:.3f} a "
+          f"voxel), front_device_bytes' {peak} ({peak / vols[0].size:.3f}) [{card}]", flush=True)
+    check(front_peak <= 1.01 * peak, f"{tag}: a front's peak within 1% of front_device_bytes'")
+    runs = {True: [], False: []}
+    for prefetch in (True, False, False, True):
+        runs[prefetch].append(run_batch(torch, vols, cfg, prefetch))
+    ref = runs[False][0]["results"]
+    for prefetch, rs in runs.items():
+        for r in rs:
+            check(all(same_tree(a, b) for a, b in zip(r["results"], ref)) and
+                  len(r["results"]) == n, f"{tag}: prefetch={prefetch} bitwise the one-by-one run")
+            check(r["total"] == runs[False][0]["total"],
+                  f"{tag}: a batch's launches ({r['total']}) equal the stacks' one by one "
+                  f"({runs[False][0]['total']})")
+    want = ("K1", "K2") if mode == "exact" else ("K1", "K3", "tube_corr")
+    check(all(runs[True][0]["total"][k] > 0 for k in want),
+          f"{tag}: the batch launched {', '.join(want)}")
+    for prefetch, rs in runs.items():
+        for j, r in enumerate(rs):
+            print(f"[{tag}] prefetch={prefetch} run {j + 1}: {sum(r['s']):.3f} s for {n} stacks; "
+                  f"per stack s {[round(x, 4) for x in r['s']]}; peak device bytes per stack "
+                  f"{r['peaks']} (batch {r['peak']}); launches {json.dumps(r['total'])}; per "
+                  f"stack {json.dumps(r['launches'])} [{card}]", flush=True)
+    on = statistics.mean(sum(r["s"]) for r in runs[True])
+    off = statistics.mean(sum(r["s"]) for r in runs[False])
+    fronts = [sum(res.timings.get(k, 0.0) for k in FRONT_STAGES) for res in ref]
+    hideable = sum(fronts[1:])
+    hidden = (off - on) / hideable if hideable else 0.0
+    model = single_peak + 2 * peak
+    print(f"[{tag}] seconds per stack: prefetch {on / n:.4f}, one by one {off / n:.4f}; the "
+          f"fronts (s) {[round(f, 4) for f in fronts]}, of stacks 2-{n} {hideable:.4f} s; hidden "
+          f"{off - on:.4f} s = {hidden:.4f} of them [{card}]", flush=True)
+    print(f"[{tag}] peak device bytes: a single run {single_peak} "
+          f"({single_peak / vols[0].size:.3f} a voxel), a prefetched batch "
+          f"{max(r['peak'] for r in runs[True])}, one by one {max(r['peak'] for r in runs[False])}; "
+          f"front_device_bytes: held {held} ({held / vols[0].size:.1f} a voxel), peak {peak} "
+          f"({peak / vols[0].size:.1f}); a single run plus two fronts' peaks {model}", flush=True)
+    check(max(r["peak"] for r in runs[True]) <= model,
+          f"{tag}: a prefetched batch's peak within a single run plus two fronts' modelled peaks")
+    return {"s_per_stack_prefetch": on / n, "s_per_stack_one_by_one": off / n,
+            "front_s": fronts, "hidden_share": hidden, "single_peak": single_peak,
+            "front_peak": front_peak, "front_model_peak": peak,
+            "batch_peak": max(r["peak"] for r in runs[True]), "model_peak": model,
+            "launches": runs[True][0]["total"]}, ref
+
+
+def phase_serve(torch, card, vols, batch_results, workdir):
+    """[serve]: `watch_and_reconstruct` on a directory holding stacks 0 and
+    1; stack 2 is written once the server has served one, then `.stop`:
+    three SWCs, each the text of the exact batch's tree for its index."""
+    import threading
+
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.io.swc import save_nodelist
+    from pnr_tpu_torch.pipeline import watch_and_reconstruct
+
+    cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
+    d = os.path.join(workdir, "watch")
+    os.makedirs(d)
+    names = [f"s{i}.npy" for i in range(3)]
+    for name, vol in zip(names[:2], vols):
+        np.save(os.path.join(d, name), vol)
+    errors = []
+
+    def drop_third():
+        try:
+            first = os.path.join(d, names[0] + "_Advantra.swc")
+            deadline = time.monotonic() + 120
+            while not os.path.exists(first) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            tmp = os.path.join(d, "arriving.tmp")
+            with open(tmp, "wb") as f:
+                np.save(f, vols[2])
+            os.replace(tmp, os.path.join(d, names[2]))
+            time.sleep(0.5)
+            open(os.path.join(d, ".stop"), "w").close()
+        except OSError as e:
+            errors.append(e)
+            open(os.path.join(d, ".stop"), "w").close()
+
+    writer = threading.Thread(target=drop_third)
+    writer.start()
+    t0 = time.perf_counter()
+    served = watch_and_reconstruct(d, cfg, poll_s=0.2, verbose=False, device=DEVICE)
+    wall = time.perf_counter() - t0
+    writer.join(timeout=60)
+    check(not errors and not writer.is_alive(), f"[serve] the writer thread: {errors}")
+    same = []
+    for i, name in enumerate(names):
+        out = os.path.join(d, name + "_Advantra.swc")
+        ref = os.path.join(workdir, f"serve_ref{i}.swc")
+        save_nodelist(batch_results[i].tree, ref, ntype=-1, sig2r=1.0, name="Advantra",
+                      comment=cfg.provenance_comment())
+        same.append(os.path.exists(out) and open(out).read() == open(ref).read())
+    print(f"[serve] {served} stacks served in {wall:.3f} s (the third written after the first "
+          f"SWC); SWC equal to the batch's tree for its index: {same} [{card}]", flush=True)
+    check(served == 3 and all(same), "[serve] three SWCs, each the exact batch's tree")
+    return {"served": served, "s": wall}
+
+
+def phase_checkpoint(torch, card, main_np, workdir):
+    """[checkpoint]: the exact main stack with a checkpoint after every
+    wave (each write timed); then a run cut by the trace cap mid-wave,
+    checkpointed, resumed with the cap lifted: bitwise the uninterrupted
+    run."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.pipeline import reconstruct
+
+    cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
+    save = reconstruct.save_checkpoint
+    writes = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        save(*a, **k)
+        writes.append(time.perf_counter() - t0)
+
+    ck = os.path.join(workdir, "run.npz")
+    reconstruct.save_checkpoint = timed
+    try:
+        t0 = time.perf_counter()
+        full = reconstruct.reconstruction_func(main_np, cfg, verbose=False, device=DEVICE,
+                                               checkpoint_path=ck, checkpoint_every_waves=1)
+        wall = time.perf_counter() - t0
+    finally:
+        reconstruct.save_checkpoint = save
+    size = os.path.getsize(ck)
+    print(f"[checkpoint] {MAIN_SHAPE} exact: {len(writes)} waves, a checkpoint after each: "
+          f"{size} bytes, write s {[round(w, 4) for w in writes]} (median "
+          f"{statistics.median(writes):.4f}); the run {wall:.3f} s, tracing "
+          f"{full.timings['tracing']:.3f} s [{card}]", flush=True)
+    cap = max(1, full.trace_count // 2)
+    cut_ck = os.path.join(workdir, "cut.npz")
+    part = reconstruct.reconstruction_func(main_np, dataclasses.replace(cfg, max_trace_count=cap),
+                                           verbose=False, device=DEVICE, checkpoint_path=cut_ck)
+    pending = int(np.load(cut_ck)["pending"].size)
+    resumed = reconstruct.reconstruction_func(main_np, cfg, verbose=False, device=DEVICE,
+                                              checkpoint_path=cut_ck, resume=True)
+    same = same_tree(resumed, full)
+    print(f"[checkpoint] cut at {part.trace_count} of {full.trace_count} traces ({pending} "
+          f"selected seeds pending), resumed: bitwise the uninterrupted run {same}", flush=True)
+    check(0 < part.trace_count < full.trace_count and same,
+          "[checkpoint] a cap-cut run resumed is bitwise the uninterrupted run")
+    return {"waves": len(writes), "write_s": writes, "bytes": size}
+
+
+MIDRES_SUFFIXES = (
+    ["_Advantra.swc", "_J8.tif", "_Seeds.swc", "_VxVyVz.swc", "_TraceDensity.tif"]
+    + [f"_{n}_.swc" for n in ("n0", "n0tree", "n0res", "n1", "n2", "n2tree")]
+    + [f"_{n}_.log" for n in ("n0len", "n0corr", "n1len")]
+)
+
+
+def phase_midres(torch, card, main_np, j8, workdir):
+    """[midres]: the CLI with --save-midres on the main stack: every
+    artifact of pnr_tpu's list, and `_J8.tif` equal to the batch's J8."""
+    from pnr_tpu_torch import cli
+    from pnr_tpu_torch.io.volume import load_volume
+
+    src = os.path.join(workdir, "midres.npy")
+    np.save(src, main_np)
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", src, "-p", *MAIN_PARAMS, "--device", DEVICE, "--save-midres",
+                   "--quiet"])
+    wall = time.perf_counter() - t0
+    missing = [x for x in MIDRES_SUFFIXES if not os.path.exists(src + x)]
+    same_j8 = not missing and np.array_equal(load_volume(src + "_J8.tif"), j8)
+    print(f"[midres] CLI --save-midres on {MAIN_SHAPE}: rc {rc}, {wall:.3f} s, "
+          f"{len(MIDRES_SUFFIXES) - len(missing)} of {len(MIDRES_SUFFIXES)} artifacts "
+          f"(missing {missing}), _J8.tif equal to the run's J8 {same_j8} [{card}]", flush=True)
+    check(rc == 0 and not missing and same_j8, "[midres] every artifact, _J8.tif the J8")
+    return {"s": wall}
+
+
+def phase_serving(torch, card, main_np):
+    """The serving layer's phases on the main stack's size: [batch exact],
+    [batch tube], [serve], [checkpoint], [midres]."""
+    t0 = time.perf_counter()
+    vols = [main_np] + [make_volume(MAIN_SHAPE, seed=i) for i in range(1, BATCH_STACKS)]
+    print(f"[batch] made {BATCH_STACKS - 1} more {MAIN_SHAPE} stacks in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    out = {}
+    out["batch exact"], exact = phase_batch(torch, card, vols, "exact")
+    out["batch tube"], _ = phase_batch(torch, card, vols, "tube")
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_serving_", dir=HERE)
+    try:
+        out["serve"] = phase_serve(torch, card, vols, exact, workdir)
+        out["checkpoint"] = phase_checkpoint(torch, card, main_np, workdir)
+        out["midres"] = phase_midres(torch, card, main_np, exact[0].j8, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1703,6 +2039,7 @@ def main() -> int:
     for mode in ("exact", "tube"):
         phase_small_agreement(torch, mode)
     quality = phase_quality(torch, card)
+    serving = phase_serving(torch, card, main_np)
     k2_ms, k2_seen = profiles["exact"]["kernels"]["K2"]
     k2.update({"device_ms_per_exact_run": k2_ms, "profiled_launches": k2_seen,
                "seed_scoring_launches": launches["exact"]["seed_scoring"]["exact_sums"],
@@ -1727,6 +2064,13 @@ def main() -> int:
     print(f"[unfused] {json.dumps(unfused)}", flush=True)
     print(f"[2d] maps {json.dumps(maps_2d)}; tiled {json.dumps(tiled_2d)}; soma "
           f"{json.dumps(soma)}; quality {json.dumps(quality)}", flush=True)
+    print(f"[serving] {json.dumps(serving)}", flush=True)
+    for mode in ("exact", "tube"):
+        n = serving[f"batch {mode}"]["launches"]
+        k1[f"launches_batch_{mode}"] = n["K1"]
+        k3[f"launches_batch_{mode}"] = n["K3"]
+    k2["launches_batch_exact"] = serving["batch exact"]["launches"]["K2"]
+    k5["launches_batch_tube"] = serving["batch tube"]["launches"]["tube_corr"]
     k2["launches_2d"] = launches["2d exact"]["exact_sums"]
     k2["launches_soma"] = launches["soma"]["exact_sums"]
     k2["plane"] = k2_2d

@@ -1,9 +1,14 @@
 """Advantra-compatible command line for the PyTorch/CUDA port.
 
-Same single-stack surface as pnr_tpu/cli.py (parity target
-`Advantra::dofunc`, pnr-vaa3d/Advantra_plugin.cpp:274-337): the same 11
-positional parameters after -p, the same validation and output naming
-(<image>_Advantra.swc with the parameter-provenance header).
+The surface of pnr_tpu/cli.py (parity target `Advantra::dofunc`,
+pnr-vaa3d/Advantra_plugin.cpp:274-337): the same 11 positional parameters
+after -p, the same validation and output naming (<image>_Advantra.swc
+with the parameter-provenance header), and the same modes: several -i
+inputs through the prefetch-pipelined `reconstruction_batch`, `--watch`
+(serve a directory), `--checkpoint`/`--resume`, `--save-midres` (the
+reference's intermediate dumps), `--find-maxima` and `--interactive`.
+`--mesh` and `--plan` (the multi-GPU pipeline) are not ported yet, and
+every stack runs on the device (the port has no host one-shot engine).
 
     python -m pnr_tpu_torch -i image.tif -p 2,4,6 0 5 0.3 3 2 200 20 2 4 1
 
@@ -16,31 +21,26 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
+
+import numpy as np
 
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.io.swc import save_nodelist
-from pnr_tpu_torch.io.volume import load_volume
+from pnr_tpu_torch.io.volume import load_volume, save_volume
 from pnr_tpu_torch.utils.exporters import metrics_entry
 
-#: options of pnr_tpu's CLI whose engines are not ported yet (ROADMAP.md)
-_NOT_PORTED = (
-    ("watch", "--watch"),
-    ("checkpoint", "--checkpoint"),
-    ("resume", "--resume"),
-    ("mesh", "--mesh"),
-    ("plan", "--plan"),
-    ("save_midres", "--save-midres"),
-    ("find_maxima", "--find-maxima"),
-    ("interactive", "--interactive"),
-)
+#: options of pnr_tpu's CLI whose engines are not ported yet (ROADMAP.md,
+#: Queue 1, item 15: the multi-GPU pipeline and its planner)
+_NOT_PORTED = (("mesh", "--mesh"), ("plan", "--plan"))
 
 
 def print_help_params() -> None:
     print(
         """*** PNR (Advantra), PyTorch/CUDA port: usage ***
-python -m pnr_tpu_torch -i <inimg_file> -p <neuritesigmas somaradius tolerance znccth kappa step ni np zdist nodepervol vol> [-o out.swc] [--metrics M] [--zncc-mode exact|tube] [--quiet] [--device cuda]
-inimg_file     The input image (.tif / .v3draw / .npy).
+python -m pnr_tpu_torch -i <inimg_file> [more images] -p <neuritesigmas somaradius tolerance znccth kappa step ni np zdist nodepervol vol> [-o out.swc] [--metrics M] [--zncc-mode exact|tube] [--checkpoint C.npz [--resume]] [--save-midres] [--find-maxima] [--watch] [--interactive] [--quiet] [--device cuda]
+inimg_file     The input image (.tif / .v3draw / .npy); with --watch, a directory.
 neuritesigmas  Comma-delimited Gaussian cross-section sigmas.
 somaradius     Minimum soma radius (0: no soma detection).
 tolerance      Local maxima tolerance (typically 10).
@@ -56,14 +56,58 @@ Output SWC is named automatically from the input image file name."""
     )
 
 
+def _write_metrics(path: str, cfg: PNRConfig, entries: list) -> None:
+    with open(path, "w") as f:
+        json.dump({"params": cfg.provenance_comment(), "stacks": entries}, f, indent=1)
+        f.write("\n")
+
+
+def _save_swc(tree, out: str, cfg: PNRConfig) -> None:
+    save_nodelist(tree, out, ntype=-1, sig2r=1.0, name="Advantra",
+                  comment=cfg.provenance_comment())
+
+
+def _save_midres(image: str, result) -> None:
+    """The reference's saveMidres artifacts (Advantra_plugin.cpp:2098-2141
+    and the seed, J8, direction, density and soma dumps), named as
+    pnr_tpu/cli.py names them."""
+    from pnr_tpu_torch.utils.exporters import (
+        export_directionality_swc,
+        export_seeds_swc,
+        save_vector,
+    )
+
+    save_volume(image + "_J8.tif", result.j8)
+    export_seeds_swc(image + "_Seeds.swc", result.seeds_pos, corr=result.seeds_corr)
+    mid = result.midres or {}
+    if "vx" in mid:
+        export_directionality_swc(image + "_VxVyVz.swc", result.j8, mid["vx"], mid["vy"],
+                                  mid["vz"])
+    if "trace_density" in mid:
+        save_volume(image + "_TraceDensity.tif", mid["trace_density"])
+    if "smap8" in mid:
+        save_volume(image + "_Smap.v3dpbd", mid["smap8"])
+    # the empty trailing suffix matches the reference's reconstruct(n0, prefix, "")
+    for name in ("n0", "n0tree", "n0res", "n1", "n2", "n2tree"):
+        if name in mid:
+            save_nodelist(mid[name], f"{image}_{name}_.swc")
+    for name in ("n0len", "n0corr", "n1len"):
+        if name in mid:
+            save_vector(mid[name], f"{image}_{name}_.log")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="pnr_tpu_torch", add_help=False)
-    ap.add_argument("-i", dest="images", nargs="+", default=None)
+    ap.add_argument("-i", dest="images", nargs="+", default=None,
+                    help="input image(s); several stream through the batch driver, one "
+                         "_Advantra.swc per input")
     ap.add_argument("-p", dest="params", nargs="*", default=None)
     ap.add_argument("-o", dest="output", default=None,
-                    help="output SWC file path (default: <image>_Advantra.swc)")
+                    help="output SWC file path (default: <image>_Advantra.swc); with --watch, "
+                         "an output directory")
     ap.add_argument("--metrics", default=None,
-                    help="write the stage timings and counts as JSON")
+                    help="write the stage timings and counts as JSON (with --watch, one JSON "
+                         "line per stack)")
     ap.add_argument("--zncc-mode", choices=("exact", "tube"), default="exact",
                     help="likelihood engine: 'exact' (reference parity) or 'tube' "
                          "(precomputed-map approximation)")
@@ -71,14 +115,19 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu runs the plain versions)")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("-h", "--help", action="store_true")
-    ap.add_argument("--save-midres", action="store_true")
-    ap.add_argument("--find-maxima", action="store_true")
-    ap.add_argument("--checkpoint", default=None)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--mesh", type=int, default=0)
-    ap.add_argument("--watch", action="store_true")
-    ap.add_argument("--plan", action="store_true")
-    ap.add_argument("--interactive", action="store_true")
+    ap.add_argument("--save-midres", action="store_true",
+                    help="also write the reference's intermediate results")
+    ap.add_argument("--find-maxima", action="store_true",
+                    help="write the raw image's local maxima as SWC and exit (host only)")
+    ap.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
+    ap.add_argument("--resume", action="store_true", help="resume from --checkpoint")
+    ap.add_argument("--mesh", type=int, default=0, help="not yet ported")
+    ap.add_argument("--watch", action="store_true",
+                    help="serve mode: -i names a directory; reconstruct stacks as they arrive "
+                         "until <dir>/.stop appears")
+    ap.add_argument("--plan", action="store_true", help="not yet ported")
+    ap.add_argument("--interactive", action="store_true",
+                    help="prompt for the 11 parameters with the reference defaults")
     args = ap.parse_args(argv)
 
     if args.help or not args.images:
@@ -88,25 +137,84 @@ def main(argv=None) -> int:
         if getattr(args, attr):
             sys.stderr.write(f"{flag} is not yet ported to pnr_tpu_torch (see ROADMAP.md)\n")
             return 2
+    image = args.images[0]
     if len(args.images) > 1:
-        sys.stderr.write("several input stacks (batch serving) are not yet ported "
-                         "to pnr_tpu_torch (see ROADMAP.md)\n")
-        return 2
-    if args.params is None or len(args.params) != 11:
-        sys.stderr.write("\nNeeds 11 input parameters.\n\n")
-        print_help_params()
+        for bad, why in (
+            (args.find_maxima, "--find-maxima"),
+            (args.checkpoint, "--checkpoint"),
+            (args.output, "-o"),
+            (args.save_midres, "--save-midres"),
+        ):
+            if bad:
+                sys.stderr.write(f"{why} takes a single input image\n")
+                return 1
+    if args.find_maxima and args.metrics:
+        sys.stderr.write("--metrics is not supported with --find-maxima\n")
         return 1
-    try:
-        cfg = PNRConfig.from_cli_params(args.params)
-    except ValueError as e:
-        sys.stderr.write(f"{e}\n")
-        return 1
+
+    if args.interactive:
+        from pnr_tpu_torch.ui import prompt_parameters
+
+        try:
+            cfg = prompt_parameters()
+        except ValueError as e:
+            sys.stderr.write(f"{e}\n")
+            return 1
+        if cfg is None:
+            return 1  # cancelled
+    else:
+        if args.params is None or len(args.params) != 11:
+            sys.stderr.write("\nNeeds 11 input parameters.\n\n")
+            print_help_params()
+            return 1
+        try:
+            cfg = PNRConfig.from_cli_params(args.params)
+        except ValueError as e:
+            sys.stderr.write(f"{e}\n")
+            return 1
+    if args.save_midres:
+        cfg = dataclasses.replace(cfg, save_midres=True)
     cfg = dataclasses.replace(cfg, zncc_mode=args.zncc_mode)
 
-    from pnr_tpu_torch.pipeline import reconstruction_func
+    if args.watch:
+        if len(args.images) != 1 or not os.path.isdir(image):
+            sys.stderr.write("--watch takes a single directory after -i\n")
+            return 1
+        for bad, why in (
+            (args.find_maxima, "--find-maxima"),
+            (args.checkpoint, "--checkpoint"),
+            (args.save_midres, "--save-midres"),
+        ):
+            if bad:
+                sys.stderr.write(f"{why} is not supported with --watch\n")
+                return 1
+        if args.output and args.output.lower().endswith(".swc"):
+            # in serve mode -o is a directory
+            sys.stderr.write("--watch writes one SWC per arriving stack: -o must name an "
+                             "output directory, not a .swc file\n")
+            return 1
+
+    if args.find_maxima:
+        # host only: the raw image's local maxima (the reference's
+        # findMaxima path, Advantra_plugin.cpp:2308-2327)
+        from pnr_tpu_torch.seeds.extract import max_points_host
+        from pnr_tpu_torch.utils.exporters import export_points_swc
+
+        vol = load_volume(image)
+        mask = max_points_host(vol, cfg.tolerance)
+        zz, yy, xx = np.nonzero(mask)
+        out = args.output or f"{image}_findMaxima_{cfg.tolerance:g}.swc"
+        export_points_swc(out, np.stack([xx, yy, zz], axis=-1), ntype=13, radius=0.1)
+        print(f"{len(xx)} local maxima -> {out}")
+        return 0
+
+    from pnr_tpu_torch.pipeline import (
+        reconstruction_batch,
+        reconstruction_func,
+        watch_and_reconstruct,
+    )
     from pnr_tpu_torch.utils.runtime import require_cuda
 
-    image = args.images[0]
     try:
         device = require_cuda(args.device)
     except (RuntimeError, ValueError) as e:
@@ -121,18 +229,40 @@ def main(argv=None) -> int:
         print(f"device = {device}")
         print("-----------------------------------------------------")
 
+    if args.watch:
+        n = watch_and_reconstruct(image, cfg, out_dir=args.output, verbose=verbose,
+                                  metrics_path=args.metrics, device=device)
+        if verbose:
+            print(f"serve: done, {n} stacks")
+        return 0
+
+    if len(args.images) > 1:
+        # every stack through the batch driver (one tracer, prefetched
+        # fronts), one SWC per input
+        vols = (load_volume(p) for p in args.images)
+        entries = []
+        for path, result in zip(args.images,
+                                reconstruction_batch(vols, cfg, verbose=verbose, device=device)):
+            out = path + "_Advantra.swc"
+            _save_swc(result.tree, out, cfg)
+            entries.append(metrics_entry(path, result))
+            if verbose:
+                print(f"wrote {out} ({len(result.tree) - 1} nodes)")
+        if args.metrics:
+            _write_metrics(args.metrics, cfg, entries)
+        return 0
+
     vol = load_volume(image)
-    result = reconstruction_func(vol, cfg, verbose=verbose, device=device)
+    result = reconstruction_func(vol, cfg, verbose=verbose, checkpoint_path=args.checkpoint,
+                                 resume=args.resume, device=device)
     out = args.output or (image + "_Advantra.swc")
-    save_nodelist(result.tree, out, ntype=-1, sig2r=1.0, name="Advantra",
-                  comment=cfg.provenance_comment())
+    _save_swc(result.tree, out, cfg)
     if args.metrics:
-        with open(args.metrics, "w") as f:
-            json.dump({"params": cfg.provenance_comment(),
-                       "stacks": [metrics_entry(image, result)]}, f, indent=1)
-            f.write("\n")
+        _write_metrics(args.metrics, cfg, [metrics_entry(image, result)])
     if verbose:
         print(f"wrote {out} ({len(result.tree) - 1} nodes)")
+    if cfg.save_midres:
+        _save_midres(image, result)
     return 0
 
 

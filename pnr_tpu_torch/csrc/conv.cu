@@ -69,6 +69,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -649,6 +650,10 @@ YxLaunch conv_yx_launch(int Z, int Y, int X, int nky, int nkx, int size) {
   return l;
 }
 
+// K4's shared memory limits, one per instance (the ring depends on the taps)
+SmemLimit g_smem_limit_u8;
+SmemLimit g_smem_limit_f32;
+
 }  // namespace
 
 extern "C" {
@@ -690,14 +695,12 @@ int pnr_conv_yx(const void* in, int in_is_u8, void* out, int Z, int Y, int X, co
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (in_is_u8) {
-    err = cudaFuncSetAttribute(conv_yx_kernel<unsigned char>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, l.g.smem);
+    err = raise_smem_limit(g_smem_limit_u8, conv_yx_kernel<unsigned char>, (size_t)l.g.smem);
     if (err != cudaSuccess) return (int)err;
     conv_yx_kernel<unsigned char><<<l.grid, l.block, l.g.smem, s>>>(
         (const unsigned char*)in, (float*)out, Y, X, l.g, l.tiles, ty, nky, tx, nkx);
   } else {
-    err = cudaFuncSetAttribute(conv_yx_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               l.g.smem);
+    err = raise_smem_limit(g_smem_limit_f32, conv_yx_kernel<float>, (size_t)l.g.smem);
     if (err != cudaSuccess) return (int)err;
     conv_yx_kernel<float><<<l.grid, l.block, l.g.smem, s>>>((const float*)in, (float*)out, Y, X,
                                                             l.g, l.tiles, ty, nky, tx, nkx);

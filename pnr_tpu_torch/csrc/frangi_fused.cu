@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -531,6 +532,9 @@ bool geom_ok(const Geom& g) {
          2 * g.hz + 1 <= kThreads && g.smem() <= kSmemLimit;
 }
 
+// K1's shared memory limit (the tile's rings differ per sigma)
+SmemLimit g_smem_limit;
+
 }  // namespace
 
 extern "C" {
@@ -560,8 +564,7 @@ int pnr_frangi_scale(const void* vol, int Z, int Y, int X, int tile_y, int tile_
   const ScaleArgs sa{s2, a2, b2, c2, blackwhite, first, last};
   const dim3 grid((X + tile_x - 1) / tile_x, (Y + tile_y - 1) / tile_y, 1);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(frangi_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem());
+  cudaError_t err = raise_smem_limit(g_smem_limit, frangi_fused_kernel, (size_t)g.smem());
   if (err != cudaSuccess) return (int)err;
   frangi_fused_kernel<<<grid, kThreads, g.smem(), s>>>(
       (const unsigned char*)vol, Z, Y, X, g, taps, sa, (float*)J, (unsigned char*)qx,

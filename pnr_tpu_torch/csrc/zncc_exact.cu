@@ -72,6 +72,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "smem_limit.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -349,11 +353,14 @@ exact_sums_kernel(const unsigned char* __restrict__ vol, int Z, int Y, int X,
   cluster.sync();  // the other blocks' shared memory lives until block 0 has read it
 }
 
-// The (cluster size, shared memory) pairs already found schedulable, and
-// the largest dynamic shared memory set on the function, per device.
-constexpr int kMaxDevices = 16;
+// The kernel's shared memory limit, and the (cluster size, shared memory)
+// pairs already found schedulable per device, read and written under
+// g_ok_mu: seed scoring (B=1) and the tracer (B=20) may launch K2 from two
+// host threads at once.
+SmemLimit g_smem_limit;
+constexpr int kMaxDevices = kSmemLimitDevices;
 constexpr int kCache = 8;
-size_t g_smem_set[kMaxDevices];
+std::mutex g_ok_mu;
 int g_ok_ncl[kMaxDevices][kCache];
 size_t g_ok_smem[kMaxDevices][kCache];
 int g_ok_n[kMaxDevices];
@@ -392,12 +399,8 @@ int pnr_exact_sums(const void* vol, int Z, int Y, int X, const void* corner, con
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return kErrPlan;
-  if (smem > g_smem_set[dev]) {
-    err = cudaFuncSetAttribute(exact_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    g_smem_set[dev] = smem;
-  }
+  err = raise_smem_limit(g_smem_limit, exact_sums_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned int)(ncl * T));
   cfg.blockDim = dim3(kThreads);
@@ -410,17 +413,20 @@ int pnr_exact_sums(const void* vol, int Z, int Y, int X, const void* corner, con
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  bool known = false;
-  for (int i = 0; i < g_ok_n[dev]; ++i)
-    known = known || (g_ok_ncl[dev][i] == ncl && g_ok_smem[dev][i] == smem);
-  if (!known) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, exact_sums_kernel, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return kErrUnschedulable;
-    const int i = g_ok_n[dev] < kCache ? g_ok_n[dev]++ : kCache - 1;
-    g_ok_ncl[dev][i] = ncl;
-    g_ok_smem[dev][i] = smem;
+  {
+    std::lock_guard<std::mutex> lock(g_ok_mu);
+    bool known = false;
+    for (int i = 0; i < g_ok_n[dev]; ++i)
+      known = known || (g_ok_ncl[dev][i] == ncl && g_ok_smem[dev][i] == smem);
+    if (!known) {
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, exact_sums_kernel, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters < 1) return kErrUnschedulable;
+      const int i = g_ok_n[dev] < kCache ? g_ok_n[dev]++ : kCache - 1;
+      g_ok_ncl[dev][i] = ncl;
+      g_ok_smem[dev][i] = smem;
+    }
   }
   err = cudaLaunchKernelEx(&cfg, exact_sums_kernel, (const unsigned char*)vol, Z, Y, X,
                            (const int*)corner, (const float*)qs, B, (const float4*)tab,

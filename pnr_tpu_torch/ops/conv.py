@@ -98,7 +98,8 @@ def conv1d_axis(vol: torch.Tensor, kernel, axis: int, grad_border: bool = False)
 def _conv1d_axis_cuda(vol, kernel, axis, grad_border):
     global CONV1D_LAUNCHES
     out = launch_conv1d(vol, kernel, axis, grad_border, "conv1d_axis")
-    CONV1D_LAUNCHES += 1
+    with cuda.COUNT_LOCK:
+        CONV1D_LAUNCHES += 1
     return out
 
 
@@ -231,7 +232,8 @@ def _conv_yx_cuda(vol, kernel_y, kernel_x):
         ),
         "pnr_conv_yx",
     )
-    CONV_YX_LAUNCHES += 1
+    with cuda.COUNT_LOCK:
+        CONV_YX_LAUNCHES += 1
     return out
 
 

@@ -10,17 +10,22 @@ Every C entry point takes device pointers and the CUDA stream as
 `c_void_p`, sizes as `c_int`, launches on that stream without
 synchronising, and returns `cudaGetLastError()`; `check` turns a
 non-zero code into an exception.
+
+The wrappers may be called from several host threads at once (the batch
+driver's prefetch workers launch the front half's kernels on their own
+streams while the main thread traces): the library loads once under a
+lock, and every launch counter is added to under `COUNT_LOCK`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -56,6 +61,11 @@ _SIGNATURES = {
     "pnr_conv_yx_plan": (_I, _I, _I, _I, _I, _I, _P),
     "pnr_probe": (_P, _P, _I, _P),
 }
+
+#: held while a wrapper adds to its module's launch counter, so that
+#: counts from several threads are exact
+COUNT_LOCK = threading.Lock()
+_LIBRARY_LOCK = threading.Lock()
 
 #: CUDA launches of K7's counterpart (`pnr_probe`, through `probe` and
 #: `self_check`)
@@ -102,15 +112,23 @@ def build() -> str:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+_library = None
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library, built on first use (once, whichever
+    thread asks first; the others wait for it)."""
+    global _library
+    if _library is None:
+        with _LIBRARY_LOCK:
+            if _library is None:
+                lib = ctypes.CDLL(build())
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _library = lib
+    return _library
 
 
 def probe(x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +150,8 @@ def _probe_cuda(x: torch.Tensor) -> torch.Tensor:
     err = library().pnr_probe(x.data_ptr(), out.data_ptr(), x.numel(), raw_stream(dev))
     if err:
         check(err, "pnr_probe")
-    PROBE_LAUNCHES += 1
+    with COUNT_LOCK:
+        PROBE_LAUNCHES += 1
     return out
 
 

@@ -226,5 +226,6 @@ def _frangi3d_cuda(vol, sigmas, zdist, alpha, beta, c, blackwhite):
             ),
             "pnr_frangi_scale",
         )
-        LAUNCHES += 2 if si == ns - 1 else 1
+        with cuda.COUNT_LOCK:
+            LAUNCHES += 2 if si == ns - 1 else 1
     return j, minmax[0], minmax[1], qx, qy, qz

@@ -37,6 +37,7 @@ import math
 import numpy as np
 import torch
 
+from pnr_tpu_torch.ops.cuda import COUNT_LOCK
 from pnr_tpu_torch.ops.conv import conv1d_axis, conv1d_axis_plain, conv_yx, launch_conv1d
 
 #: K3 launches of `conv1d_along_axis` (the tube map build's 1-D
@@ -63,7 +64,8 @@ def conv1d_along_axis(vol: torch.Tensor, kernel, axis: int) -> torch.Tensor:
 def _conv1d_cuda(vol, kernel, axis):
     global LAUNCHES
     out = launch_conv1d(vol, kernel, axis, False, "conv1d_along_axis")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 

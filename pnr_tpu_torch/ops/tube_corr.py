@@ -362,8 +362,9 @@ def _tube_corr_cuda(field, corners, pos, dirs, params: KernelParams, scoring=Fal
     )
     if err:
         cuda.check(err, "pnr_tube_corr")
-    if scoring:
-        SCORE_LAUNCHES += 1
-    else:
-        TRACE_LAUNCHES += 1
+    with cuda.COUNT_LOCK:
+        if scoring:
+            SCORE_LAUNCHES += 1
+        else:
+            TRACE_LAUNCHES += 1
     return out, sums

@@ -230,7 +230,8 @@ def _exact_sums_cuda(vol, corner, qs, tables, patch_shape, slab_budget=None):
     )
     if err:
         _raise(err, vol, patch_shape, plan, b, s)
-    LAUNCHES += 1
+    with cuda.COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 

@@ -54,6 +54,10 @@ PORT_MODULES = (
     "pnr_tpu_torch.smc.tracker",
     "pnr_tpu_torch.pipeline",
     "pnr_tpu_torch.pipeline.reconstruct",
+    "pnr_tpu_torch.pipeline.checkpoint",
+    "pnr_tpu_torch.pipeline.serve",
+    "pnr_tpu_torch.ui",
+    "pnr_tpu_torch.ui.dialog",
 )
 
 
@@ -103,6 +107,29 @@ def test_sources_import_no_reference_module(path):
             else:
                 continue
             assert not any(_reference_module(n) for n in names), (fname, node.lineno, names)
+
+
+def test_pipeline_exports_the_serving_entry_points():
+    import pnr_tpu_torch.pipeline as pipeline
+    from pnr_tpu_torch.pipeline.reconstruct import reconstruction_batch
+    from pnr_tpu_torch.pipeline.serve import watch_and_reconstruct
+
+    assert pipeline.reconstruction_batch is reconstruction_batch
+    assert pipeline.watch_and_reconstruct is watch_and_reconstruct
+    assert {"reconstruction_batch", "watch_and_reconstruct"} <= set(pipeline.__all__)
+
+
+def test_every_port_module_is_listed():
+    """PORT_MODULES covers every module of the package (but the bare
+    subpackage initialisers), so the fresh-interpreter check above imports
+    them all."""
+    root = os.path.join(REPO, "pnr_tpu_torch")
+    found = set()
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            if f.endswith(".py") and f != "__init__.py":
+                found.add(os.path.relpath(os.path.join(d, f), REPO)[:-3].replace(os.sep, "."))
+    assert found <= set(PORT_MODULES), sorted(found - set(PORT_MODULES))
 
 
 def test_config_matches_jax():
@@ -190,6 +217,10 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         reconstruction_func(np.zeros((8, 16, 16), np.uint8), PNRConfig(), verbose=False)
+    from pnr_tpu_torch.pipeline import reconstruction_batch
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(reconstruction_batch([np.zeros((8, 16, 16), np.uint8)], PNRConfig()))
     model = TubeZnccModel((2.0,), False)
     with pytest.raises((RuntimeError, AssertionError)):
         TubePatchEngine(model, 2, 2.0)  # its tables go to the card

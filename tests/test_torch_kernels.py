@@ -904,3 +904,129 @@ def test_soma_path_on_card_matches_plain_and_launches_kernels(dev):
     sg = {tuple(p) for p in gpu.seeds_pos.astype(int).tolist()}
     sc = {tuple(p) for p in cpu.seeds_pos.astype(int).tolist()}
     assert len(sg & sc) >= 0.9 * max(len(sg), len(sc), 1)
+
+
+# -- several host threads: the batch driver's prefetch workers launch the
+# front's kernels on their own streams while the main thread traces
+
+#: run in a fresh interpreter, where no launch has set K2's shared memory
+#: limit yet: two threads launch K2 at once, one at B=1 (seed scoring) and
+#: one at B=20 (tracing), each through slab sizes that grow in turns with
+#: the other's, so that every launch needs a larger limit than the last
+_K2_THREADS = r"""
+import threading, torch
+from _torch_cases import B
+from test_torch_kernels import exact_case
+from pnr_tpu_torch.ops import zncc_exact
+from pnr_tpu_torch.ops.zncc_exact import exact_sums
+
+dev = torch.device("cuda")
+cases = {b: exact_case(dev, "tube", b, 16) for b in (1, B)}
+dims = cases[1][3].dims(cases[1][0].shape)
+pitch = zncc_exact.row_pitch(dims[2])
+walks = {b: [p * dims[1] * pitch for p in range(3 + k, dims[0] + 1, 2)]
+         for k, b in enumerate((1, B))}
+gate = threading.Barrier(2)
+out, errors = {}, []
+
+def walk(b):
+    vol, corner, qs, eng = cases[b]
+    gate.wait()
+    for budget in walks[b]:
+        try:
+            out[b, budget] = exact_sums(vol, corner, qs, eng.tables, dims, slab_budget=budget)
+        except Exception as e:
+            errors.append(f"B={b} budget {budget}: {e}")
+
+threads = [threading.Thread(target=walk, args=(b,)) for b in (1, B)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=120)
+assert not any(t.is_alive() for t in threads), "a thread hung"
+assert not errors, errors
+torch.cuda.synchronize()
+for (b, budget), got in out.items():
+    vol, corner, qs, eng = cases[b]
+    want = exact_sums(vol, corner, qs, eng.tables, dims, slab_budget=budget)
+    assert torch.equal(got, want), (b, budget)
+print("launches", len(out))
+"""
+
+
+def test_exact_sums_kernel_from_two_threads_at_once(dev):
+    """K2 launched from two host threads at once with B=1 and B=20 (the
+    prefetch worker's seed scoring beside the main thread's tracing): no
+    launch is refused, each output is the single-threaded one. Each of
+    three fresh interpreters starts with no shared memory limit set."""
+    import os
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(tests), tests]))
+    for _ in range(3):
+        proc = subprocess.run([sys.executable, "-c", _K2_THREADS], cwd=tests, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert int(proc.stdout.split()[-1]) > 10
+
+
+def test_launch_counters_are_exact_under_two_threads(dev):
+    """Two threads launch K7 and K2 many times with a short switch
+    interval: the counters count every launch."""
+    import sys
+    import threading
+
+    vol, corner, qs, eng = exact_case(dev, "tube", 1, 4)
+    dims = eng.dims(vol.shape)
+    x = torch.ones((8, 128), device=dev)
+    n = 300
+    before = (cuda.PROBE_LAUNCHES, zncc_exact.LAUNCHES)
+
+    def work():
+        for _ in range(n):
+            cuda.probe(x)
+            exact_sums(vol, corner, qs, eng.tables, dims)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert (cuda.PROBE_LAUNCHES - before[0], zncc_exact.LAUNCHES - before[1]) == (4 * n, 4 * n)
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_batch_on_card_prefetch_is_bitwise_prefetch_off(dev, mode):
+    """Two stacks through `reconstruction_batch` on the card, prefetched
+    on worker streams and one by one: bitwise the same trees, seeds and
+    trace counts, and the same kernel launches."""
+    from pnr_tpu_torch.pipeline import reconstruction_batch
+
+    vols = [small_stack(), small_stack()[:, ::-1].copy()]
+    cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2,
+                    ni=60, np=20, zdist=2.0, nodepervol=4, vol=9, zncc_mode=mode)
+    counters = PATH_COUNTERS[mode]
+    runs = []
+    for prefetch in (True, False):
+        before = [getattr(m, a) for m, a in counters]
+        res = list(reconstruction_batch(vols, cfg, prefetch=prefetch, device="cuda"))
+        runs.append((res, [getattr(m, a) - b for (m, a), b in zip(counters, before)]))
+    (on, n_on), (off, n_off) = runs
+    assert n_on == n_off and all(k > 0 for k in n_on)
+    for a, b in zip(on, off):
+        assert a.trace_count == b.trace_count > 0
+        np.testing.assert_array_equal(a.seeds_pos, b.seeds_pos)
+        np.testing.assert_array_equal(a.seeds_corr, b.seeds_corr)
+        for f in ("x", "y", "z", "sig", "corr"):
+            np.testing.assert_array_equal(np.asarray(getattr(a.tree, f)),
+                                          np.asarray(getattr(b.tree, f)))
+            np.testing.assert_array_equal(np.asarray(getattr(a.n0, f)),
+                                          np.asarray(getattr(b.n0, f)))

@@ -189,7 +189,7 @@ def test_cli_soma_round_trip(tmp_path):
         assert np.hypot(somas[:, 2] - sx, somas[:, 3] - sy).min() < 10.0
 
 
-@pytest.mark.parametrize("flag", ["--watch", "--checkpoint=c.npz", "--save-midres", "--mesh=2"])
+@pytest.mark.parametrize("flag", ["--mesh=2", "--plan"])
 def test_cli_unported_options_exit_nonzero(flag, capsys):
     rc = cli.main(["-i", "x.npy", "-p", *["1"] * 11, flag, "--device", "cpu"])
     assert rc != 0
