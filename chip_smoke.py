@@ -121,12 +121,35 @@ Phases, each of which exits non-zero on failure:
    (the waves, bytes and seconds of each write), and a run cut by the trace
    cap, checkpointed and resumed: bitwise the uninterrupted run;
 22. [midres]: the CLI with --save-midres on the main stack: every artifact
-   of pnr_tpu's list, and `_J8.tif` the batch's J8.
+   of pnr_tpu's list, and `_J8.tif` the batch's J8;
+23. [sharded filter]: `frangi3d_sharded` over a virtual mesh of four
+   shards on cuda:0 (`Mesh((cuda:0,) * 4)`) on the main stack at sigmas
+   (2, 4, 6): J, Jmin, Jmax, Vx, Vy, Vz bitwise the monolithic unfused
+   filter on the card; K4's and K3's launches and the milliseconds;
+24. [sharded exact], [sharded tube]: `reconstruction_func_sharded` on the
+   main stack over that mesh, twice: each stage's seconds, SWC nodes,
+   handoffs, kept-local, lost and re-queued traces, run 1's launches of K2
+   (or tube_corr), K3 and K4 (each above 0, K1 none), the peak device
+   bytes within 4 x `plan_sharded`'s per-shard estimate, SWC F1 >= 0.85
+   against the single-device CLI run of [main exact]/[main tube] (same
+   key), handoffs > 0 and no trace lost, run 2 bitwise run 1;
+25. [sharded 2d]: a (1, 2048, 2048) plane of make_volume's recipe over
+   four Y shards, exact: J8 the single-device run's, F1 >= 0.85;
+26. [sharded checkpoint]: a (32, 256, 256) stack over the mesh cut by the
+   trace cap, checkpointed and resumed: bitwise the uninterrupted run;
+27. [sharded cards]: with two or more cards, the main stack over
+   min(4, count) real cards, bitwise the virtual mesh's tree and each
+   card's peak under its plan; with one card it says it was not run;
+28. [plan]: `--plan --mesh 4` and `--plan` through the CLI on the main
+   stack against the card's memory, and `min_devices` for a 2048^3 exact
+   stack.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its path, error, times, bound and library time; the 2-D and
 soma paths' launches and the one-plane rows' times under `launches_2d`,
-`launches_soma` and `plane`); the last line is {"ok": true, "device": {...}}.
+`launches_soma` and `plane`, the sharded paths' run-1 launches under
+`launches_sharded_exact` and `launches_sharded_tube`); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1952,6 +1975,284 @@ def phase_serving(torch, card, main_np):
     return out
 
 
+#: shards of the virtual mesh of the sharded phases (all on the card)
+MESH_SHARDS = 4
+#: [sharded 2d]'s plane and [sharded checkpoint]'s stack
+SHARDED_PLANE_SHAPE = (1, 2048, 2048)
+SHARDED_CK_SHAPE = (32, 256, 256)
+#: the kernels each sharded path must launch: the unfused filter's K4 and
+#: K3 on every shard's halo slab, then K2 or tube_corr (and the map build
+#: on K3)
+SHARDED_KERNELS = {
+    "exact": ("conv_yx", "conv1d_axis", "exact_sums"),
+    "tube": ("conv_yx", "conv1d_axis", "conv1d_along_axis", "tube_corr_trace",
+             "tube_corr_score"),
+}
+
+
+def virtual_mesh(torch, n=MESH_SHARDS):
+    """n shards on one device: the card's cuda:0 (or the CPU in a rehearsal)."""
+    from pnr_tpu_torch.parallel import Mesh
+
+    return Mesh((torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE),) * n)
+
+
+def tree_rows(tree):
+    """A node list as the SWC rows that `read_swc` gives for its file."""
+    from pnr_tpu_torch.io.swc import read_swc, save_nodelist
+
+    fd, path = tempfile.mkstemp(suffix=".swc", dir=HERE)
+    os.close(fd)
+    try:
+        save_nodelist(tree, path)
+        return read_swc(path)
+    finally:
+        os.remove(path)
+
+
+def swc_f1(tree, rows):
+    """The port's compare_swc of `tree` against SWC rows (dist 3, as
+    tests/test_parallel.py scores sharded against single-device)."""
+    from pnr_tpu_torch.utils.swc_compare import compare_swc
+
+    return compare_swc(tree_rows(tree), rows, dist=3.0, resample=1.0)
+
+
+def phase_sharded_filter(torch, card, main_np):
+    """[sharded filter]: frangi3d_sharded on the virtual mesh against the
+    monolithic unfused filter on the card, bitwise; K4's and K3's
+    launches and the phase's milliseconds."""
+    from pnr_tpu_torch.ops.frangi import frangi3d
+    from pnr_tpu_torch.parallel import frangi3d_sharded, shard_volume
+
+    mesh = virtual_mesh(torch)
+    vs = shard_volume(main_np, mesh)
+    frangi3d_sharded(vs, SIGMAS, ZDIST, mesh)  # warm
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    j, jmin, jmax, vx, vy, vz = frangi3d_sharded(vs, SIGMAS, ZDIST, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = read_counters()
+    want = frangi3d(torch.from_numpy(main_np).to(DEVICE), SIGMAS, ZDIST)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    frangi3d(torch.from_numpy(main_np).to(DEVICE), SIGMAS, ZDIST)
+    torch.cuda.synchronize()
+    mono_ms = (time.perf_counter() - t1) * 1e3
+    same = {k: bool(torch.equal(torch.cat(a), b)) for k, a, b in (
+        ("J", j, want[0]), ("Vx", vx, want[3]), ("Vy", vy, want[4]), ("Vz", vz, want[5]))}
+    same["Jmin"] = bool(torch.equal(jmin, want[1]))
+    same["Jmax"] = bool(torch.equal(jmax, want[2]))
+    print(f"[sharded filter] frangi3d_sharded over {MESH_SHARDS} shards of one card on "
+          f"{MAIN_SHAPE}, sigmas {SIGMAS}: {ms:.3f} ms (the monolithic filter {mono_ms:.3f} ms); "
+          f"K4 {n['conv_yx']}, K3 {n['conv1d_axis']} launches; bitwise the monolithic unfused "
+          f"filter {json.dumps(same)} [{card}]", flush=True)
+    check(all(same.values()), "[sharded filter] bitwise the monolithic unfused filter")
+    check(n["conv_yx"] > 0 and n["conv1d_axis"] > 0, "[sharded filter] launched K4 and K3")
+    return {"ms": ms, "monolithic_ms": mono_ms, "K4": n["conv_yx"], "K3": n["conv1d_axis"]}
+
+
+def phase_sharded_main(torch, card, main_np, mode, single_rows):
+    """[sharded exact] / [sharded tube]: reconstruction_func_sharded on the
+    main stack over the virtual mesh, twice: each stage's seconds, the SWC,
+    the handoffs, kept-local and lost traces; run 1's kernel launches (set
+    to 0 just before it); the peak device bytes against plan_sharded's
+    per-shard estimate; SWC F1 against the single-device CLI run of
+    [main exact]/[main tube] (same key) >= 0.85."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.parallel import card_memory_bytes, plan_sharded
+    from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+    tag = f"sharded {mode}"
+    cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), zncc_mode=mode)
+    mesh = virtual_mesh(torch)
+    plan = plan_sharded(MAIN_SHAPE, cfg, MESH_SHARDS, card_memory_bytes(DEVICE))
+    out = {"plan_per_shard_bytes": plan.peak_bytes, "plan_peak_stage": plan.peak_stage}
+    results = []
+    for run in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if run == 1:
+            reset_counters()
+        t0 = time.perf_counter()
+        res = reconstruction_func_sharded(main_np, cfg, mesh, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        if run == 1:
+            n = read_counters()
+            out["launches"] = n
+        score = swc_f1(res.tree, single_rows)
+        print(f"[{tag}] run {run}: {wall:.3f} s, {len(res.tree) - 1} SWC nodes, seeds "
+              f"{res.n_raw_seeds} raw / {len(res.seeds_pos)} selected, {res.trace_count} traces, "
+              f"{res.n_handoffs} handoffs, {res.n_kept_local} kept local, {res.n_lost} lost, "
+              f"{res.n_requeued} re-queued; F1 against the single-device run {score.f1:.4f} "
+              f"(recall {score.recall:.4f}, precision {score.precision:.4f}); peak "
+              f"{peak} B, {MESH_SHARDS} x the plan's {plan.peak_bytes} B a shard ({plan.peak_stage}) "
+              f"= {MESH_SHARDS * plan.peak_bytes} [{card}]", flush=True)
+        print(f"[{tag}] run {run} stages (s): "
+              f"{json.dumps({k: round(v, 4) for k, v in res.timings.items()})}", flush=True)
+        check(score.f1 >= 0.85, f"[{tag}] SWC F1 against the single-device run >= 0.85")
+        check(res.n_handoffs > 0 and res.n_lost == 0 and res.n_requeued == 0,
+              f"[{tag}] traces handed off, none lost or re-queued")
+        check(MESH_SHARDS * plan.peak_bytes >= peak,
+              f"[{tag}] {MESH_SHARDS} x the plan's per-shard peak covers the measured peak")
+        out[f"run{run}"] = {"s": wall, "stages": res.timings, "nodes": len(res.tree) - 1,
+                            "traces": res.trace_count, "handoffs": res.n_handoffs,
+                            "kept_local": res.n_kept_local, "f1": score.f1, "peak_bytes": peak}
+        results.append(res)
+    print(f"[{tag}] kernel launches during run 1: {json.dumps(out['launches'])}", flush=True)
+    check(all(out["launches"][k] > 0 for k in SHARDED_KERNELS[mode]),
+          f"[{tag}] launched {', '.join(SHARDED_KERNELS[mode])}")
+    check(out["launches"]["frangi3d_fused"] == 0, f"[{tag}] no K1 (the sharded filter is unfused)")
+    check(same_tree(*results), f"[{tag}] run 2 bitwise run 1")
+    return out, results[0]
+
+
+def phase_sharded_2d(torch, card):
+    """[sharded 2d]: a (1, 2048, 2048) plane of make_volume's recipe sharded
+    over Y on the virtual mesh, exact mode, against the single-device run:
+    J8 equal and SWC F1 >= 0.85."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.pipeline import reconstruction_func, reconstruction_func_sharded
+
+    shape = SHARDED_PLANE_SHAPE
+    vol = make_volume(shape)
+    cfg = PNRConfig.from_cli_params(PLANE_PARAMS)
+    single = reconstruction_func(vol, cfg, verbose=False, device=DEVICE)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = reconstruction_func_sharded(vol, cfg, virtual_mesh(torch), verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counters()
+    score = swc_f1(res.tree, tree_rows(single.tree))
+    same_j8 = bool(np.array_equal(res.j8, single.j8))
+    print(f"[sharded 2d] {shape} over {MESH_SHARDS} Y shards, exact: {wall:.3f} s, "
+          f"{len(res.tree) - 1} SWC nodes, {res.trace_count} traces, {res.n_handoffs} handoffs, "
+          f"{res.n_lost} lost; J8 equal to the single-device run's {same_j8}; F1 against it "
+          f"{score.f1:.4f}; K3 {n['conv1d_axis']}, K2 {n['exact_sums']} launches [{card}]",
+          flush=True)
+    check(same_j8 and score.f1 >= 0.85 and res.n_lost == 0,
+          "[sharded 2d] J8 the single-device run's, F1 >= 0.85, no trace lost")
+    check(n["conv1d_axis"] > 0 and n["exact_sums"] > 0, "[sharded 2d] launched K3 and K2")
+    return {"s": wall, "f1": score.f1, "handoffs": res.n_handoffs, "launches": n}
+
+
+def phase_sharded_checkpoint(torch, card):
+    """[sharded checkpoint]: on a (32, 256, 256) stack over the virtual
+    mesh, a run cut by the trace cap with a checkpoint, resumed with the
+    cap lifted: bitwise the uninterrupted run."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+    vol = make_volume(SHARDED_CK_SHAPE, seed=3)
+    cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), wave_size=16)
+    mesh = virtual_mesh(torch)
+    full = reconstruction_func_sharded(vol, cfg, mesh, verbose=False)
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_sharded_", dir=HERE)
+    try:
+        ck = os.path.join(tmp, "cut.npz")
+        cap = max(1, full.trace_count // 2)
+        part = reconstruction_func_sharded(vol, dataclasses.replace(cfg, max_trace_count=cap),
+                                           mesh, verbose=False, checkpoint_path=ck)
+        resumed = reconstruction_func_sharded(vol, cfg, mesh, verbose=False, checkpoint_path=ck,
+                                              resume=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = same_tree(resumed, full)
+    print(f"[sharded checkpoint] {SHARDED_CK_SHAPE}: cut at {part.trace_count} of "
+          f"{full.trace_count} traces, resumed: bitwise the uninterrupted run {same} [{card}]",
+          flush=True)
+    check(0 < part.trace_count < full.trace_count and same,
+          "[sharded checkpoint] a cap-cut run resumed is bitwise the uninterrupted run")
+    return {"traces": full.trace_count, "cut_at": part.trace_count}
+
+
+def phase_sharded_cards(torch, card, main_np, virtual_exact):
+    """[sharded cards]: with two or more cards, the main stack, exact, over
+    min(4, count) real cards: the tree bitwise the virtual mesh's, each
+    card's peak under the plan's per-shard estimate. With one card it is
+    not run (it needs a second card), and says so."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.parallel import card_memory_bytes, make_mesh, plan_sharded
+    from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+    count = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    if count < 2:
+        print(f"[sharded cards] not run: {count} card(s) here; a mesh of real cards needs two "
+              f"or more (peer copies between cards and per-card streams are unverified by this "
+              f"run) [{card}]", flush=True)
+        return {"run": False, "cards": count}
+    n = min(4, count)
+    cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
+    mesh = make_mesh(n)
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats(i)
+    t0 = time.perf_counter()
+    res = reconstruction_func_sharded(main_np, cfg, mesh, verbose=False)
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    wall = time.perf_counter() - t0
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
+    plan = plan_sharded(MAIN_SHAPE, cfg, n, card_memory_bytes(mesh.devices[0]))
+    same = same_tree(res, virtual_exact)
+    print(f"[sharded cards] the main stack, exact, over {n} cards: {wall:.3f} s, {res.n_handoffs} "
+          f"handoffs; bitwise the virtual mesh's tree {same}; peaks {peaks} B against the plan's "
+          f"{plan.peak_bytes} B a card [{card}]", flush=True)
+    check(same and all(p <= plan.peak_bytes for p in peaks),
+          "[sharded cards] bitwise the virtual mesh, each card under its plan")
+    return {"run": True, "cards": n, "s": wall, "peaks": peaks}
+
+
+def phase_plan(torch, card, main_np):
+    """[plan]: `--plan --mesh 4` and `--plan` through the CLI on the main
+    stack against the card's memory, and min_devices for a 2048^3 exact
+    stack."""
+    from pnr_tpu_torch import PNRConfig, cli
+    from pnr_tpu_torch.parallel import card_memory_bytes, min_devices
+
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_plan_", dir=HERE)
+    try:
+        src = os.path.join(tmp, "stack.npy")
+        np.save(src, main_np)
+        for extra in (["--mesh", str(MESH_SHARDS)], []):
+            print(f"[plan] python -m pnr_tpu_torch -i <{MAIN_SHAPE} stack> --plan "
+                  f"{' '.join(extra)}:", flush=True)
+            rc = cli.main(["-i", src, "-p", *MAIN_PARAMS, "--plan", "--device", DEVICE, *extra])
+            check(rc == 0, f"[plan] --plan {' '.join(extra)} exited {rc} (the stack fits)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    big = min_devices((2048, 2048, 2048), PNRConfig.from_cli_params(MAIN_PARAMS),
+                      card_memory_bytes(DEVICE))
+    print(f"[plan] min_devices for a (2048, 2048, 2048) exact stack: {big.n_devices} cards\n"
+          f"{big.summary()} [{card}]", flush=True)
+    return {"min_devices_2048_exact": big.n_devices, "peak_stage": big.peak_stage}
+
+
+def phase_sharded(torch, card, main_np, main_rows):
+    """The sharded phases, after [serving]."""
+    out = {"filter": phase_sharded_filter(torch, card, main_np)}
+    torch.cuda.empty_cache()
+    virtual = {}
+    for mode in ("exact", "tube"):
+        out[mode], virtual[mode] = phase_sharded_main(torch, card, main_np, mode, main_rows[mode])
+        torch.cuda.empty_cache()
+    out["2d"] = phase_sharded_2d(torch, card)
+    out["checkpoint"] = phase_sharded_checkpoint(torch, card)
+    out["cards"] = phase_sharded_cards(torch, card, main_np, virtual["exact"])
+    out["plan"] = phase_plan(torch, card, main_np)
+    loaded = sorted(m for m in sys.modules
+                    if m in ("jax", "pnr_tpu") or m.startswith(("jax.", "pnr_tpu.")))
+    check(not loaded, f"no module of jax or of pnr_tpu was imported (found {loaded})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1991,13 +2292,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     soma_np = make_soma_volume(MAIN_SHAPE)
     soma = phase_soma(torch, card, soma_np)
-    launches, profiles, stages = {}, {}, {}
+    launches, profiles, stages, main_rows = {}, {}, {}, {}
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_", dir=HERE)
     try:
         src = os.path.join(workdir, "stack.npy")
         np.save(src, main_np)
         for mode in ("exact", "tube"):
-            launches[mode], run2_s, _ = phase_main(torch, card, src, workdir, mode)
+            launches[mode], run2_s, main_rows[mode] = phase_main(torch, card, src, workdir,
+                                                                 mode)
 
             def run(mode=mode):
                 rc = cli.main(cli_argv(src, workdir, f"{mode}3", mode))
@@ -2040,6 +2342,7 @@ def main() -> int:
         phase_small_agreement(torch, mode)
     quality = phase_quality(torch, card)
     serving = phase_serving(torch, card, main_np)
+    sharded = phase_sharded(torch, card, main_np, main_rows)
     k2_ms, k2_seen = profiles["exact"]["kernels"]["K2"]
     k2.update({"device_ms_per_exact_run": k2_ms, "profiled_launches": k2_seen,
                "seed_scoring_launches": launches["exact"]["seed_scoring"]["exact_sums"],
@@ -2065,6 +2368,7 @@ def main() -> int:
     print(f"[2d] maps {json.dumps(maps_2d)}; tiled {json.dumps(tiled_2d)}; soma "
           f"{json.dumps(soma)}; quality {json.dumps(quality)}", flush=True)
     print(f"[serving] {json.dumps(serving)}", flush=True)
+    print(f"[sharded] {json.dumps(sharded, default=str)}", flush=True)
     for mode in ("exact", "tube"):
         n = serving[f"batch {mode}"]["launches"]
         k1[f"launches_batch_{mode}"] = n["K1"]
@@ -2119,6 +2423,16 @@ def main() -> int:
          "replaces": "pnr_tpu/ops/pallas_conv.py:155",
          "launches": probe_launches, **k7},
     ]
+    # each kernel's launches in run 1 of the sharded paths
+    sharded_counter = {"frangi3d_fused": "frangi3d_fused", "exact_sums": "exact_sums",
+                       "tube_corr (tracer)": "tube_corr_trace",
+                       "tube_corr (seed scoring)": "tube_corr_score",
+                       "conv1d_axis": "conv1d_axis", "conv_yx": "conv_yx",
+                       "self_check": "self_check"}
+    for row in kernels:
+        for mode in ("exact", "tube"):
+            row[f"launches_sharded_{mode}"] = sharded[mode]["launches"][sharded_counter[row["name"]]]
+    kernels[4]["launches_sharded_tube_map_build"] = sharded["tube"]["launches"]["conv1d_along_axis"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,10 @@ after -p, the same validation and output naming (<image>_Advantra.swc
 with the parameter-provenance header), and the same modes: several -i
 inputs through the prefetch-pipelined `reconstruction_batch`, `--watch`
 (serve a directory), `--checkpoint`/`--resume`, `--save-midres` (the
-reference's intermediate dumps), `--find-maxima` and `--interactive`.
-`--mesh` and `--plan` (the multi-GPU pipeline) are not ported yet, and
-every stack runs on the device (the port has no host one-shot engine).
+reference's intermediate dumps), `--find-maxima`, `--interactive`,
+`--mesh N` (one input over N cards, `reconstruction_func_sharded`) and
+`--plan` (the per-card memory plan, read from the image's header only).
+Every stack runs on the device (the port has no host one-shot engine).
 
     python -m pnr_tpu_torch -i image.tif -p 2,4,6 0 5 0.3 3 2 200 20 2 4 1
 
@@ -31,15 +32,10 @@ from pnr_tpu_torch.io.swc import save_nodelist
 from pnr_tpu_torch.io.volume import load_volume, save_volume
 from pnr_tpu_torch.utils.exporters import metrics_entry
 
-#: options of pnr_tpu's CLI whose engines are not ported yet (ROADMAP.md,
-#: Queue 1, item 15: the multi-GPU pipeline and its planner)
-_NOT_PORTED = (("mesh", "--mesh"), ("plan", "--plan"))
-
-
 def print_help_params() -> None:
     print(
         """*** PNR (Advantra), PyTorch/CUDA port: usage ***
-python -m pnr_tpu_torch -i <inimg_file> [more images] -p <neuritesigmas somaradius tolerance znccth kappa step ni np zdist nodepervol vol> [-o out.swc] [--metrics M] [--zncc-mode exact|tube] [--checkpoint C.npz [--resume]] [--save-midres] [--find-maxima] [--watch] [--interactive] [--quiet] [--device cuda]
+python -m pnr_tpu_torch -i <inimg_file> [more images] -p <neuritesigmas somaradius tolerance znccth kappa step ni np zdist nodepervol vol> [-o out.swc] [--metrics M] [--zncc-mode exact|tube] [--checkpoint C.npz [--resume]] [--save-midres] [--find-maxima] [--watch] [--interactive] [--mesh N] [--plan] [--quiet] [--device cuda]
 inimg_file     The input image (.tif / .v3draw / .npy); with --watch, a directory.
 neuritesigmas  Comma-delimited Gaussian cross-section sigmas.
 somaradius     Minimum soma radius (0: no soma detection).
@@ -121,11 +117,16 @@ def main(argv=None) -> int:
                     help="write the raw image's local maxima as SWC and exit (host only)")
     ap.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
     ap.add_argument("--resume", action="store_true", help="resume from --checkpoint")
-    ap.add_argument("--mesh", type=int, default=0, help="not yet ported")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="run the multi-device pipeline over N cards, cuda:0 ... N-1 (0 or 1: "
+                         "one device; with --device cpu, N CPU shards)")
     ap.add_argument("--watch", action="store_true",
                     help="serve mode: -i names a directory; reconstruct stacks as they arrive "
                          "until <dir>/.stop appears")
-    ap.add_argument("--plan", action="store_true", help="not yet ported")
+    ap.add_argument("--plan", action="store_true",
+                    help="print the per-card memory plan for reconstructing -i over --mesh N "
+                         "cards (or the smallest mesh that fits, when --mesh is 0) and exit; "
+                         "reads the image's header only")
     ap.add_argument("--interactive", action="store_true",
                     help="prompt for the 11 parameters with the reference defaults")
     args = ap.parse_args(argv)
@@ -133,15 +134,12 @@ def main(argv=None) -> int:
     if args.help or not args.images:
         print_help_params()
         return 0 if args.help else 1
-    for attr, flag in _NOT_PORTED:
-        if getattr(args, attr):
-            sys.stderr.write(f"{flag} is not yet ported to pnr_tpu_torch (see ROADMAP.md)\n")
-            return 2
     image = args.images[0]
     if len(args.images) > 1:
         for bad, why in (
             (args.find_maxima, "--find-maxima"),
             (args.checkpoint, "--checkpoint"),
+            (args.mesh, "--mesh"),
             (args.output, "-o"),
             (args.save_midres, "--save-midres"),
         ):
@@ -194,6 +192,24 @@ def main(argv=None) -> int:
                              "output directory, not a .swc file\n")
             return 1
 
+    if args.plan:
+        # the image's header only: no voxel is read
+        from pnr_tpu_torch.io.volume import probe_volume_shape
+        from pnr_tpu_torch.parallel.plan import card_memory_bytes, min_devices, plan_sharded
+
+        try:
+            shape = probe_volume_shape(image)
+            mem = card_memory_bytes(args.device)
+            if args.mesh and args.mesh > 0:
+                plan = plan_sharded(shape, cfg, args.mesh, mem)
+            else:
+                plan = min_devices(shape, cfg, mem)
+        except (OSError, ValueError, RuntimeError) as e:
+            sys.stderr.write(f"{e}\n")
+            return 1
+        print(plan.summary())
+        return 0 if plan.fits else 1
+
     if args.find_maxima:
         # host only: the raw image's local maxima (the reference's
         # findMaxima path, Advantra_plugin.cpp:2308-2327)
@@ -229,8 +245,18 @@ def main(argv=None) -> int:
         print(f"device = {device}")
         print("-----------------------------------------------------")
 
+    mesh = None
+    if args.mesh and args.mesh > 1:
+        from pnr_tpu_torch.parallel import make_mesh
+
+        try:
+            mesh = make_mesh(args.mesh, device=device)
+        except ValueError as e:
+            sys.stderr.write(f"{e}\n")
+            return 1
+
     if args.watch:
-        n = watch_and_reconstruct(image, cfg, out_dir=args.output, verbose=verbose,
+        n = watch_and_reconstruct(image, cfg, out_dir=args.output, verbose=verbose, mesh=mesh,
                                   metrics_path=args.metrics, device=device)
         if verbose:
             print(f"serve: done, {n} stacks")
@@ -253,8 +279,15 @@ def main(argv=None) -> int:
         return 0
 
     vol = load_volume(image)
-    result = reconstruction_func(vol, cfg, verbose=verbose, checkpoint_path=args.checkpoint,
-                                 resume=args.resume, device=device)
+    if mesh is not None:
+        from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+        result = reconstruction_func_sharded(vol, cfg, mesh, verbose=verbose,
+                                             checkpoint_path=args.checkpoint, resume=args.resume)
+    else:
+        result = reconstruction_func(vol, cfg, verbose=verbose,
+                                     checkpoint_path=args.checkpoint, resume=args.resume,
+                                     device=device)
     out = args.output or (image + "_Advantra.swc")
     _save_swc(result.tree, out, cfg)
     if args.metrics:

@@ -42,7 +42,7 @@
 // count, a bound under 1 us); its cost is one launch. The design therefore
 // fuses what was ~200 small launches per tracer iteration (patch gathers,
 // coordinates, sums, correlation) into one, and keeps the launch cheap:
-// the model constants and the window table are a 1,480-byte struct copied
+// the model constants and the window table are a 1,504-byte struct copied
 // to the card once per engine and volume shape and passed by pointer, so
 // a launch costs the host about what a four-argument launch does
 // (scripts/torch_tube_corr_host_cost.py); the launch is capture-safe: no
@@ -50,8 +50,15 @@
 // the sigma-6 window (24, 32, 32) x 3 channels is 295 KB, over the 227 KB
 // a block may hold, and a trace's rows touch a small part of it.
 //
-// The caller's corners are clamped again into the field, and the tap
-// corner into [0, p - 2], so a bad input can never read outside the field.
+// The caller's corners are clamped again into the volume and, shifted by
+// `origin`, into the field, and the tap corner into [0, p - 2], so a bad
+// input can never read outside the field.
+//
+// A field may be a slab of the volume (a shard's, pnr_tpu_torch/parallel):
+// `dims` are then the volume's, `fdims` the slab's and `origin` where the
+// slab starts in the volume. Positions, corners and the clamps are the
+// volume's; only the window's address is the slab's, so a query whose
+// window lies in the slab reads what it reads in the whole field.
 // Every window dimension must be >= 2 (the wrapper checks), but for a
 // one-plane field (Z = 1, a 2-D stack): its windows have pz = 1, every
 // sample's rz is 0 (JAX's `_rel_coords` at l == 1) and it weighs plane 0
@@ -73,6 +80,8 @@ constexpr int kThreads = 32 * kWarps;
 struct TubeParams {
   int32_t S, NV, G;
   int32_t dims[3];              // volume (Z, Y, X)
+  int32_t origin[3];            // the field's first element in the volume (zyx)
+  int32_t fdims[3];             // the field's (Z, Y, X): dims, or a slab's
   int32_t group_of[kMaxS];      // sigma -> window group
   int32_t win[kMaxS][3];        // group window (pz, py, px)
   float win_hi[kMaxS][3];       // p - 1.001, rounded to float32
@@ -135,7 +144,7 @@ __device__ __forceinline__ void sample3(const E* __restrict__ w, long long zpitc
   for (int c = 0; c < 3; ++c) out[c] = wx0 * a0[c] + wx1 * a1[c];
 }
 
-// field (S, Z, Y, 3X); corners (T, G, 3) int32 zyx; pos, dirs (T, N, 3)
+// field (S, FZ, FY, 3FX); corners (T, G, 3) int32 zyx; pos, dirs (T, N, 3)
 // xyz; corr, sig (T, N); sums (T, N, S, 3) or null. One warp per query.
 template <typename E>
 __global__ void __launch_bounds__(kThreads)
@@ -155,8 +164,9 @@ __global__ void __launch_bounds__(kThreads)
   const float dx = __ldg(dirs + 3 * q), dy = __ldg(dirs + 3 * q + 1), dz = __ldg(dirs + 3 * q + 2);
   const int S = p.S, NV = p.NV;
   const int Z = p.dims[0], Y = p.dims[1], X = p.dims[2];
-  const long long ypitch = 3LL * X;
-  const long long zpitch = (long long)Y * ypitch;
+  const int FZ = p.fdims[0], FY = p.fdims[1], FX = p.fdims[2];
+  const long long ypitch = 3LL * FX;
+  const long long zpitch = (long long)FY * ypitch;
   const int* cq = corners + t * p.G * 3;
   // every (sigma, line sample) row of the query at once: its loads are in
   // flight together
@@ -178,7 +188,11 @@ __global__ void __launch_bounds__(kThreads)
     const float rz = Z == 1 ? 0.0f
                             : clampf(__fsub_rn(clampf(qz, 0.0f, p.vol_hi[0]), (float)cz), 0.0f,
                                      p.win_hi[g][0]);
-    const E* win = field + ((long long)s * Z + cz) * zpitch + (long long)cy * ypitch + 3LL * cx;
+    // the window in the field: where the volume's window lies in it
+    const int fz = min(max(cz - p.origin[0], 0), FZ - pz);
+    const int fy = min(max(cy - p.origin[1], 0), FY - py);
+    const int fx = min(max(cx - p.origin[2], 0), FX - px);
+    const E* win = field + ((long long)s * FZ + fz) * zpitch + (long long)fy * ypitch + 3LL * fx;
     float m[3];
     sample3(win, zpitch, ypitch, pz, py, px, rz, ry, rx, m);
     const float mask = p.vmask[s][v];

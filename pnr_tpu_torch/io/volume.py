@@ -43,9 +43,9 @@ def probe_volume_shape(path: str) -> tuple:
     """
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npy":
-        with open(path, "rb") as f:
-            version = np.lib.format.read_magic(f)
-            shape, _, _ = np.lib.format._read_array_header(f, version)
+        # a memory map reads the header and no voxel (numpy's private
+        # header reader is gone from numpy 2.x)
+        shape = np.load(path, mmap_mode="r").shape
         if len(shape) == 2:
             shape = (1,) + tuple(shape)
         if len(shape) != 3:

@@ -20,7 +20,7 @@ allocated once; Jmin and Jmax stay 0-d tensors on the device.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -81,17 +81,20 @@ def frangi2d_tiled(
     beta_two: float = 15.0,
     block_y: int = 4096,
     block_x: int = 4096,
+    jmin_rows: Optional[Tuple[int, int]] = None,
 ):
     """2-axis tiled 2-D Frangi over a (Y, X) image, bitwise `frangi2d`
     (borders included), with O(outputs + tile) peak memory: the aligned
     windows of `frangi3d_tiled` along y and x (halo `frangi_halo_y`).
-    Returns (J, Jmin, Jmax, Vx, Vy); the caller adds the zero Vz."""
+    Returns (J, Jmin, Jmax, Vx, Vy); the caller adds the zero Vz.
+    `jmin_rows` (lo, hi) restricts Jmin to those rows (a shard's own rows
+    of its halo slab, parallel/sharded.py)."""
     y, x = img.shape
     h = frangi_halo_y(sigmas)
     by, bx = min(block_y, y), min(block_x, x)
     wy, wx = min(by + 2 * h, y), min(bx + 2 * h, x)
     ny, nx = -(-y // by), -(-x // bx)
-    if ny * nx == 1:
+    if ny * nx == 1 and jmin_rows is None:
         return frangi2d(img, sigmas, beta_one, beta_two)[:5]
 
     j, jmin, jmax, vx, vy, _ = _outputs((y, x), img.device)
@@ -110,10 +113,19 @@ def frangi2d_tiled(
         j[out] = jc
         # Jmin reduces the first-scale response over the kept block, which
         # is bitwise the monolithic first-scale response there
-        jmin = torch.minimum(jmin, v1[keep].min())
+        jmin = _min_rows(jmin, v1[keep], y0, jmin_rows)
         jmax = torch.maximum(jmax, jc.max())
         vx[out], vy[out] = vxt[keep], vyt[keep]
     return j, jmin, jmax, vx, vy
+
+
+def _min_rows(jmin, v1, r0: int, rows):
+    """jmin folded with the min of `v1`, whose row 0 is row r0, over the
+    rows in `rows` = (lo, hi) (all of them when None)."""
+    if rows is None:
+        return torch.minimum(jmin, v1.min())
+    a, b = max(r0, rows[0]) - r0, min(r0 + v1.shape[0], rows[1]) - r0
+    return torch.minimum(jmin, v1[a:b].min()) if a < b else jmin
 
 
 def _outputs(shape, device):
@@ -132,9 +144,12 @@ def frangi3d_tiled(
     c: float = 500.0,
     block_z: int = 16,
     block_y: int = 256,
+    jmin_rows: Optional[Tuple[int, int]] = None,
 ):
     """2-axis tiled Frangi, bitwise `frangi3d` (borders included), with
-    O(outputs + tile) peak memory.
+    O(outputs + tile) peak memory. `jmin_rows` (lo, hi) restricts Jmin to
+    those planes (a shard's own planes of its halo slab,
+    parallel/sharded.py).
 
     Aligned-window tiling, as in JAX: each tile's fetch window is shifted
     to stay inside the volume, so a window edge coincides with the true
@@ -150,7 +165,7 @@ def frangi3d_tiled(
     wz = min(bz + 2 * hz, z)
     wy = min(by + 2 * hy, y)
     nz, ny = -(-z // bz), -(-y // by)
-    if nz * ny == 1:
+    if nz * ny == 1 and jmin_rows is None:
         return frangi3d(vol, sigmas, zdist, alpha, beta, c)
 
     j, jmin, jmax, vx, vy, vz = _outputs((z, y, x), vol.device)
@@ -171,7 +186,7 @@ def frangi3d_tiled(
         # Jmin reduces the FIRST-scale response over the kept block
         # (reference running-min semantics): the kept region's v1 is
         # bitwise the monolithic first-scale response
-        jmin = torch.minimum(jmin, v1[keep].min())
+        jmin = _min_rows(jmin, v1[keep], z0, jmin_rows)
         jmax = torch.maximum(jmax, jc.max())
         vx[out], vy[out], vz[out] = vxt[keep], vyt[keep], vzt[keep]
     return j, jmin, jmax, vx, vy, vz
@@ -185,12 +200,19 @@ def frangi3d_blocked(
     beta: float = 0.5,
     c: float = 500.0,
     block_z: int = 32,
+    jmin_rows: Optional[Tuple[int, int]] = None,
 ):
     """Same contract as `frangi3d`, O(block) peak memory: Z tiles of
     `block_z` planes with an edge-replicated halo, then the two planes at
-    each true border recomputed on thin slabs whose edge is that border."""
+    each true border recomputed on thin slabs whose edge is that border.
+    `jmin_rows` as in `frangi3d_tiled`."""
     z, y, x = vol.shape
     halo = frangi_halo_z(sigmas, zdist)
+    if z <= 2 * (halo + 4) and jmin_rows is not None:
+        j, _, _, vx, vy, vz, v1 = frangi3d(vol, sigmas, zdist, alpha, beta, c,
+                                           keep_first_scale=True)
+        jmin = _min_rows(torch.tensor(float("inf"), device=vol.device), v1, 0, jmin_rows)
+        return j, jmin, j.max(), vx, vy, vz
     if z <= 2 * (halo + 4):
         # too shallow to both tile and keep exact true borders — and by
         # construction small enough for the monolithic path
@@ -217,7 +239,7 @@ def frangi3d_blocked(
         # they are recomputed below and folded in there
         lo, hi = max(z0, 2) - z0, min(z0 + n, z - 2) - z0
         if hi > lo:
-            jmin = torch.minimum(jmin, v1[halo + lo : halo + hi].min())
+            jmin = _min_rows(jmin, v1[halo + lo : halo + hi], z0 + lo, jmin_rows)
             jmax = torch.maximum(jmax, jc[lo:hi].max())
 
     # True-border fix: slabs deep enough that their far edge cannot reach
@@ -233,6 +255,6 @@ def frangi3d_blocked(
     vx[:2], vx[z - 2 :] = vxh[:2], vxt[-2:]
     vy[:2], vy[z - 2 :] = vyh[:2], vyt[-2:]
     vz[:2], vz[z - 2 :] = vzh[:2], vzt[-2:]
-    jmin = torch.minimum(torch.minimum(jmin, v1h[:2].min()), v1t[-2:].min())
+    jmin = _min_rows(_min_rows(jmin, v1h[:2], 0, jmin_rows), v1t[-2:], z - 2, jmin_rows)
     jmax = torch.maximum(jmax, torch.maximum(jh[:2].max(), jt[-2:].max()))
     return j, jmin, jmax, vx, vy, vz

@@ -198,18 +198,22 @@ def hat_sample_field_plain(maps, corners, rel, pdims) -> torch.Tensor:
     return out.reshape(t, rows, 4)
 
 
-def tube_corr_plain(field, groups, corners, pos, dirs, tables: TubeTables):
+def tube_corr_plain(field, groups, corners, pos, dirs, tables: TubeTables, frame=None):
     """The plain version of `tube_corr`: per window group, slice, sample
     (`hat_sample_field_plain` on the group's sigmas), then `finish`.
-    Returns (corr, sig) (T, N) and the line sums (T, N, S, 3)."""
-    vdims = vol_dims(field.shape)
+    Returns (corr, sig) (T, N) and the line sums (T, N, S, 3). With a
+    `frame` (ops/slab.SlabFrame) the field is a slab of a larger volume:
+    positions and corners are in the larger volume's coordinates, samples
+    clamp to its bounds, and the windows are read from the slab."""
+    vdims = vol_dims(field.shape) if frame is None else tuple(frame.dims)
     t, n = pos.shape[:2]
     vs = []
     for g, (g0, g1, pdims) in enumerate(groups):
         corner = corners[:, g]
         rel = rel_coords(tables, vdims, pdims, corner, pos, dirs, g0, g1)
         gs, m = g1 - g0, rel.shape[2]
-        v = hat_sample_field_plain(field[g0:g1], corner, rel.reshape(t, gs * m, 4), pdims)
+        local = corner if frame is None else frame.local(corner)
+        v = hat_sample_field_plain(field[g0:g1], local, rel.reshape(t, gs * m, 4), pdims)
         vs.append(v.reshape(t, gs, m, 4)[..., :3])
     return finish(tables, vs[0] if len(vs) == 1 else torch.cat(vs, dim=1), t, n)
 
@@ -223,6 +227,8 @@ class TubeParams(ctypes.Structure):
     _fields_ = [
         ("S", ctypes.c_int32), ("NV", ctypes.c_int32), ("G", ctypes.c_int32),
         ("dims", ctypes.c_int32 * 3),
+        ("origin", ctypes.c_int32 * 3),
+        ("fdims", ctypes.c_int32 * 3),
         ("group_of", ctypes.c_int32 * MAX_SIGMAS),
         ("win", (ctypes.c_int32 * 3) * MAX_SIGMAS),
         ("win_hi", (ctypes.c_float * 3) * MAX_SIGMAS),
@@ -237,11 +243,15 @@ class TubeParams(ctypes.Structure):
 class KernelParams:
     """The kernel's constants for one window table and volume shape, copied
     to `device` once (`data`, the struct's bytes; the kernel reads them by
-    pointer), with what the wrapper checks its inputs against."""
+    pointer), with what the wrapper checks its inputs against. A field
+    that is a slab of the volume `vdims` passes its place in it: `origin`
+    (zyx) and its own (Z, Y, X) `field_dims` (ops/slab.SlabFrame)."""
 
     __slots__ = ("struct", "data", "address", "device_index", "field_shape", "groups")
 
-    def __init__(self, tables: TubeTables, groups, vdims, device):
+    def __init__(self, tables: TubeTables, groups, vdims, device, origin=(0, 0, 0),
+                 field_dims=None):
+        field_dims = tuple(vdims) if field_dims is None else tuple(field_dims)
         s, nv = (int(d) for d in tables.vgrid.shape)
         if s > MAX_SIGMAS or nv > MAX_LINE_SAMPLES or not groups:
             raise ValueError(
@@ -252,6 +262,8 @@ class KernelParams:
         p.S, p.NV, p.G = s, nv, len(groups)
         for i, d in enumerate(vdims):
             p.dims[i] = d
+            p.origin[i] = origin[i]
+            p.fdims[i] = field_dims[i]
             p.vol_hi[i] = float(np.float32(d - 1.001))
         covered = []
         for g, (g0, g1, pdims) in enumerate(groups):
@@ -260,8 +272,10 @@ class KernelParams:
             if min(pdims[1:]) < 2 or pdims[0] < (1 if vdims[0] == 1 else 2):
                 raise ValueError(f"tube_corr needs every window dimension >= 2 (pz = 1 only on a "
                                  f"one-plane volume), got {tuple(pdims)} in {tuple(vdims)}")
-            if any(pd > d for pd, d in zip(pdims, vdims)):
-                raise ValueError(f"window {tuple(pdims)} exceeds the volume {tuple(vdims)}")
+            if any(pd > d for pd, d in zip(pdims, vdims)) or any(
+                    pd > d for pd, d in zip(pdims, field_dims)):
+                raise ValueError(f"window {tuple(pdims)} exceeds the volume {tuple(vdims)} or "
+                                 f"the field {field_dims}")
             for i, pd in enumerate(pdims):
                 p.win[g][i] = pd
                 p.win_hi[g][i] = float(np.float32(pd - 1.001))
@@ -282,7 +296,7 @@ class KernelParams:
         self.data = torch.frombuffer(bytearray(p), dtype=torch.uint8).to(device)
         self.address = self.data.data_ptr()
         self.device_index = self.data.get_device()
-        l, h, w = vdims
+        l, h, w = field_dims
         self.field_shape = (s, l, h, 3 * w)
         self.groups = len(groups)
 
@@ -303,21 +317,25 @@ def _check_struct() -> None:
 
 
 def tube_corr(field, groups, corners, pos, dirs, tables: TubeTables, params: KernelParams = None,
-              scoring: bool = False, with_sums: bool = False):
+              scoring: bool = False, with_sums: bool = False, frame=None):
     """Tube ZNCC of the queries pos, dirs (T, N, 3) xyz over the windows
     `groups` at `corners` (T, G, 3) of `field` -> (out, sums): out
     (2, T, N) holds corr (row 0) and the sigma of the maximum (row 1), sums
     (T, N, S, 3) the masked line sums (on a card only `with_sums`, else
     None). A CPU field runs `tube_corr_plain`; a CUDA field the kernel,
     counted in SCORE_LAUNCHES when `scoring`, else TRACE_LAUNCHES, with
-    `params` built for these groups (built here when not given)."""
+    `params` built for these groups and `frame` (built here when not
+    given). `frame` (ops/slab.SlabFrame): the field is a slab of a larger
+    volume, in whose coordinates pos and corners are."""
     if field.is_cuda:
         if params is None:
-            params = KernelParams(tables, groups, vol_dims(field.shape), field.device)
+            fdims = vol_dims(field.shape)
+            params = (KernelParams(tables, groups, fdims, field.device) if frame is None else
+                      KernelParams(tables, groups, frame.dims, field.device, frame.origin, fdims))
         return _tube_corr_cuda(field, corners, pos, dirs, params, scoring, with_sums)
     if field.device.type != "cpu":
         raise ValueError(f"tube_corr: the field is on {field.device}, neither a card nor the CPU")
-    corr, sig, sums = tube_corr_plain(field, groups, corners, pos, dirs, tables)
+    corr, sig, sums = tube_corr_plain(field, groups, corners, pos, dirs, tables, frame)
     return torch.stack([corr, sig]), sums
 
 

@@ -346,6 +346,12 @@ class ExactPatchEngine:
     corr(vol, corner, pos (T, B, 3), dirs) -> (corr (T, B), sig (T, B))
     eval_fused(vol, pos, dirs): both, with the patch centred on the mean
     of each trace's queries.
+
+    Each takes an optional `frame` (ops/slab.SlabFrame): `vol` is then a
+    slab of a larger volume, positions and corners are in the larger
+    volume's coordinates, patches are placed and samples clamped as there,
+    and the patch is read from the slab (shifted into it if it would
+    leave it).
     """
 
     def __init__(
@@ -377,7 +383,10 @@ class ExactPatchEngine:
         pz = 1 if l == 1 else min(2 * half_z + 2, l)
         return pz, py, px
 
-    def corners(self, vol_shape, center: torch.Tensor) -> torch.Tensor:
+    def corners(self, vol_shape, center: torch.Tensor, frame=None) -> torch.Tensor:
+        if frame is not None:
+            corner = self.corners(frame.dims, center)
+            return frame.into(corner, self.dims(frame.dims), vol_shape[-3:])
         l, h, w = vol_shape[-3:]
         pz, py, px = self.dims(vol_shape)
         c = torch.round(center).to(torch.int32)
@@ -386,10 +395,20 @@ class ExactPatchEngine:
         cz = torch.clamp(c[:, 2] - pz // 2, 0, l - pz)
         return torch.stack([cz, cy, cx], dim=-1).contiguous()
 
-    def qinfo(self, vol, corner, pos, dirs) -> torch.Tensor:
+    def patch_dims(self, vol, frame=None) -> Tuple[int, int, int]:
+        """The patch of `vol`, or of the volume that `frame` places it in;
+        it must fit `vol`."""
+        if frame is None:
+            return self.dims(vol.shape)
+        pdims = self.dims(frame.dims)
+        if any(p > d for p, d in zip(pdims, vol.shape)):
+            raise ValueError(f"a patch {pdims} does not fit the slab {tuple(vol.shape)}")
+        return pdims
+
+    def qinfo(self, vol, corner, pos, dirs, frame=None) -> torch.Tensor:
         """Pack per-(trace, particle) frame/position/bounds scalars (T, B, 16)."""
-        l, h, w = (int(d) for d in vol.shape)
-        pz, py, px = self.dims(vol.shape)
+        l, h, w = (int(d) for d in (vol.shape if frame is None else frame.dims))
+        pz, py, px = self.patch_dims(vol, frame)
         vx, vy, vz = dirs[..., 0], dirs[..., 1], dirs[..., 2]
         u, wv = local_frame(vx, vy, vz, self.is2d)
         cf = corner.to(torch.float32)
@@ -404,11 +423,12 @@ class ExactPatchEngine:
             rzp = torch.zeros_like(rzp)
             zhi = torch.zeros_like(zhi)
         # m0: the volume value at the particle, inside its patch
-        ci = corner.long()
+        ci = (corner if frame is None else frame.local(corner)).long()
+        vh, vw = int(vol.shape[1]), int(vol.shape[2])
         pzi = torch.clamp(torch.round(rzp).long(), 0, pz - 1) + ci[:, None, 0]
         pyi = torch.clamp(torch.round(ryp).long(), 0, py - 1) + ci[:, None, 1]
         pxi = torch.clamp(torch.round(rxp).long(), 0, px - 1) + ci[:, None, 2]
-        m0 = vol.reshape(-1)[(pzi * h + pyi) * w + pxi].to(torch.float32)
+        m0 = vol.reshape(-1)[(pzi * vh + pyi) * vw + pxi].to(torch.float32)
         return torch.stack(
             [
                 rzp, -vz, wv[..., 2],
@@ -421,11 +441,12 @@ class ExactPatchEngine:
             dim=-1,
         ).contiguous()
 
-    def corr(self, vol, corner, pos, dirs):
-        qs = self.qinfo(vol, corner, pos, dirs)
-        sums = exact_sums(vol, corner, qs, self.tables, self.dims(vol.shape))
+    def corr(self, vol, corner, pos, dirs, frame=None):
+        qs = self.qinfo(vol, corner, pos, dirs, frame)
+        local = corner if frame is None else frame.local(corner)
+        sums = exact_sums(vol, local, qs, self.tables, self.patch_dims(vol, frame))
         return exact_corr_from_sums(self.tables, sums)
 
-    def eval_fused(self, vol, pos, dirs):
-        corner = self.corners(vol.shape, pos.mean(dim=1))
-        return self.corr(vol, corner, pos, dirs)
+    def eval_fused(self, vol, pos, dirs, frame=None):
+        corner = self.corners(vol.shape, pos.mean(dim=1), frame)
+        return self.corr(vol, corner, pos, dirs, frame)

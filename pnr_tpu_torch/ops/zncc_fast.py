@@ -182,6 +182,7 @@ class _Layout(NamedTuple):
     half: torch.Tensor  # p // 2
     hi: torch.Tensor  # dim - p
     params: KernelParams
+    pdims: torch.Tensor = None  # p, under a slab frame
 
 
 class TubePatchEngine:
@@ -209,7 +210,11 @@ class TubePatchEngine:
         device; `tube_corr_plain` computes it without keeping the patches
 
     The tables live on `device` (the card by default); given `tables`, the
-    engine takes them, and their device, as they are.
+    engine takes them, and their device, as they are. `window`,
+    `likelihood` and `eval_fused` take an optional `frame`
+    (ops/slab.SlabFrame): the field is then a slab of a larger volume, in
+    whose coordinates positions and windows are (a window that would leave
+    the slab is shifted into it).
     """
 
     def __init__(
@@ -250,22 +255,28 @@ class TubePatchEngine:
                 g0 = i
         return out
 
-    def layout(self, maps: torch.Tensor, single: bool = False) -> _Layout:
+    def layout(self, maps: torch.Tensor, single: bool = False, frame=None) -> _Layout:
         """The window table of a field (`single`: one sigma_max window for
-        all sigmas), built once per field shape and device."""
-        key = (maps.shape, single, maps.device)
+        all sigmas), built once per field shape, device and frame."""
+        key = (maps.shape, single, maps.device, frame)
         lay = self._layouts.get(key)
         if lay is None:
-            vdims = self.vol_dims(maps.shape)
+            fdims = self.vol_dims(maps.shape)
+            vdims = fdims if frame is None else tuple(frame.dims)
             groups = [(0, self.s_count, self.dims(vdims))] if single else self.groups(vdims)
 
             def zyx(f):
                 return torch.tensor([[f(d, p) for d, p in zip(vdims, pd)] for *_, pd in groups],
                                     dtype=torch.int32, device=maps.device)
 
-            params = (KernelParams(self.tables, groups, vdims, maps.device) if maps.is_cuda
-                      else None)
-            lay = _Layout(groups, zyx(lambda d, p: p // 2), zyx(lambda d, p: d - p), params)
+            if not maps.is_cuda:
+                params = None
+            elif frame is None:
+                params = KernelParams(self.tables, groups, vdims, maps.device)
+            else:
+                params = KernelParams(self.tables, groups, vdims, maps.device, frame.origin, fdims)
+            lay = _Layout(groups, zyx(lambda d, p: p // 2), zyx(lambda d, p: d - p), params,
+                          None if frame is None else zyx(lambda d, p: p))
             self._layouts[key] = lay
         return lay
 
@@ -281,22 +292,26 @@ class TubePatchEngine:
         cz = torch.clamp(c[:, 2] - pz // 2, 0, l - pz)
         return torch.stack([cz, cy, cx], dim=-1).contiguous()
 
-    def window(self, maps: torch.Tensor, center: torch.Tensor, single: bool = False):
+    def window(self, maps: torch.Tensor, center: torch.Tensor, single: bool = False, frame=None):
         """`corners` for every group at once: (T, G, 3) int32 zyx."""
-        lay = self.layout(maps, single)
+        lay = self.layout(maps, single, frame)
         c = torch.round(center).to(torch.int32).flip(-1)
-        return torch.minimum(torch.clamp(c[:, None, :] - lay.half, min=0), lay.hi)
+        corners = torch.minimum(torch.clamp(c[:, None, :] - lay.half, min=0), lay.hi)
+        if frame is None:
+            return corners
+        return frame.into(corners, lay.pdims, self.vol_dims(maps.shape))
 
-    def likelihood(self, maps, corners, pos, dirs, single: bool = False, scoring: bool = False):
-        lay = self.layout(maps, single)
+    def likelihood(self, maps, corners, pos, dirs, single: bool = False, scoring: bool = False,
+                   frame=None):
+        lay = self.layout(maps, single, frame)
         out, _ = tube_corr(maps, lay.groups, corners, pos, dirs, self.tables, lay.params,
-                           scoring=scoring)
+                           scoring=scoring, frame=frame)
         return out[0], out[1]
 
-    def eval_fused(self, maps: torch.Tensor, pos: torch.Tensor, dirs: torch.Tensor):
+    def eval_fused(self, maps: torch.Tensor, pos: torch.Tensor, dirs: torch.Tensor, frame=None):
         single = maps.dtype == torch.float32
-        corners = self.window(maps, pos.mean(dim=1), single)
-        return self.likelihood(maps, corners, pos, dirs, single, scoring=True)
+        corners = self.window(maps, pos.mean(dim=1), single, frame)
+        return self.likelihood(maps, corners, pos, dirs, single, scoring=True, frame=frame)
 
     def extract(self, maps: torch.Tensor, center: torch.Tensor):
         vdims = self.vol_dims(maps.shape)

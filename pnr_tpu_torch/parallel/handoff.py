@@ -1,0 +1,318 @@
+"""Distributed tracing with boundary handoff between shards.
+
+Port of pnr_tpu/parallel/handoff.py for a one-process mesh
+(parallel/sharded.py). Each shard owns `lanes_per_shard` lanes of a
+`BatchedTracker` on its device, tracing against the likelihood field of
+its trace-halo slab. Every stage each shard inspects its traces'
+centroids, and a trace whose centroid has crossed into a neighbouring
+slab ships its whole carry (particle positions, directions, weights,
+resampling state, alive flag, key and trace id) to that neighbour, where
+it continues in lockstep.
+
+The move is JAX's capacity handshake (`handoff.py:170-200`), decided on
+the host from the counts of each shard: a receiver grants up to its free
+lanes, up-arrivals (from the shard below) first, then down-arrivals; a
+sender releases only what was granted, ranked by lane; the receiver seats
+the up-arrivals, then the down-arrivals, in its lowest free lanes. Movers
+beyond the grant stay on their shard, tracing on its slab, and are
+counted in `kept_local`; they retry at the next stage.
+
+Where JAX moves the carry with `lax.ppermute` and keeps each shard's
+positions relative to its slab, the port copies the carry's rows to the
+neighbour's device (none on a virtual mesh) and keeps every position in
+the volume's coordinates: the tracer reads its slab through a
+`SlabFrame` (ops/slab.py), so a trace whose windows stay inside the slab
+computes bitwise what it computes on the whole volume, and a handed-off
+trace is bitwise the single-device trace, given the trace's keys (by
+global trace id) and its draws (by absolute iteration, `stage_uniforms`).
+The slabs are aligned windows (`halo_exchange_z_aligned`) rather than
+JAX's edge-replicated ones, so the field is the whole volume's wherever a
+slab meets a volume border too. A trace stops where its centroid leaves
+the volume (the original extent, before the mesh padding) or its slab.
+`patch_reuse` is forced to 1, as in JAX.
+
+`build_handoff_tracer` returns (init, stage, n_stages):
+
+    init(vs, seed_pos, seed_dir, trace_ids, valid, base_key, field=None)
+        -> (state, est0 (L, 9), ids0 (L,), field)
+    stage(field, state, iter_idx, kill (L,))
+        -> (state, packed, ids (L,), live (L,), kept_local (n_shards,))
+
+L = n_shards * lanes_per_shard, lanes [s*T, (s+1)*T) on shard s; seed_pos
+are volume (x, y, z), bucketed by shard (the pipeline's `_bucket_by_shard`);
+`valid` masks pad lanes. `field` is the per-shard (field, frame) list of
+`build_fields`, built once and passed to every call. `iter_idx` are the
+absolute iterations the stage runs; `packed` holds each shard's (T, n, 9)
+estimates on its device (None for a shard with no live lane) and
+`lane_estimates` gathers them. `ids` is -1 on free lanes; est0, ids, live
+and kept_local are host arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from pnr_tpu_torch.config import PNRConfig
+from pnr_tpu_torch.ops.slab import SlabFrame
+from pnr_tpu_torch.parallel.halo import halo_exchange_z_aligned
+from pnr_tpu_torch.parallel.sharded import Mesh, on
+from pnr_tpu_torch.smc.tracker import BatchedTracker, trace_keys
+
+
+def required_trace_halo(cfg: PNRConfig, stage_iters: int) -> int:
+    """Minimum halo for the single-device trace (JAX's bound): the tube
+    maps' convolution reach, the samples' reach and the centroid's drift
+    between two handoff opportunities."""
+    smax = max(cfg.sigmas)
+    conv_reach = int(math.ceil(3.0 * smax))
+    sample_reach = int(math.ceil(1.0 * smax)) + 2
+    drift = stage_iters * 2 * cfg.step
+    return conv_reach + sample_reach + drift
+
+
+class Trackers:
+    """One `BatchedTracker` per distinct device of a mesh, with
+    patch_reuse 1: reuse widens the windows beyond what
+    `required_trace_halo` budgets for, and its groups align to stage
+    launches (JAX forces it too)."""
+
+    def __init__(self, cfg: PNRConfig, mesh: Mesh, is2d: bool = False, stage_iters: int = 8):
+        cfg = dataclasses.replace(cfg, patch_reuse=1)
+        self.by_device = {}
+        for d in mesh.devices:
+            if d not in self.by_device:
+                with on(d):
+                    self.by_device[d] = BatchedTracker(cfg, d, stage_iters=stage_iters, is2d=is2d)
+
+    def __getitem__(self, device) -> BatchedTracker:
+        return self.by_device[device]
+
+
+def build_fields(trackers: Trackers, mesh: Mesh, vs, halo: int, extent: int, is2d: bool = False):
+    """Per shard (field, frame): the likelihood field of the shard's aligned
+    `halo` slab on its device, and where the slab lies in the volume of
+    `extent` planes (rows, when `is2d`: `vs` is then the transposed
+    (Y, 1, X) layout and each slab is turned back to (1, S, X))."""
+    out = []
+    zl = int(vs[0].shape[0])
+    for i, (dev, (slab, off)) in enumerate(zip(mesh.devices, halo_exchange_z_aligned(vs, halo))):
+        w0 = i * zl - off
+        with on(dev):
+            if is2d:
+                slab = slab.permute(1, 0, 2).contiguous()
+                frame = SlabFrame((0, w0, 0), (1, extent, int(slab.shape[2])))
+            else:
+                frame = SlabFrame((w0, 0, 0), (extent, int(slab.shape[1]), int(slab.shape[2])))
+            out.append((trackers[dev].prepare_field(slab), frame))
+        slab = None
+    return out
+
+
+@dataclasses.dataclass
+class HandoffState:
+    """The lanes of every shard: the tracker carries on the devices; keys,
+    trace ids and live flags on the host; `last` per shard the (2, T)
+    device tensor [the centroid's migrating coordinate, alive] of its last
+    estimates (None when the shard traced nothing)."""
+
+    zl: int  # planes (rows) per shard
+    carry: list
+    keys: List[np.ndarray]
+    ids: List[np.ndarray]
+    live: List[np.ndarray]
+    last: list
+
+
+def _empty_carry(lanes: int, npart: int, device) -> tuple:
+    """A tracker carry of `lanes` free lanes (what a lane holds before a
+    trace is seated in it)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((lanes, npart, 3), **f32), torch.zeros((lanes, npart, 3), **f32),
+            torch.zeros((lanes, npart), **f32), torch.zeros(lanes, dtype=torch.bool, device=device),
+            torch.zeros((lanes, npart), dtype=torch.int64, device=device),
+            torch.zeros(lanes, dtype=torch.bool, device=device))
+
+
+def _put_rows(full, idx: torch.Tensor, rows) -> None:
+    """Write `rows` (a carry of len(idx) lanes) into the lanes `idx` of
+    the carry `full`, in place."""
+    for a, r in zip(full, rows):
+        a.index_copy_(0, idx, r.to(a.device))
+
+
+def lane_estimates(packed, lanes: int, n_it: int) -> np.ndarray:
+    """A stage's per-shard estimates as one host (L, n_it, 9) array."""
+    return np.concatenate([
+        np.zeros((lanes, n_it, 9), np.float32) if p is None else p.cpu().numpy()
+        for p in packed
+    ])
+
+
+def build_handoff_tracer(
+    cfg: PNRConfig,
+    mesh: Mesh,
+    lanes_per_shard: int,
+    stage_iters: int = 4,
+    trace_halo: Optional[int] = None,
+    z_total: Optional[int] = None,
+    is2d: bool = False,
+    trackers: Optional[Trackers] = None,
+):
+    """Staged distributed tracer (see the module docstring). `z_total`
+    bounds the trace along the sharded axis (default: the sharded volume's
+    extent; the pipeline passes the original extent of a padded volume).
+    With `is2d` a one-plane image shards over Y: `vs` holds the transposed
+    (Y, 1, X) layout and traces migrate on their centroid's y. `trackers`:
+    the caller's, when it builds the fields itself."""
+    n = mesh.size
+    t_lanes = int(lanes_per_shard)
+    ci = 1 if is2d else 2  # migrating coordinate in (x, y, z) estimates
+    if trace_halo is None:
+        trace_halo = required_trace_halo(cfg, stage_iters)
+    if trackers is None:
+        trackers = Trackers(cfg, mesh, is2d, stage_iters)
+    n_stages = -(-(cfg.ni - 1) // stage_iters)
+
+    def init(vs, seed_pos, seed_dir, trace_ids, valid, base_key, field=None):
+        if field is None:
+            extent = z_total if z_total is not None else n * int(vs[0].shape[0])
+            field = build_fields(trackers, mesh, vs, trace_halo, extent, is2d)
+        sp = np.asarray(seed_pos, np.float32)
+        tids = np.asarray(trace_ids, np.int64)
+        valid = np.asarray(valid, bool)
+        sd = np.asarray(seed_dir, np.float32)
+        state = HandoffState(int(vs[0].shape[0]), [], [], [], [], [])
+        est0 = []
+        for s, dev in enumerate(mesh.devices):
+            sl = slice(s * t_lanes, (s + 1) * t_lanes)
+            keys = trace_keys(base_key, tids[sl])
+            f, frame = field[s]
+            # only the valid lanes are traced; the pad lanes stay free
+            lanes = np.nonzero(valid[sl])[0]
+            with on(dev):
+                if len(lanes) == t_lanes:
+                    carry, e0 = trackers[dev].trace_init(f, sp[sl], sd[sl], keys, frame)
+                else:
+                    carry = _empty_carry(t_lanes, cfg.np, dev)
+                    e0 = torch.zeros((t_lanes, 9), dtype=torch.float32, device=dev)
+                    if len(lanes):
+                        idx = torch.from_numpy(lanes).to(dev)
+                        sub, e_sub = trackers[dev].trace_init(
+                            f, sp[sl][lanes], sd[sl][lanes], keys[lanes], frame)
+                        _put_rows(carry, idx, sub)
+                        e0.index_copy_(0, idx, e_sub)
+                state.last.append(torch.stack([e0[:, ci], carry[5].to(torch.float32)]))
+            state.carry.append(carry)
+            state.keys.append(keys)
+            state.ids.append(tids[sl].copy())
+            state.live.append(valid[sl].copy())
+            est0.append(e0)
+        est0 = np.concatenate([e.cpu().numpy() for e in est0])
+        return state, est0, _ids(state), field
+
+    def _ids(state):
+        return np.concatenate([np.where(lv, i, -1) for i, lv in zip(state.ids, state.live)])
+
+    def stage(field, state: HandoffState, iter_idx, kill):
+        it0, n_it = int(iter_idx[0]), len(iter_idx)
+        kill = np.asarray(kill, bool)
+        zl = state.zl
+        live = [state.live[s] & ~kill[s * t_lanes:(s + 1) * t_lanes] for s in range(n)]
+        moving, go_up, go_dn = [], [], []
+        for s in range(n):
+            if state.last[s] is None:
+                m = np.zeros(t_lanes, bool)
+                owner = np.full(t_lanes, s)
+            else:
+                lastc, alive = state.last[s].cpu().numpy()
+                owner = np.clip(np.floor(lastc / zl).astype(np.int64), 0, n - 1)
+                m = live[s] & (alive > 0.5) & (owner != s)
+            moving.append(m)
+            go_up.append(m & (owner > s))
+            go_dn.append(m & (owner < s))
+
+        # ---- the capacity handshake: counts down and up, grants back ----
+        free_n = [int((~lv).sum()) for lv in live]
+        up_in = [int(go_up[s - 1].sum()) if s > 0 else 0 for s in range(n)]
+        dn_in = [int(go_dn[s + 1].sum()) if s < n - 1 else 0 for s in range(n)]
+        accept_up = [min(up_in[s], free_n[s]) for s in range(n)]
+        accept_dn = [min(dn_in[s], free_n[s] - accept_up[s]) for s in range(n)]
+        kept = np.zeros(n, np.int64)
+        for s in range(n):
+            up_grant = accept_up[s + 1] if s < n - 1 else 0
+            dn_grant = accept_dn[s - 1] if s > 0 else 0
+            go_up[s] &= (np.cumsum(go_up[s]) - 1) < up_grant
+            go_dn[s] &= (np.cumsum(go_dn[s]) - 1) < dn_grant
+            kept[s] = int(moving[s].sum()) - int(go_up[s].sum()) - int(go_dn[s].sum())
+
+        # ---- what leaves each shard, read before anything is seated ----
+        def payload(s, mask):
+            lanes = np.nonzero(mask)[0]
+            if not len(lanes):
+                return None
+            dev = mesh.devices[s]
+            idx = torch.from_numpy(lanes).to(dev)
+            rows = tuple(a.index_select(0, idx) for a in state.carry[s])
+            return rows, state.keys[s][lanes], state.ids[s][lanes]
+
+        ups = [payload(s, go_up[s]) for s in range(n)]
+        dns = [payload(s, go_dn[s]) for s in range(n)]
+        for s in range(n):
+            live[s] &= ~(go_up[s] | go_dn[s])
+
+        # ---- seat up-arrivals (from s-1), then down-arrivals (from s+1) ----
+        for s, dev in enumerate(mesh.devices):
+            carry = list(state.carry[s])
+            keys, ids = state.keys[s], state.ids[s]
+            for arr in ((ups[s - 1] if s > 0 else None), (dns[s + 1] if s < n - 1 else None)):
+                if arr is None:
+                    continue
+                rows, k_in, i_in = arr
+                dest = np.nonzero(~live[s])[0][:len(i_in)]
+                if len(dest) < len(i_in):
+                    raise AssertionError("handoff: the capacity handshake seated more traces "
+                                         "than the receiver has free lanes")
+                didx = torch.from_numpy(dest).to(dev)
+                for a, r in zip(carry, rows):
+                    a.index_copy_(0, didx, r.to(dev))
+                keys[dest] = k_in
+                ids[dest] = i_in
+                live[s][dest] = True
+            with on(dev):
+                carry[5] = carry[5] & torch.from_numpy(live[s]).to(dev)
+            state.carry[s] = tuple(carry)
+
+        # ---- advance the live lanes of every shard ----
+        packed = []
+        for s, dev in enumerate(mesh.devices):
+            lanes = np.nonzero(live[s])[0]
+            if not len(lanes):
+                packed.append(None)
+                state.last[s] = None
+                continue
+            f, frame = field[s]
+            tracker = trackers[dev]
+            with on(dev):
+                none_dead = torch.zeros(len(lanes), dtype=torch.bool, device=dev)
+                if len(lanes) == t_lanes:
+                    state.carry[s], pk = tracker.trace_stage(
+                        f, state.keys[s], state.carry[s], it0, n_it, none_dead, frame)
+                else:
+                    idx = torch.from_numpy(lanes).to(dev)
+                    sub = tuple(a.index_select(0, idx) for a in state.carry[s])
+                    sub, pk_sub = tracker.trace_stage(
+                        f, state.keys[s][lanes], sub, it0, n_it, none_dead, frame)
+                    _put_rows(state.carry[s], idx, sub)
+                    pk = torch.zeros((t_lanes, n_it, 9), dtype=torch.float32, device=dev)
+                    pk.index_copy_(0, idx, pk_sub)
+                state.last[s] = torch.stack([pk[:, -1, ci], state.carry[s][5].to(torch.float32)])
+            packed.append(pk)
+        state.live = live
+        return state, packed, _ids(state), np.concatenate(live), kept
+
+    return init, stage, n_stages

@@ -1,0 +1,221 @@
+"""Sharded pipeline stages over a 1-D mesh of devices.
+
+Port of pnr_tpu/parallel/sharded.py for one process. JAX shards over a
+`jax.sharding.Mesh` inside `shard_map`, its collectives riding the chips'
+links; here a mesh is a tuple of torch devices (`Mesh`), a sharded volume
+a list of equal Z slabs, slab i on device i (`shard_volume`), each shard's
+work runs on its device, and what JAX moves with `ppermute` and
+`pmin`/`pmax` is copied between the devices (parallel/halo.py). Shard i
+is on `cuda:i` (`make_mesh`); a virtual mesh of n shards on one card is
+`Mesh((torch.device("cuda:0"),) * n)`, the counterpart of the JAX tests'
+8-device CPU mesh.
+
+The filter runs the unfused `frangi3d` (K4 and K3 on a card) on each
+shard's aligned halo slab, or above the single-device pipeline's
+UNFUSED_MAX_VOXELS the tiled engines, and is bitwise the monolithic
+filter: J, Vx, Vy, Vz on every plane, and Jmin (the first scale's min)
+and Jmax as global reductions over the shards.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pnr_tpu_torch.ops.frangi import frangi2d, frangi3d, normalize_to_u8
+from pnr_tpu_torch.ops.frangi_blocked import (
+    frangi2d_tiled,
+    frangi3d_blocked,
+    frangi3d_tiled,
+    pick_blocks,
+    pick_blocks_2d,
+)
+from pnr_tpu_torch.parallel.halo import halo_exchange_z_aligned
+from pnr_tpu_torch.utils.runtime import require_cuda
+
+Sharded = List[torch.Tensor]  # one tensor per shard, on the shard's device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh: shard i runs on devices[i] (a device may repeat)."""
+
+    devices: Tuple[torch.device, ...]
+    axis: str = "z"
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_mesh(n_devices: int = None, axis: str = "z", device="cuda") -> Mesh:
+    """1-D mesh over the first n_devices cards (`cuda:0` ...), or of
+    n_devices CPU shards with device="cpu". Fails loudly, never truncating
+    the mesh nor placing two shards on one card, when fewer cards are
+    present: a silently smaller mesh would void every multi-device
+    correctness signal downstream."""
+    dev = require_cuda(device)
+    if dev.type == "cpu":
+        return Mesh((dev,) * (n_devices or 1), axis)
+    have = torch.cuda.device_count()
+    n = have if n_devices is None else int(n_devices)
+    if have < n:
+        raise ValueError(
+            f"make_mesh({n}): only {have} cuda device(s) available; for a virtual mesh of {n} "
+            f"shards on one card build Mesh((torch.device('cuda:0'),) * {n})"
+        )
+    return Mesh(tuple(torch.device("cuda", i) for i in range(n)), axis)
+
+
+def on(device: torch.device):
+    """Run the enclosed work on `device`: the CUDA wrappers launch onto the
+    current device's stream, so work for cuda:i runs under
+    torch.cuda.device(i)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def shard_volume(vol: np.ndarray, mesh: Mesh) -> Sharded:
+    """A (Z, Y, X) volume as Z slabs, slab i on the mesh's device i (Z must
+    divide evenly; the pipeline pads it first)."""
+    n = mesh.size
+    if vol.shape[0] % n:
+        raise ValueError(f"mesh size ({n}) must divide Z={vol.shape[0]}")
+    zl = vol.shape[0] // n
+    return [torch.from_numpy(np.ascontiguousarray(vol[i * zl:(i + 1) * zl])).to(d)
+            for i, d in enumerate(mesh.devices)]
+
+
+def frangi_halo(sigmas: Sequence[float], zdist: float) -> int:
+    """Ghost slices needed in Z: Gaussian z-kernel + two first-difference passes."""
+    return int(math.ceil(3.0 * max(sigmas) / zdist)) + 2
+
+
+def frangi2d_halo(sigmas: Sequence[float]) -> int:
+    """Ghost rows needed in Y: Gaussian kernel + two first-difference passes."""
+    return int(math.ceil(3.0 * max(sigmas))) + 2
+
+
+def _global(mesh: Mesh, jmins, jmaxs):
+    """The global Jmin and Jmax, 0-d tensors on the first shard's device."""
+    d0 = mesh.devices[0]
+    return (torch.stack([t.to(d0) for t in jmins]).min(),
+            torch.stack([t.to(d0) for t in jmaxs]).max())
+
+
+def frangi3d_sharded(shards: Sharded, sigmas: Tuple[float, ...], zdist: float, mesh: Mesh,
+                     alpha: float = 0.5, beta: float = 0.5, c: float = 500.0):
+    """Multi-scale Frangi over a Z-sharded volume; returns (J, Jmin, Jmax,
+    Vx, Vy, Vz) with J and the directions sharded and Jmin/Jmax global.
+
+    Bitwise the unsharded `frangi3d`: each shard filters its aligned halo
+    slab (`halo_exchange_z_aligned`), whose edges at the volume's borders
+    are those borders, and keeps its own planes; Jmin is the min of the
+    first scale's response over the shards' own planes (the monolithic
+    filter's running min), Jmax the max of J. A slab over the
+    single-device pipeline's UNFUSED_MAX_VOXELS streams through the tiled
+    engines, which are bitwise the monolithic filter."""
+    from pnr_tpu_torch.pipeline import reconstruct  # its caps, read at call time
+
+    halo = frangi_halo(sigmas, zdist)
+    args = (sigmas, zdist, alpha, beta, c)
+    js, jmins, jmaxs, vxs, vys, vzs = [], [], [], [], [], []
+    for dev, v, (slab, off) in zip(mesh.devices, shards, halo_exchange_z_aligned(shards, halo)):
+        zl = int(v.shape[0])
+        rows = (off, off + zl)
+        with on(dev):
+            if slab.numel() > reconstruct.UNFUSED_MAX_VOXELS:
+                blocks = pick_blocks(tuple(slab.shape), sigmas, zdist, reconstruct.TILE_VOX_BUDGET)
+                if blocks is not None:
+                    j, jmin, _, vx, vy, vz = frangi3d_tiled(
+                        slab, *args, block_z=blocks[0], block_y=blocks[1], jmin_rows=rows)
+                else:
+                    j, jmin, _, vx, vy, vz = frangi3d_blocked(slab, *args, jmin_rows=rows)
+            else:
+                j, _, _, vx, vy, vz, v1 = frangi3d(slab, *args, keep_first_scale=True)
+                jmin = v1[off:off + zl].min()
+                v1 = None
+            j, vx, vy, vz = (a[off:off + zl].contiguous() for a in (j, vx, vy, vz))
+            jmaxs.append(j.max())
+        jmins.append(jmin)
+        js.append(j)
+        vxs.append(vx)
+        vys.append(vy)
+        vzs.append(vz)
+        slab = None
+    jmin, jmax = _global(mesh, jmins, jmaxs)
+    return js, jmin, jmax, vxs, vys, vzs
+
+
+def frangi2d_sharded(shards_t: Sharded, sigmas: Tuple[float, ...], mesh: Mesh,
+                     beta_one: float = 0.5, beta_two: float = 15.0):
+    """Multi-scale 2-D Frangi over a Y-sharded one-plane image: `shards_t`
+    holds the transposed (Y, 1, X) representation of a (1, Y, X) stack,
+    sharded over Y, and the outputs stay in that layout; Jmin/Jmax are
+    global. Bitwise the unsharded `frangi2d` (frangi.cpp:392-505) on the
+    image; a slab over the single-device pipeline's FRANGI2D_TILED_PIXELS
+    runs `frangi2d_tiled`."""
+    from pnr_tpu_torch.pipeline import reconstruct
+
+    halo = frangi2d_halo(sigmas)
+    js, jmins, jmaxs, vxs, vys, vzs = [], [], [], [], [], []
+    for dev, v, (slab, off) in zip(mesh.devices, shards_t,
+                                   halo_exchange_z_aligned(shards_t, halo)):
+        yl = int(v.shape[0])
+        img = slab[:, 0, :].contiguous()
+        with on(dev):
+            if img.numel() > reconstruct.FRANGI2D_TILED_PIXELS:
+                by, bx = pick_blocks_2d(tuple(img.shape), tuple(sigmas))
+                j, jmin, _, vx, vy = frangi2d_tiled(img, tuple(sigmas), beta_one, beta_two,
+                                                    block_y=by, block_x=bx,
+                                                    jmin_rows=(off, off + yl))
+                vz = torch.zeros_like(vx)
+            else:
+                j, _, _, vx, vy, vz, v1 = frangi2d(img, tuple(sigmas), beta_one, beta_two,
+                                                   keep_first_scale=True)
+                jmin = v1[off:off + yl].min()
+                v1 = None
+            j, vx, vy, vz = (a[off:off + yl, None, :].contiguous() for a in (j, vx, vy, vz))
+            jmaxs.append(j.max())
+        jmins.append(jmin)
+        js.append(j)
+        vxs.append(vx)
+        vys.append(vy)
+        vzs.append(vz)
+        slab = img = None
+    jmin, jmax = _global(mesh, jmins, jmaxs)
+    return js, jmin, jmax, vxs, vys, vzs
+
+
+def normalize_to_u8_sharded(j: Sharded, jmin: torch.Tensor, jmax: torch.Tensor) -> Sharded:
+    """J8 quantization of a sharded J with global Jmin/Jmax: the one
+    normalization rule (ops/frangi.normalize_to_u8) on each shard."""
+    out = []
+    for t in j:
+        with on(t.device):
+            out.append(normalize_to_u8(t, jmin.to(t.device), jmax.to(t.device)))
+    return out
+
+
+def assign_seeds_to_shards(pos: np.ndarray, dirs: np.ndarray, z_total: int, n_shards: int,
+                           seeds_per_shard: int):
+    """Bucket seeds by the Z-slab containing them, padded/truncated to a
+    fixed count per shard. Returns (pos (n_shards*k, 3), dirs, valid mask)."""
+    zl = z_total // n_shards
+    out_p = np.zeros((n_shards * seeds_per_shard, 3), np.float32)
+    out_d = np.zeros((n_shards * seeds_per_shard, 3), np.float32)
+    out_d[:, 0] = 1.0
+    valid = np.zeros(n_shards * seeds_per_shard, bool)
+    for s in range(n_shards):
+        lo, hi = s * zl, (s + 1) * zl if s < n_shards - 1 else z_total
+        m = (pos[:, 2] >= lo) & (pos[:, 2] < hi)
+        sel = np.nonzero(m)[0][:seeds_per_shard]
+        k = len(sel)
+        out_p[s * seeds_per_shard: s * seeds_per_shard + k] = pos[sel]
+        out_d[s * seeds_per_shard: s * seeds_per_shard + k] = dirs[sel]
+        valid[s * seeds_per_shard: s * seeds_per_shard + k] = True
+    return out_p, out_d, valid

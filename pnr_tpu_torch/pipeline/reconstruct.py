@@ -215,18 +215,26 @@ class ReconstructionResult:
     zncc_mode: str = ""
     n_handoffs: int = -1
     n_requeued: int = -1
+    # the sharded pipeline's: traces a handoff kept on their shard (summed
+    # over stages) and traces whose estimates went missing (never, by the
+    # capacity handshake; counted to show it)
+    n_kept_local: int = -1
+    n_lost: int = -1
 
 
 class _StageTimer:
     """Per-stage wall clock. On a CUDA device `stop` synchronises the
     calling thread's current stream first, so a stage's time is its device
     time, not its dispatch time; a prefetch worker's stages and the main
-    thread's tracing, each on its own stream, do not wait for each other."""
+    thread's tracing, each on its own stream, do not wait for each other.
+    `device` may be a sequence of devices (a mesh's): `stop` then
+    synchronises the current stream of each card among them."""
 
-    def __init__(self, verbose: bool, device: torch.device):
+    def __init__(self, verbose: bool, device):
         self.timings: Dict[str, float] = {}
         self.verbose = verbose
-        self.device = device
+        devices = device if isinstance(device, (list, tuple)) else (device,)
+        self.devices = tuple(d for d in dict.fromkeys(devices) if d.type == "cuda")
         self._t0 = None
         self._name = None
 
@@ -236,8 +244,8 @@ class _StageTimer:
         self._name, self._t0 = name, time.perf_counter()
 
     def stop(self):
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        for d in self.devices:
+            torch.cuda.current_stream(d).synchronize()
         dt = time.perf_counter() - self._t0
         self.timings[self._name] = self.timings.get(self._name, 0.0) + dt
         if self.verbose:

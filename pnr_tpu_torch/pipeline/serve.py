@@ -17,7 +17,7 @@ size) so an overwritten file is picked up again. A sentinel file
 The port's copy of pnr_tpu/pipeline/serve.py on its own
 `reconstruction_batch`, with a `device` ("cuda" unless the caller asks
 for the CPU). Sharded serving over several cards (`mesh`, `dp_groups`) is
-ROADMAP.md's Queue 1 item 15 and not ported: a mesh raises.
+ROADMAP.md's Queue 1 item 15b and not ported: a mesh raises.
 """
 
 from __future__ import annotations
@@ -137,12 +137,13 @@ def watch_and_reconstruct(
 
     Every stack runs on ``device`` (the card unless the caller asks for
     the CPU). A ``mesh`` or ``dp_groups`` (sharded serving) raises
-    NotImplementedError: it is ROADMAP.md's Queue 1 item 15.
+    NotImplementedError: it is ROADMAP.md's Queue 1 item 15b (the single
+    stack over a mesh, `reconstruction_func_sharded`, is ported).
     """
     if mesh is not None or dp_groups is not None:
         raise NotImplementedError(
             "sharded serving (mesh, dp_groups) is not yet ported to pnr_tpu_torch "
-            "(ROADMAP.md, Queue 1, item 15)"
+            "(ROADMAP.md, Queue 1, item 15b)"
         )
     device = require_cuda(device)
     if out_dir:

@@ -31,6 +31,12 @@ particle cloud; the centroid's ZNCC reuses the iteration's window.
   with `patch_reuse` = k one window feeds k consecutive iterations of a
   stage, grouped as `divmod(n_it, k)` plus a remainder group, as JAX
   groups them.
+
+A shard of the sharded pipeline (parallel/handoff.py) traces on the field
+of its slab of the volume, passing the slab's `frame` (ops/slab.py): the
+positions stay in the whole volume's coordinates, windows and clamps are
+the whole volume's, and a trace stops where it leaves the volume or the
+slab; inside the slab it is bitwise the trace on the whole volume.
 """
 
 from __future__ import annotations
@@ -196,25 +202,36 @@ class BatchedTracker:
         z1 = _round_half_away(cpos[:, 2])
         return (x1 >= 0) & (x1 < w) & (y1 >= 0) & (y1 < h) & (z1 >= 0) & (z1 < l)
 
-    def _window(self, field, pos):
+    def _window(self, field, pos, frame=None):
         """The iteration's window(s), centred on each particle cloud: the
         exact engine's corner, or the tube engine's (T, G, 3) group corners."""
         center = pos.mean(dim=1)
         if self.tube:
-            return self.engine.window(field, center)
-        return self.engine.corners(field.shape, center)
+            return self.engine.window(field, center, frame=frame)
+        return self.engine.corners(field.shape, center, frame)
 
-    def _corr(self, field, ctx, pos, dirs):
+    def _corr(self, field, ctx, pos, dirs, frame=None):
         if self.tube:
-            return self.engine.likelihood(field, ctx, pos, dirs)
-        return self.engine.corr(field, ctx, pos, dirs)
+            return self.engine.likelihood(field, ctx, pos, dirs, frame=frame)
+        return self.engine.corr(field, ctx, pos, dirs, frame)
 
-    def _estimate(self, field, ctx, pos, dirs, wgt):
+    def _ok(self, field, cpos, ccorr, frame=None):
+        """The stop test: the centroid rounds inside the volume (and, under
+        a slab frame, inside the slab) and its corr reaches znccth."""
+        if frame is None:
+            inside = self._in_bounds(cpos, self.vol_dims(field))
+        else:
+            fdims = self.vol_dims(field)
+            inside = self._in_bounds(cpos, frame.dims) & frame.in_field(
+                cpos, fdims, _round_half_away)
+        return inside & (ccorr >= self.cfg.znccth)
+
+    def _estimate(self, field, ctx, pos, dirs, wgt, frame=None):
         cpos = (wgt[..., None] * pos).sum(dim=1)
         cdir = (wgt[..., None] * dirs).sum(dim=1)
         cdir = cdir / torch.linalg.vector_norm(cdir, dim=-1, keepdim=True)
         # the centroid lies in the particle hull: same window
-        c, s = self._corr(field, ctx, cpos[:, None, :], cdir[:, None, :])
+        c, s = self._corr(field, ctx, cpos[:, None, :], cdir[:, None, :], frame)
         return cpos, cdir, c[:, 0], s[:, 0]
 
     def _systematic(self, wgt, res_u):
@@ -240,10 +257,11 @@ class BatchedTracker:
         )
 
     # -- wave API ----------------------------------------------------------
-    def trace_init(self, field: torch.Tensor, seed_pos, seed_dir, keys: np.ndarray):
+    def trace_init(self, field: torch.Tensor, seed_pos, seed_dir, keys: np.ndarray, frame=None):
         """Iteration 0 (iter0New, tracker.cpp:1001-1094) for seeds (T, 3)
         xyz with directions (T, 3) and keys (T, 2) uint32. Returns
-        (carry, est0 (T, 9)): [pos, dir, sig, corr, valid]."""
+        (carry, est0 (T, 9)): [pos, dir, sig, corr, valid]. `frame`: the
+        field is that slab of the volume (ops/slab.SlabFrame)."""
         cfg, tb, dev = self.cfg, self.tables, self.device
         npart = cfg.np
         sp = torch.as_tensor(np.asarray(seed_pos, np.float32), device=dev)
@@ -260,24 +278,25 @@ class BatchedTracker:
         dirs = torch.where(have_dir[:, None, None], sd[:, None, :].expand(t, npart, 3), tb.u[s])
         prior = tb.w0[s]
 
-        ctx = self._window(field, pos)
-        corr, _ = self._corr(field, ctx, pos, dirs)
+        ctx = self._window(field, pos, frame)
+        corr, _ = self._corr(field, ctx, pos, dirs, frame)
         wgt, resampled = self._weights(1.0 / npart, prior, corr)
-        cpos, cdir, ccorr, csig = self._estimate(field, ctx, pos, dirs, wgt)
-        ok0 = self._in_bounds(cpos, self.vol_dims(field)) & (ccorr >= cfg.znccth)
+        cpos, cdir, ccorr, csig = self._estimate(field, ctx, pos, dirs, wgt, frame)
+        ok0 = self._ok(field, cpos, ccorr, frame)
         res_idx = self._systematic(wgt, res_u)
         carry = (pos, dirs, wgt, resampled, res_idx, ok0)
         return carry, self._pack(cpos, cdir, csig, ccorr, ok0)
 
     def trace_stage(
         self, field: torch.Tensor, keys: np.ndarray, carry: Carry, it0: int, n_it: int,
-        kill: torch.Tensor,
+        kill: torch.Tensor, frame=None,
     ):
         """Iterations it0 .. it0+n_it-1 (iterINew, tracker.cpp:1096-1198).
 
         The random streams key on the ABSOLUTE iteration, so staging never
         changes results. `kill` (T,) bool retires traces whose committed
-        prefix already stopped. Returns (carry, packed (T, n_it, 9))."""
+        prefix already stopped. `frame`: as in `trace_init`. Returns
+        (carry, packed (T, n_it, 9))."""
         cfg, tb, dev = self.cfg, self.tables, self.device
         npart = cfg.np
         pos, dirs, wgt, resampled, res_idx, alive = carry
@@ -287,7 +306,6 @@ class BatchedTracker:
             torch.from_numpy(a).to(dev) for a in self.stage_uniforms(keys, it0, n_it)
         )
         ar = torch.arange(npart, device=dev)
-        dims = self.vol_dims(field)
         # reuse groups of kr iterations, then the remainder group: every
         # group starts at a multiple of kr
         kr = max(1, min(self.reuse, n_it))
@@ -310,12 +328,12 @@ class BatchedTracker:
             prior = self._w_flat[vi * self._sz + s].reshape(t, npart)
 
             if j % kr == 0:
-                ctx = self._window(field, new_pos)
-            corr, _ = self._corr(field, ctx, new_pos, new_dir)
+                ctx = self._window(field, new_pos, frame)
+            corr, _ = self._corr(field, ctx, new_pos, new_dir, frame)
             prev_w = torch.where(resampled[:, None], torch.full_like(wgt, 1.0 / npart), wgt)
             wgt, resampled = self._weights(prev_w, prior, corr)
-            cpos, cdir, ccorr, csig = self._estimate(field, ctx, new_pos, new_dir, wgt)
-            ok = self._in_bounds(cpos, dims) & (ccorr >= cfg.znccth)
+            cpos, cdir, ccorr, csig = self._estimate(field, ctx, new_pos, new_dir, wgt, frame)
+            ok = self._ok(field, cpos, ccorr, frame)
             alive = alive & ok
             res_idx = self._systematic(wgt, ru_all[j])
             pos, dirs = new_pos, new_dir

@@ -48,6 +48,13 @@ PORT_MODULES = (
     "pnr_tpu_torch.ops.zncc_exact",
     "pnr_tpu_torch.ops.tube_corr",
     "pnr_tpu_torch.ops.zncc_fast",
+    "pnr_tpu_torch.ops.slab",
+    "pnr_tpu_torch.parallel",
+    "pnr_tpu_torch.parallel.halo",
+    "pnr_tpu_torch.parallel.sharded",
+    "pnr_tpu_torch.parallel.multihost",
+    "pnr_tpu_torch.parallel.handoff",
+    "pnr_tpu_torch.parallel.plan",
     "pnr_tpu_torch.seeds.extract",
     "pnr_tpu_torch.smc.directions",
     "pnr_tpu_torch.smc.priors",
@@ -56,6 +63,7 @@ PORT_MODULES = (
     "pnr_tpu_torch.pipeline.reconstruct",
     "pnr_tpu_torch.pipeline.checkpoint",
     "pnr_tpu_torch.pipeline.serve",
+    "pnr_tpu_torch.pipeline.sharded_reconstruct",
     "pnr_tpu_torch.ui",
     "pnr_tpu_torch.ui.dialog",
 )
@@ -117,6 +125,18 @@ def test_pipeline_exports_the_serving_entry_points():
     assert pipeline.reconstruction_batch is reconstruction_batch
     assert pipeline.watch_and_reconstruct is watch_and_reconstruct
     assert {"reconstruction_batch", "watch_and_reconstruct"} <= set(pipeline.__all__)
+
+
+def test_the_sharded_entry_points_are_exported():
+    import pnr_tpu_torch.parallel as parallel
+    import pnr_tpu_torch.pipeline as pipeline
+    from pnr_tpu_torch.pipeline.sharded_reconstruct import reconstruction_func_sharded
+
+    assert pipeline.reconstruction_func_sharded is reconstruction_func_sharded
+    names = {"make_mesh", "shard_volume", "halo_exchange_z", "halo_exchange_z_aligned",
+             "frangi3d_sharded", "frangi2d_sharded", "normalize_to_u8_sharded", "plan_sharded",
+             "min_devices"}
+    assert names <= set(parallel.__all__) and all(callable(getattr(parallel, n)) for n in names)
 
 
 def test_every_port_module_is_listed():

@@ -189,13 +189,6 @@ def test_cli_soma_round_trip(tmp_path):
         assert np.hypot(somas[:, 2] - sx, somas[:, 3] - sy).min() < 10.0
 
 
-@pytest.mark.parametrize("flag", ["--mesh=2", "--plan"])
-def test_cli_unported_options_exit_nonzero(flag, capsys):
-    rc = cli.main(["-i", "x.npy", "-p", *["1"] * 11, flag, "--device", "cpu"])
-    assert rc != 0
-    assert "not yet ported" in capsys.readouterr().err
-
-
 def test_cli_default_device_needs_a_card(tmp_path, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

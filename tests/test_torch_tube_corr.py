@@ -173,10 +173,17 @@ def test_kernel_params_hold_the_plain_chain_constants():
     groups = eng.groups(vdims)
     p = tc.KernelParams(eng.tables, groups, vdims, "cpu")
     s = p.struct
-    # member for member csrc/tube_corr.cu's TubeParams: 370 4-byte members
-    assert ctypes.sizeof(tc.TubeParams) == 4 * 370
+    # member for member csrc/tube_corr.cu's TubeParams: 376 4-byte members
+    assert ctypes.sizeof(tc.TubeParams) == 4 * 376
     assert (s.S, s.NV, s.G) == (3, eng.nv, len(groups)) == (3, 9, 3)
     assert p.field_shape == (3, 128, 640, 3 * 640) and p.groups == 3
+    # the whole field: no slab origin, the field's dims the volume's
+    assert list(s.origin) == [0, 0, 0] and list(s.fdims) == list(vdims)
+    # a slab of planes [40, 100) of that volume
+    q = tc.KernelParams(eng.tables, groups, vdims, "cpu", (40, 0, 0), (60, 640, 640))
+    assert list(q.struct.origin) == [40, 0, 0] and list(q.struct.fdims) == [60, 640, 640]
+    assert list(q.struct.dims) == list(vdims) and q.field_shape == (3, 60, 640, 3 * 640)
+    assert list(q.struct.vol_hi) == list(s.vol_hi)
     # the bytes the kernel reads, on the layout's device
     assert bytes(p.data.numpy()) == bytes(s) and p.device_index == -1
     assert list(s.group_of)[:3] == [0, 1, 2]
