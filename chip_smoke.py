@@ -141,14 +141,44 @@ Phases, each of which exits non-zero on failure:
    min(4, count) real cards, bitwise the virtual mesh's tree and each
    card's peak under its plan; with one card it says it was not run;
 28. [plan]: `--plan --mesh 4` and `--plan` through the CLI on the main
-   stack against the card's memory, and `min_devices` for a 2048^3 exact
-   stack.
+   stack against the card's memory, `min_devices` for a 2048^3 exact
+   stack, the per-shard peak of tests/test_plan.py's (512, 1024, 1024)
+   falling strictly over 1, 2, 4 and 8 cards in tube and exact mode, and
+   the main stack's four-shard halo slabs on the monolithic filter;
+29. [batch dp exact], [batch dp tube]: the four stacks of [batch] through
+   `reconstruction_batch_dp` on a virtual mesh of four shards on cuda:0
+   (one stack a shard), then `reconstruction_batch` with
+   `fused_frangi=False`, prefetch on and off: each stack at JAX's bar
+   against the one-by-one run (J8 bitwise, equal node, tree and trace
+   counts and node types, positions within 1e-4; whether the trees are
+   bitwise too), seconds per stack of the three, the launches of K4, K3,
+   K2 or tube_corr (no K1); exact also prints, as information, the J8
+   differences from the default config's (K1) batch of [batch exact];
+30. [batch dp 2d]: two (1, 4096, 4096) planes the same way (frangi2d on
+   K3, K2);
+31. [batch sharded]: three stacks through `reconstruction_batch_sharded`,
+   two groups of two shards of a four-shard virtual mesh, each group on
+   its own host thread and stream: each at JAX's bar against
+   `reconstruction_func_sharded` on a two-shard mesh, seconds per stack;
+32. [serve sharded]: two stacks served through the CLI's `--watch --mesh
+   2` (the CLI's `make_mesh` given a two-shard virtual mesh, the card
+   being one): each SWC the one-shard sharded run's;
+33. [multiprocess]: the main stack, exact, in two processes of a gloo
+   group (this script with `--mp-child RANK PORT WORKDIR DEVICE`), each
+   with two shards on cuda:0, twice: J8 and node types bitwise, node
+   coordinates within 1e-4 and the trace count equal to the
+   single-process four-shard run of [sharded exact]; each run's seconds,
+   the bytes each stage received from the other process, and both
+   processes' launches.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its path, error, times, bound and library time; the 2-D and
 soma paths' launches and the one-plane rows' times under `launches_2d`,
 `launches_soma` and `plane`, the sharded paths' run-1 launches under
-`launches_sharded_exact` and `launches_sharded_tube`); the last line is
+`launches_sharded_exact` and `launches_sharded_tube`, and the launches of
+phases 29-33 under `launches_batch_dp_exact`, `launches_batch_dp_tube`,
+`launches_batch_dp_2d`, `launches_batch_sharded`, `launches_serve_sharded`
+and `launches_multiprocess`); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1972,7 +2002,7 @@ def phase_serving(torch, card, main_np):
         out["midres"] = phase_midres(torch, card, main_np, exact[0].j8, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    return out
+    return out, vols, exact
 
 
 #: shards of the virtual mesh of the sharded phases (all on the card)
@@ -2215,7 +2245,13 @@ def phase_plan(torch, card, main_np):
     stack against the card's memory, and min_devices for a 2048^3 exact
     stack."""
     from pnr_tpu_torch import PNRConfig, cli
-    from pnr_tpu_torch.parallel import card_memory_bytes, min_devices
+    from pnr_tpu_torch.parallel import (
+        card_memory_bytes,
+        frangi_halo,
+        min_devices,
+        plan_sharded,
+        slab_filter_route,
+    )
 
     tmp = tempfile.mkdtemp(prefix=".chip_smoke_plan_", dir=HERE)
     try:
@@ -2228,11 +2264,32 @@ def phase_plan(torch, card, main_np):
             check(rc == 0, f"[plan] --plan {' '.join(extra)} exited {rc} (the stack fits)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    big = min_devices((2048, 2048, 2048), PNRConfig.from_cli_params(MAIN_PARAMS),
-                      card_memory_bytes(DEVICE))
+    mem = card_memory_bytes(DEVICE)
+    big = min_devices((2048, 2048, 2048), PNRConfig.from_cli_params(MAIN_PARAMS), mem)
     print(f"[plan] min_devices for a (2048, 2048, 2048) exact stack: {big.n_devices} cards\n"
           f"{big.summary()} [{card}]", flush=True)
-    return {"min_devices_2048_exact": big.n_devices, "peak_stage": big.peak_stage}
+    # tests/test_plan.py's stack: the per-shard peak falls over 1, 2, 4, 8
+    # cards, each slab taking the route of the lower planned peak
+    jax_shape = (512, 1024, 1024)
+    falls = {}
+    for mode in ("tube", "exact"):
+        cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), zncc_mode=mode)
+        plans = [plan_sharded(jax_shape, cfg, n, mem) for n in (1, 2, 4, 8)]
+        gib = [round(p.peak_bytes / (1 << 30), 2) for p in plans]
+        falls[mode] = gib
+        print(f"[plan] {jax_shape} {mode} over 1, 2, 4, 8 cards: peak {gib} GiB a shard, filter "
+              f"routes {[next(k for k in p.stages if k.startswith('frangi')) for p in plans]}",
+              flush=True)
+        check(all(a > b for a, b in zip(gib, gib[1:])),
+              f"[plan] {jax_shape} {mode}: the per-shard peak falls strictly over 1, 2, 4, 8 cards")
+    slab = (MAIN_SHAPE[0] // MESH_SHARDS + 2 * frangi_halo(SIGMAS, ZDIST),) + MAIN_SHAPE[1:]
+    route = slab_filter_route(slab, SIGMAS, ZDIST)
+    print(f"[plan] a four-shard halo slab of the main stack {slab}: "
+          f"{'tiled' if route.tiled else 'monolithic'} ({route.peak_bytes} bytes planned)",
+          flush=True)
+    check(not route.tiled, "[plan] the main stack's four-shard slabs take the monolithic filter")
+    return {"min_devices_2048_exact": big.n_devices, "peak_stage": big.peak_stage,
+            "jax_shape_peaks_gib": falls}
 
 
 def phase_sharded(torch, card, main_np, main_rows):
@@ -2250,6 +2307,303 @@ def phase_sharded(torch, card, main_np, main_rows):
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "pnr_tpu") or m.startswith(("jax.", "pnr_tpu.")))
     check(not loaded, f"no module of jax or of pnr_tpu was imported (found {loaded})")
+    return out, virtual
+
+
+#: the kernels each batch-over-a-mesh path must launch: the batch's unfused
+#: filter (K4 and K3; `frangi2d` on K3 for a plane), then K2 or tube_corr
+MESH_PATH_KERNELS = {
+    "batch dp exact": ("conv_yx", "conv1d_axis", "exact_sums"),
+    "batch dp tube": ("conv_yx", "conv1d_axis", "conv1d_along_axis", "tube_corr_trace",
+                      "tube_corr_score"),
+    "batch dp 2d": ("conv1d_axis", "exact_sums"),
+    "batch sharded": ("conv_yx", "conv1d_axis", "exact_sums"),
+    "serve sharded": ("conv_yx", "conv1d_axis", "exact_sums"),
+    "multiprocess": ("conv_yx", "conv1d_axis", "exact_sums"),
+}
+#: [multiprocess]: two processes, each with this many shards on the card
+MP_SHARDS_PER_PROCESS = 2
+MP_TIMEOUT_S = 300
+
+
+def same_run(a, b):
+    """JAX's bar for a batch or multi-process run against its reference
+    (tests/test_parallel.py, tests/test_multiprocess.py): J8 bitwise, equal
+    trace and node counts, node types equal, node positions within 1e-4."""
+    return (np.array_equal(a.j8, b.j8) and a.trace_count == b.trace_count
+            and len(a.n0) == len(b.n0) and len(a.tree) == len(b.tree)
+            and np.array_equal(np.asarray(a.n0.type), np.asarray(b.n0.type))
+            and np.allclose(a.n0.positions(), b.n0.positions(), rtol=0.0, atol=1e-4))
+
+
+def timed(torch, fn):
+    """fn()'s result and its seconds, the card synchronised on both sides."""
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_launches(tag, n):
+    print(f"[{tag}] kernel launches: {json.dumps(n)}", flush=True)
+    check(all(n[k] > 0 for k in MESH_PATH_KERNELS[tag]),
+          f"[{tag}] launched {', '.join(MESH_PATH_KERNELS[tag])}")
+    check(n["frangi3d_fused"] == 0, f"[{tag}] no K1 (the path's filter is unfused)")
+
+
+def phase_batch_dp(torch, card, vols, mode, k1_results=None):
+    """[batch dp exact] / [batch dp tube] / [batch dp 2d]: the stacks through
+    `reconstruction_batch_dp` on a virtual mesh of one shard a stack on the
+    card (launch counts set to 0 just before, read just after), then through
+    `reconstruction_batch` with `fused_frangi=False`, prefetch on and off:
+    each stack at JAX's bar against the one-by-one run (and whether the trees
+    are bitwise too); seconds per stack of the three. With `k1_results` (the
+    default config's batch, K1), the J8 differences from it, as information."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.parallel import reconstruction_batch_dp
+    from pnr_tpu_torch.pipeline import reconstruction_batch
+
+    tag = f"batch dp {mode}"
+    plane = mode == "2d"
+    cfg = dataclasses.replace(PNRConfig.from_cli_params(PLANE_PARAMS if plane else MAIN_PARAMS),
+                              zncc_mode="exact" if plane else mode, fused_frangi=False)
+    mesh = virtual_mesh(torch, len(vols))
+    n = len(vols)
+    reset_counters()
+    dp, dp_s = timed(torch, lambda: reconstruction_batch_dp(vols, cfg, mesh, device=DEVICE))
+    launches = read_counters()
+    on, on_s = timed(torch, lambda: list(reconstruction_batch(vols, cfg, prefetch=True,
+                                                              device=DEVICE)))
+    off, off_s = timed(torch, lambda: list(reconstruction_batch(vols, cfg, prefetch=False,
+                                                                device=DEVICE)))
+    same = [same_run(a, b) for a, b in zip(dp, off)]
+    bitwise = [same_tree(a, b) for a, b in zip(dp, off)]
+    print(f"[{tag}] {n} {tuple(vols[0].shape)} stacks, one a shard of a virtual mesh: "
+          f"{dp_s:.3f} s ({dp_s / n:.4f} s a stack); reconstruction_batch (fused_frangi=False) "
+          f"prefetch on {on_s:.3f} s ({on_s / n:.4f}), off {off_s:.3f} s ({off_s / n:.4f}); "
+          f"each stack at JAX's bar against the one-by-one run {same}, trees bitwise {bitwise}; "
+          f"traces {[r.trace_count for r in dp]}, SWC nodes {[len(r.tree) - 1 for r in dp]} "
+          f"[{card}]", flush=True)
+    print(f"[{tag}] stages of stack 1 (s): "
+          f"{json.dumps({k: round(v, 4) for k, v in dp[0].timings.items()})}", flush=True)
+    check(all(same) and len(dp) == n, f"[{tag}] every stack at JAX's bar against the one-by-one run")
+    mesh_launches(tag, launches)
+    out = {"s_per_stack": dp_s / n, "batch_prefetch_s_per_stack": on_s / n,
+           "batch_one_by_one_s_per_stack": off_s / n, "bitwise": all(bitwise),
+           "launches": launches}
+    if k1_results is not None:
+        diff = [int((a.j8 != b.j8).sum()) for a, b in zip(dp, k1_results)]
+        dmax = [int(np.abs(a.j8.astype(np.int16) - b.j8.astype(np.int16)).max())
+                for a, b in zip(dp, k1_results)]
+        print(f"[{tag}] information: J8 of the batch (unfused filter) against the default "
+              f"config's batch (K1): voxels that differ {diff} of {vols[0].size}, max |diff| "
+              f"{dmax}", flush=True)
+        out["j8_vs_k1"] = {"voxels": diff, "max_abs": dmax}
+    return out
+
+
+def phase_batch_sharded(torch, card, vols):
+    """[batch sharded]: three stacks through `reconstruction_batch_sharded`,
+    two groups of two shards of a virtual mesh of four, exact: each stack at
+    JAX's bar against `reconstruction_func_sharded` on a two-shard mesh."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.parallel import reconstruction_batch_sharded
+    from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+    cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
+    mesh, sub = virtual_mesh(torch, 4), virtual_mesh(torch, 2)
+    reset_counters()
+    got, s = timed(torch, lambda: reconstruction_batch_sharded(vols, cfg, mesh, groups=2))
+    launches = read_counters()
+    refs, ref_s = timed(torch, lambda: [reconstruction_func_sharded(v, cfg, sub, verbose=False)
+                                        for v in vols])
+    same = [same_run(a, b) for a, b in zip(got, refs)]
+    bitwise = [same_tree(a, b) for a, b in zip(got, refs)]
+    n = len(vols)
+    print(f"[batch sharded] {n} {MAIN_SHAPE} stacks, two groups of two shards on the card: "
+          f"{s:.3f} s ({s / n:.4f} s a stack); one by one on a two-shard mesh {ref_s:.3f} s "
+          f"({ref_s / n:.4f}); each at JAX's bar against it {same}, trees bitwise {bitwise}; "
+          f"handoffs {[r.n_handoffs for r in got]} [{card}]", flush=True)
+    check(all(same), "[batch sharded] every stack at JAX's bar against the two-shard run")
+    mesh_launches("batch sharded", launches)
+    return {"s_per_stack": s / n, "one_by_one_s_per_stack": ref_s / n, "bitwise": all(bitwise),
+            "launches": launches}
+
+
+def phase_serve_sharded(torch, card, vols, workdir):
+    """[serve sharded]: two stacks served through the CLI's `--watch --mesh
+    2` (the CLI's `make_mesh` given a virtual mesh of two shards on the card,
+    which has one): two arrivals split the mesh into two one-shard groups;
+    each SWC as `reconstruction_func_sharded` on a one-shard mesh writes it."""
+    from pnr_tpu_torch import PNRConfig, cli, parallel
+    from pnr_tpu_torch.io.swc import read_swc
+    from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+    d = os.path.join(workdir, "watch_mesh")
+    os.makedirs(d)
+    names = [f"s{i}.npy" for i in range(len(vols))]
+    for name, vol in zip(names, vols):
+        np.save(os.path.join(d, name), vol)
+    open(os.path.join(d, ".stop"), "w").close()
+    make = parallel.make_mesh
+    parallel.make_mesh = lambda n, axis="z", device="cuda": virtual_mesh(torch, n)
+    reset_counters()
+    try:
+        rc, s = timed(torch, lambda: cli.main(["-i", d, "-p", *MAIN_PARAMS, "--watch", "--mesh",
+                                               "2", "--device", DEVICE, "--quiet"]))
+    finally:
+        parallel.make_mesh = make
+    launches = read_counters()
+    cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
+    same = []
+    for name, vol in zip(names, vols):
+        out = os.path.join(d, name + "_Advantra.swc")
+        ref = reconstruction_func_sharded(vol, cfg, virtual_mesh(torch, 1), verbose=False)
+        same.append(os.path.exists(out) and np.array_equal(read_swc(out), tree_rows(ref.tree)))
+    print(f"[serve sharded] --watch --mesh 2 (two shards of the card): rc {rc}, {s:.3f} s for "
+          f"{len(vols)} stacks; each SWC the one-shard sharded run's {same} [{card}]", flush=True)
+    check(rc == 0 and all(same), "[serve sharded] each SWC the one-shard sharded run's")
+    mesh_launches("serve sharded", launches)
+    return {"s": s, "launches": launches}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_multiprocess(torch, card, main_np, ref, single_s, workdir):
+    """[multiprocess]: the main stack, exact, through
+    `reconstruction_func_sharded` in two processes of a gloo group
+    (`init_multihost`), each with two shards on the card (this script with
+    --mp-child, `make_global_mesh`), twice: against the single-process
+    four-shard run `ref`, J8 and node types bitwise, node coordinates
+    within 1e-4, equal trace counts; the seconds of each run beside the
+    single-process run's (`single_s`), the bytes each stage received from
+    the other process, and run 1's launches of both processes (set to 0
+    just before it in each)."""
+    np.save(os.path.join(workdir, "mp_stack.npy"), main_np)
+    with open(os.path.join(workdir, "mp_params.json"), "w") as f:
+        json.dump(MAIN_PARAMS, f)
+    port = str(_free_port())
+    dev = "cuda:0" if DEVICE == "cuda" else DEVICE
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-child", str(r),
+                               port, workdir, dev],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=HERE)
+             for r in range(2)]
+    outs = []
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        print(f"[multiprocess] rank {r} exited {p.returncode}; its output's end:\n"
+              f"{out[-1500:].rstrip()}", flush=True)
+        check(p.returncode == 0, f"[multiprocess] rank {r} exited 0")
+    info = [json.load(open(os.path.join(workdir, f"mp_rank{r}.json"))) for r in range(2)]
+    got = np.load(os.path.join(workdir, "mp_result.npz"))
+    same = {
+        "j8": bool(np.array_equal(got["j8"], ref.j8)),
+        "types": bool(np.array_equal(got["ntype"], np.asarray(ref.n0.type))),
+        "traces": int(got["trace_count"]) == ref.trace_count,
+        "tree": int(got["tree_n"]) == len(ref.tree),
+        "coords": len(got["x"]) == len(ref.n0) and all(
+            np.allclose(got[k], np.asarray(getattr(ref.n0, k)), rtol=0.0, atol=1e-4)
+            for k in ("x", "y", "z", "sig")),
+    }
+    launches = {k: info[0]["launches"][k] + info[1]["launches"][k] for k in info[0]["launches"]}
+    print(f"[multiprocess] the main stack, exact, two processes x {MP_SHARDS_PER_PROCESS} shards "
+          f"on one card (gloo): run seconds rank 0 {info[0]['s']}, rank 1 {info[1]['s']} (the "
+          f"single-process four-shard run: {[round(x, 4) for x in single_s]}); {wall:.3f} s with "
+          f"both processes' start; against the single-process four-shard run: "
+          f"{json.dumps(same)} [{card}]", flush=True)
+    for r in range(2):
+        print(f"[multiprocess] rank {r} run 1 bytes received per stage: "
+              f"{json.dumps(info[r]['received'])}; stages (s): {json.dumps(info[r]['stages'])}",
+              flush=True)
+    check(all(same.values()), "[multiprocess] equal to the single-process four-shard run")
+    mesh_launches("multiprocess", launches)
+    return {"s": [info[0]["s"], info[1]["s"]], "received": [i["received"] for i in info],
+            "launches": launches, "wall_s": wall}
+
+
+def mp_child(rank: int, port: str, workdir: str, device: str) -> int:
+    """One process of [multiprocess] (run as `chip_smoke.py --mp-child RANK
+    PORT WORKDIR DEVICE`)."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    global DEVICE
+    DEVICE = "cuda" if device.startswith("cuda") else device
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.parallel import init_multihost, make_global_mesh, shutdown_multihost
+    from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+    init_multihost(f"localhost:{port}", 2, rank, backend="gloo")
+    try:
+        mesh = make_global_mesh(device=(device,) * MP_SHARDS_PER_PROCESS)
+        check(mesh.multiprocess and mesh.size == 2 * MP_SHARDS_PER_PROCESS,
+              f"a global mesh of {2 * MP_SHARDS_PER_PROCESS} shards over two processes")
+        vol = np.load(os.path.join(workdir, "mp_stack.npy"))
+        cfg = PNRConfig.from_cli_params(json.load(open(os.path.join(workdir, "mp_params.json"))))
+        secs = []
+        for run in (1, 2):
+            if run == 1:
+                reset_counters()
+            res, s = timed(torch, lambda: reconstruction_func_sharded(vol, cfg, mesh,
+                                                                       verbose=False))
+            secs.append(round(s, 4))
+            if run == 1:
+                launches, first = read_counters(), res
+        print(f"rank {rank}: runs {secs} s, {first.trace_count} traces, {first.n_handoffs} "
+              f"handoffs", flush=True)
+        with open(os.path.join(workdir, f"mp_rank{rank}.json"), "w") as f:
+            json.dump({"s": secs, "launches": launches, "received": first.received_bytes,
+                       "stages": {k: round(v, 4) for k, v in first.timings.items()}}, f)
+        if rank == 0:
+            np.savez(os.path.join(workdir, "mp_result.npz"), j8=first.j8,
+                     ntype=np.asarray(first.n0.type), x=np.asarray(first.n0.x),
+                     y=np.asarray(first.n0.y), z=np.asarray(first.n0.z),
+                     sig=np.asarray(first.n0.sig), trace_count=first.trace_count,
+                     tree_n=len(first.tree))
+    finally:
+        shutdown_multihost()
+    return 0
+
+
+def phase_mesh(torch, card, vols, k1_exact, virtual_exact, single_s, main_np):
+    """The batch-over-a-mesh and multi-process phases, after [sharded]."""
+    out = {}
+    for mode in ("exact", "tube"):
+        out[f"batch dp {mode}"] = phase_batch_dp(torch, card, vols, mode,
+                                                 k1_exact if mode == "exact" else None)
+        torch.cuda.empty_cache()
+    planes = [make_volume(PLANE_SHAPE, seed=i) for i in range(2)]
+    out["batch dp 2d"] = phase_batch_dp(torch, card, planes, "2d")
+    del planes
+    torch.cuda.empty_cache()
+    out["batch sharded"] = phase_batch_sharded(torch, card, vols[:3])
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_mesh_", dir=HERE)
+    try:
+        out["serve sharded"] = phase_serve_sharded(torch, card, vols[:2], workdir)
+        torch.cuda.empty_cache()
+        out["multiprocess"] = phase_multiprocess(torch, card, main_np, virtual_exact, single_s,
+                                                 workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     return out
 
 
@@ -2341,8 +2695,11 @@ def main() -> int:
     for mode in ("exact", "tube"):
         phase_small_agreement(torch, mode)
     quality = phase_quality(torch, card)
-    serving = phase_serving(torch, card, main_np)
-    sharded = phase_sharded(torch, card, main_np, main_rows)
+    serving, vols, k1_exact = phase_serving(torch, card, main_np)
+    sharded, virtual = phase_sharded(torch, card, main_np, main_rows)
+    mesh = phase_mesh(torch, card, vols, k1_exact, virtual["exact"],
+                      [sharded["exact"][f"run{r}"]["s"] for r in (1, 2)], main_np)
+    del vols, k1_exact, virtual
     k2_ms, k2_seen = profiles["exact"]["kernels"]["K2"]
     k2.update({"device_ms_per_exact_run": k2_ms, "profiled_launches": k2_seen,
                "seed_scoring_launches": launches["exact"]["seed_scoring"]["exact_sums"],
@@ -2369,6 +2726,7 @@ def main() -> int:
           f"{json.dumps(soma)}; quality {json.dumps(quality)}", flush=True)
     print(f"[serving] {json.dumps(serving)}", flush=True)
     print(f"[sharded] {json.dumps(sharded, default=str)}", flush=True)
+    print(f"[mesh] {json.dumps(mesh, default=str)}", flush=True)
     for mode in ("exact", "tube"):
         n = serving[f"batch {mode}"]["launches"]
         k1[f"launches_batch_{mode}"] = n["K1"]
@@ -2433,6 +2791,13 @@ def main() -> int:
         for mode in ("exact", "tube"):
             row[f"launches_sharded_{mode}"] = sharded[mode]["launches"][sharded_counter[row["name"]]]
     kernels[4]["launches_sharded_tube_map_build"] = sharded["tube"]["launches"]["conv1d_along_axis"]
+    # each kernel's launches on the batch-over-a-mesh and multi-process paths
+    for row in kernels:
+        for path, entry in mesh.items():
+            key = "launches_" + path.replace(" ", "_")
+            row[key] = entry["launches"][sharded_counter[row["name"]]]
+    kernels[4]["launches_batch_dp_tube_map_build"] = mesh["batch dp tube"]["launches"][
+        "conv1d_along_axis"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2441,4 +2806,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-child"]:
+        sys.exit(mp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -7,7 +7,9 @@ with the parameter-provenance header), and the same modes: several -i
 inputs through the prefetch-pipelined `reconstruction_batch`, `--watch`
 (serve a directory), `--checkpoint`/`--resume`, `--save-midres` (the
 reference's intermediate dumps), `--find-maxima`, `--interactive`,
-`--mesh N` (one input over N cards, `reconstruction_func_sharded`) and
+`--mesh N` (one input over N cards, `reconstruction_func_sharded`; with
+`--watch`, each poll's arrivals over the mesh through
+`reconstruction_batch_sharded`) and
 `--plan` (the per-card memory plan, read from the image's header only).
 Every stack runs on the device (the port has no host one-shot engine).
 

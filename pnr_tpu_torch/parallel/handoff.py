@@ -31,6 +31,14 @@ slab meets a volume border too. A trace stops where its centroid leaves
 the volume (the original extent, before the mesh padding) or its slab.
 `patch_reuse` is forced to 1, as in JAX.
 
+On a multi-process mesh (parallel/multihost.py) each process advances its
+own shards' lanes; the handshake is decided from host data every process
+holds alike (each shard's last centroids and alive flags, gathered with
+its estimates after every stage), so every process takes the same
+decisions, and the carries of traces that cross to another process's
+shard travel through one `multihost.exchange`; the keys, trace ids and
+live flags of every shard are host arrays kept on every process.
+
 `build_handoff_tracer` returns (init, stage, n_stages):
 
     init(vs, seed_pos, seed_dir, trace_ids, valid, base_key, field=None)
@@ -44,8 +52,9 @@ are volume (x, y, z), bucketed by shard (the pipeline's `_bucket_by_shard`);
 `build_fields`, built once and passed to every call. `iter_idx` are the
 absolute iterations the stage runs; `packed` holds each shard's (T, n, 9)
 estimates on its device (None for a shard with no live lane) and
-`lane_estimates` gathers them. `ids` is -1 on free lanes; est0, ids, live
-and kept_local are host arrays.
+`lane_estimates` gathers them (another process's shards as host arrays).
+`ids` is -1 on free lanes; est0, ids, live and kept_local are host
+arrays.
 """
 
 from __future__ import annotations
@@ -60,7 +69,8 @@ import torch
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.ops.slab import SlabFrame
 from pnr_tpu_torch.parallel.halo import halo_exchange_z_aligned
-from pnr_tpu_torch.parallel.sharded import Mesh, on
+from pnr_tpu_torch.parallel.multihost import exchange
+from pnr_tpu_torch.parallel.sharded import Mesh, on, shard_len
 from pnr_tpu_torch.smc.tracker import BatchedTracker, trace_keys
 
 
@@ -84,7 +94,7 @@ class Trackers:
     def __init__(self, cfg: PNRConfig, mesh: Mesh, is2d: bool = False, stage_iters: int = 8):
         cfg = dataclasses.replace(cfg, patch_reuse=1)
         self.by_device = {}
-        for d in mesh.devices:
+        for d in mesh.local_devices:
             if d not in self.by_device:
                 with on(d):
                     self.by_device[d] = BatchedTracker(cfg, d, stage_iters=stage_iters, is2d=is2d)
@@ -97,10 +107,15 @@ def build_fields(trackers: Trackers, mesh: Mesh, vs, halo: int, extent: int, is2
     """Per shard (field, frame): the likelihood field of the shard's aligned
     `halo` slab on its device, and where the slab lies in the volume of
     `extent` planes (rows, when `is2d`: `vs` is then the transposed
-    (Y, 1, X) layout and each slab is turned back to (1, S, X))."""
+    (Y, 1, X) layout and each slab is turned back to (1, S, X)). Another
+    process's shard gets None."""
     out = []
-    zl = int(vs[0].shape[0])
-    for i, (dev, (slab, off)) in enumerate(zip(mesh.devices, halo_exchange_z_aligned(vs, halo))):
+    zl = shard_len(vs)
+    for i, (dev, got) in enumerate(zip(mesh.devices, halo_exchange_z_aligned(vs, halo, mesh))):
+        if got is None:
+            out.append(None)
+            continue
+        slab, off = got
         w0 = i * zl - off
         with on(dev):
             if is2d:
@@ -115,10 +130,11 @@ def build_fields(trackers: Trackers, mesh: Mesh, vs, halo: int, extent: int, is2
 
 @dataclasses.dataclass
 class HandoffState:
-    """The lanes of every shard: the tracker carries on the devices; keys,
-    trace ids and live flags on the host; `last` per shard the (2, T)
-    device tensor [the centroid's migrating coordinate, alive] of its last
-    estimates (None when the shard traced nothing)."""
+    """The lanes of every shard: the tracker carries on the devices (None
+    for another process's shard); keys, trace ids and live flags on the
+    host; `last` per shard the (2, T) [the centroid's migrating coordinate,
+    alive] of its last estimates, a device tensor, or a host array on a
+    multi-process mesh (None when the shard traced nothing)."""
 
     zl: int  # planes (rows) per shard
     carry: list
@@ -145,12 +161,53 @@ def _put_rows(full, idx: torch.Tensor, rows) -> None:
         a.index_copy_(0, idx, r.to(a.device))
 
 
+def _host(a):
+    """A device tensor's host copy (a host array or None as it is)."""
+    return a.cpu().numpy() if torch.is_tensor(a) else a
+
+
 def lane_estimates(packed, lanes: int, n_it: int) -> np.ndarray:
     """A stage's per-shard estimates as one host (L, n_it, 9) array."""
     return np.concatenate([
-        np.zeros((lanes, n_it, 9), np.float32) if p is None else p.cpu().numpy()
-        for p in packed
+        np.zeros((lanes, n_it, 9), np.float32) if p is None else _host(p) for p in packed
     ])
+
+
+def _cross_process_rows(mesh: Mesh, up_lanes, dn_lanes, up_rows, dn_rows) -> None:
+    """The carries of traces whose move crosses to another process's shard,
+    sent through one `exchange` when any does (every process decides that
+    from the same host lanes): each receiving process gets the rows of its
+    remote senders, as host tensors, in `up_rows`/`dn_rows` in place."""
+    n = mesh.size
+    crossing = [("up", s) for s in range(n - 1)
+                if len(up_lanes[s]) and mesh.ranks[s] != mesh.ranks[s + 1]]
+    crossing += [("dn", s) for s in range(1, n)
+                 if len(dn_lanes[s]) and mesh.ranks[s] != mesh.ranks[s - 1]]
+    if not crossing:
+        return
+    rows = {"up": up_rows, "dn": dn_rows}
+    mine = {(d, s): tuple(r.cpu().numpy() for r in rows[d][s])
+            for d, s in crossing if mesh.is_local(s)}
+    for part in exchange(mine):
+        for (d, s), arrs in part.items():
+            if not mesh.is_local(s):
+                rows[d][s] = tuple(torch.from_numpy(a) for a in arrs)
+
+
+def _share(mesh: Mesh, per_shard: list, lasts: list) -> None:
+    """On a multi-process mesh, fill in the other processes' entries of
+    `per_shard` (their estimates) and `lasts` (their last centroids and
+    alive flags) in place, as host arrays, and turn this process's lasts
+    into host arrays too."""
+    if not mesh.multiprocess:
+        return
+    mine = {s: (_host(per_shard[s]), None if lasts[s] is None else _host(lasts[s]))
+            for s in range(mesh.size) if mesh.is_local(s)}
+    for part in exchange(mine):
+        for s, (e, last) in part.items():
+            if not mesh.is_local(s):
+                per_shard[s] = e
+            lasts[s] = last
 
 
 def build_handoff_tracer(
@@ -180,17 +237,25 @@ def build_handoff_tracer(
 
     def init(vs, seed_pos, seed_dir, trace_ids, valid, base_key, field=None):
         if field is None:
-            extent = z_total if z_total is not None else n * int(vs[0].shape[0])
+            extent = z_total if z_total is not None else n * shard_len(vs)
             field = build_fields(trackers, mesh, vs, trace_halo, extent, is2d)
         sp = np.asarray(seed_pos, np.float32)
         tids = np.asarray(trace_ids, np.int64)
         valid = np.asarray(valid, bool)
         sd = np.asarray(seed_dir, np.float32)
-        state = HandoffState(int(vs[0].shape[0]), [], [], [], [], [])
+        state = HandoffState(shard_len(vs), [], [], [], [], [])
         est0 = []
         for s, dev in enumerate(mesh.devices):
             sl = slice(s * t_lanes, (s + 1) * t_lanes)
             keys = trace_keys(base_key, tids[sl])
+            state.keys.append(keys)
+            state.ids.append(tids[sl].copy())
+            state.live.append(valid[sl].copy())
+            if not mesh.is_local(s):  # another process's shard
+                state.carry.append(None)
+                state.last.append(None)
+                est0.append(None)
+                continue
             f, frame = field[s]
             # only the valid lanes are traced; the pad lanes stay free
             lanes = np.nonzero(valid[sl])[0]
@@ -208,11 +273,9 @@ def build_handoff_tracer(
                         e0.index_copy_(0, idx, e_sub)
                 state.last.append(torch.stack([e0[:, ci], carry[5].to(torch.float32)]))
             state.carry.append(carry)
-            state.keys.append(keys)
-            state.ids.append(tids[sl].copy())
-            state.live.append(valid[sl].copy())
             est0.append(e0)
-        est0 = np.concatenate([e.cpu().numpy() for e in est0])
+        _share(mesh, est0, state.last)
+        est0 = np.concatenate([_host(e) for e in est0])
         return state, est0, _ids(state), field
 
     def _ids(state):
@@ -229,7 +292,7 @@ def build_handoff_tracer(
                 m = np.zeros(t_lanes, bool)
                 owner = np.full(t_lanes, s)
             else:
-                lastc, alive = state.last[s].cpu().numpy()
+                lastc, alive = _host(state.last[s])
                 owner = np.clip(np.floor(lastc / zl).astype(np.int64), 0, n - 1)
                 m = live[s] & (alive > 0.5) & (owner != s)
             moving.append(m)
@@ -251,46 +314,62 @@ def build_handoff_tracer(
             kept[s] = int(moving[s].sum()) - int(go_up[s].sum()) - int(go_dn[s].sum())
 
         # ---- what leaves each shard, read before anything is seated ----
-        def payload(s, mask):
-            lanes = np.nonzero(mask)[0]
-            if not len(lanes):
-                return None
-            dev = mesh.devices[s]
-            idx = torch.from_numpy(lanes).to(dev)
-            rows = tuple(a.index_select(0, idx) for a in state.carry[s])
-            return rows, state.keys[s][lanes], state.ids[s][lanes]
+        up_lanes = [np.nonzero(m)[0] for m in go_up]
+        dn_lanes = [np.nonzero(m)[0] for m in go_dn]
 
-        ups = [payload(s, go_up[s]) for s in range(n)]
-        dns = [payload(s, go_dn[s]) for s in range(n)]
+        def rows_of(s, lanes):
+            if not len(lanes) or not mesh.is_local(s):
+                return None
+            idx = torch.from_numpy(lanes).to(mesh.devices[s])
+            return tuple(a.index_select(0, idx) for a in state.carry[s])
+
+        up_rows = [rows_of(s, up_lanes[s]) for s in range(n)]
+        dn_rows = [rows_of(s, dn_lanes[s]) for s in range(n)]
+        if mesh.multiprocess:
+            _cross_process_rows(mesh, up_lanes, dn_lanes, up_rows, dn_rows)
+        # per receiver: (device rows, keys, trace ids) of the up-arrivals
+        # (from s-1), then of the down-arrivals (from s+1)
+        arrivals = [[] for _ in range(n)]
+        for s in range(n):
+            if s < n - 1 and len(up_lanes[s]):
+                arrivals[s + 1].append(
+                    (up_rows[s], state.keys[s][up_lanes[s]], state.ids[s][up_lanes[s]]))
+        for s in range(n):
+            if s > 0 and len(dn_lanes[s]):
+                arrivals[s - 1].append(
+                    (dn_rows[s], state.keys[s][dn_lanes[s]], state.ids[s][dn_lanes[s]]))
         for s in range(n):
             live[s] &= ~(go_up[s] | go_dn[s])
 
-        # ---- seat up-arrivals (from s-1), then down-arrivals (from s+1) ----
+        # ---- seat them in each receiver's lowest free lanes ----
         for s, dev in enumerate(mesh.devices):
-            carry = list(state.carry[s])
+            local = mesh.is_local(s)
+            carry = list(state.carry[s]) if local else None
             keys, ids = state.keys[s], state.ids[s]
-            for arr in ((ups[s - 1] if s > 0 else None), (dns[s + 1] if s < n - 1 else None)):
-                if arr is None:
-                    continue
-                rows, k_in, i_in = arr
+            for rows, k_in, i_in in arrivals[s]:
                 dest = np.nonzero(~live[s])[0][:len(i_in)]
                 if len(dest) < len(i_in):
                     raise AssertionError("handoff: the capacity handshake seated more traces "
                                          "than the receiver has free lanes")
-                didx = torch.from_numpy(dest).to(dev)
-                for a, r in zip(carry, rows):
-                    a.index_copy_(0, didx, r.to(dev))
+                if local:
+                    didx = torch.from_numpy(dest).to(dev)
+                    for a, r in zip(carry, rows):
+                        a.index_copy_(0, didx, r.to(dev))
                 keys[dest] = k_in
                 ids[dest] = i_in
                 live[s][dest] = True
-            with on(dev):
-                carry[5] = carry[5] & torch.from_numpy(live[s]).to(dev)
-            state.carry[s] = tuple(carry)
+            if local:
+                with on(dev):
+                    carry[5] = carry[5] & torch.from_numpy(live[s]).to(dev)
+                state.carry[s] = tuple(carry)
 
         # ---- advance the live lanes of every shard ----
         packed = []
         for s, dev in enumerate(mesh.devices):
             lanes = np.nonzero(live[s])[0]
+            if not mesh.is_local(s):
+                packed.append(None)  # `_share` brings its estimates
+                continue
             if not len(lanes):
                 packed.append(None)
                 state.last[s] = None
@@ -312,6 +391,7 @@ def build_handoff_tracer(
                     pk.index_copy_(0, idx, pk_sub)
                 state.last[s] = torch.stack([pk[:, -1, ci], state.carry[s][5].to(torch.float32)])
             packed.append(pk)
+        _share(mesh, packed, state.last)
         state.live = live
         return state, packed, _ids(state), np.concatenate(live), kept
 

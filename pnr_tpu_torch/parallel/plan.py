@@ -8,13 +8,14 @@ buffers the port allocates, and `min_devices` inverts it: the smallest
 the port's, measured on an H100 by chip_smoke.py and kept in
 pipeline/reconstruct.py, not the TPU's:
 
-- the filter: the monolithic unfused filter's peak bytes per voxel of its
-  halo slab (`UNFUSED_PEAK_BYTES_PER_VOXEL`, the slab included) up to
-  `UNFUSED_MAX_VOXELS`; above it the tiled engine's outputs and stage
-  (`FUSED_PEAK_BYTES_PER_VOXEL`) plus one tile of `TILE_VOX_BUDGET`
-  voxels at the unfused peak; a one-plane stack `frangi2d`'s bytes per
-  pixel (`FRANGI2D_PEAK_BYTES_PER_PIXEL`, or the tiled route's above
-  `FRANGI2D_TILED_PIXELS`);
+- the filter: the route `frangi3d_sharded` takes on the halo slab
+  (`sharded.slab_filter_route`, the lower of the two peaks): the
+  monolithic unfused filter's bytes per voxel
+  (`UNFUSED_PEAK_BYTES_PER_VOXEL`, the slab included), or the tiled
+  engine's outputs and stage (`FUSED_PEAK_BYTES_PER_VOXEL`) plus one tile
+  of `TILE_VOX_BUDGET` voxels at the unfused peak; a one-plane stack
+  `frangi2d`'s bytes per pixel (`FRANGI2D_PEAK_BYTES_PER_PIXEL`, or the
+  tiled route's above `FRANGI2D_TILED_PIXELS`);
 - the likelihood field on the trace-halo slab: the uint8 slab itself in
   exact mode; in tube mode 12 bytes per voxel and sigma in float32 (6 in
   bfloat16, as `BatchedTracker.prepare_field` routes it) plus the build's
@@ -112,12 +113,11 @@ def plan_sharded(
     """Per-shard device-memory plan of `reconstruction_func_sharded` over
     `n_devices` shards. `mem_bytes` defaults to the card's
     (`card_memory_bytes`). `blocked_frangi=None` routes the filter as the
-    pipeline does (the monolithic filter up to UNFUSED_MAX_VOXELS a slab,
-    else the tiled engines); True/False forces the choice. `stage_iters`
+    pipeline does (`slab_filter_route`: the route with the lower planned
+    peak); True/False forces the choice. `stage_iters`
     is the driver's (a larger one widens the trace halo)."""
-    from pnr_tpu_torch.ops.frangi_blocked import pick_blocks
     from pnr_tpu_torch.parallel.handoff import required_trace_halo
-    from pnr_tpu_torch.parallel.sharded import frangi2d_halo, frangi_halo
+    from pnr_tpu_torch.parallel.sharded import frangi2d_halo, frangi_halo, slab_filter_route
     from pnr_tpu_torch.pipeline import reconstruct as rc
 
     if mem_bytes is None:
@@ -138,26 +138,23 @@ def plan_sharded(
 
     # --- filter: the shard's planes, the route's peak on its halo slab
     # (the slab counted in it) and the crop of its outputs
-    if blocked_frangi is None:
-        blocked_frangi = slab_f > (rc.FRANGI2D_TILED_PIXELS if is2d else rc.UNFUSED_MAX_VOXELS)
     if is2d:
+        if blocked_frangi is None:
+            blocked_frangi = slab_f > rc.FRANGI2D_TILED_PIXELS
         per = rc.FRANGI2D_TILED_PEAK_BYTES_PER_PIXEL if blocked_frangi else \
             rc.FRANGI2D_PEAK_BYTES_PER_PIXEL
         name = "frangi2d (tiled)" if blocked_frangi else "frangi2d"
         route = per * slab_f
-    elif not blocked_frangi:
-        name = "frangi"
-        route = rc.UNFUSED_PEAK_BYTES_PER_VOXEL * slab_f
     else:
-        slab_shape = (slab_f // plane, y, x)
-        blocks = pick_blocks(slab_shape, cfg.sigmas, cfg.zdist, rc.TILE_VOX_BUDGET)
-        if blocks is not None:
-            name = f"frangi (tiled, bz={blocks[0]}, by={blocks[1]})"
-            tile = rc.TILE_VOX_BUDGET
+        r = slab_filter_route((slab_f // plane, y, x), cfg.sigmas, cfg.zdist,
+                              tiled=blocked_frangi)
+        if not r.tiled:
+            name = "frangi"
+        elif r.blocks is not None:
+            name = f"frangi (tiled, bz={r.blocks[0]}, by={r.blocks[1]})"
         else:
             name = "frangi (Z-blocked, bz=32)"
-            tile = (32 + 2 * hf) * plane
-        route = rc.FUSED_PEAK_BYTES_PER_VOXEL * slab_f + rc.UNFUSED_PEAK_BYTES_PER_VOXEL * tile
+        route = r.peak_bytes
     stages[name] = int(vox + route + _CROP_B_PER_VOX * vox)
 
     # --- seeds: the shard's planes, J8 and the direction volumes (the

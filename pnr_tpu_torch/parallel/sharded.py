@@ -11,8 +11,8 @@ is on `cuda:i` (`make_mesh`); a virtual mesh of n shards on one card is
 8-device CPU mesh.
 
 The filter runs the unfused `frangi3d` (K4 and K3 on a card) on each
-shard's aligned halo slab, or above the single-device pipeline's
-UNFUSED_MAX_VOXELS the tiled engines, and is bitwise the monolithic
+shard's aligned halo slab, or the tiled engines where their planned peak
+is the lower (`slab_filter_route`), and is bitwise the monolithic
 filter: J, Vx, Vy, Vz on every plane, and Jmin (the first scale's min)
 and Jmax as global reductions over the shards.
 """
@@ -22,7 +22,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,14 +43,31 @@ Sharded = List[torch.Tensor]  # one tensor per shard, on the shard's device
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: shard i runs on devices[i] (a device may repeat)."""
+    """A 1-D mesh: shard i runs on devices[i] (a device may repeat). A mesh
+    over several processes (`multihost.make_global_mesh`) records the rank
+    that owns each shard in `ranks` and this process's in `rank`; without
+    `ranks` every shard is this process's."""
 
     devices: Tuple[torch.device, ...]
     axis: str = "z"
+    ranks: Optional[Tuple[int, ...]] = None
+    rank: int = 0
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.ranks is not None and len(set(self.ranks)) > 1
+
+    def is_local(self, i: int) -> bool:
+        return self.ranks is None or self.ranks[i] == self.rank
+
+    @property
+    def local_devices(self) -> Tuple[torch.device, ...]:
+        """This process's shard devices, each once, in shard order."""
+        return tuple(dict.fromkeys(d for i, d in enumerate(self.devices) if self.is_local(i)))
 
 
 def make_mesh(n_devices: int = None, axis: str = "z", device="cuda") -> Mesh:
@@ -81,13 +98,20 @@ def on(device: torch.device):
 
 def shard_volume(vol: np.ndarray, mesh: Mesh) -> Sharded:
     """A (Z, Y, X) volume as Z slabs, slab i on the mesh's device i (Z must
-    divide evenly; the pipeline pads it first)."""
+    divide evenly; the pipeline pads it first). On a multi-process mesh
+    only this process's slabs are read (`vol[a:b]`) and placed; the
+    others' are None."""
     n = mesh.size
     if vol.shape[0] % n:
         raise ValueError(f"mesh size ({n}) must divide Z={vol.shape[0]}")
     zl = vol.shape[0] // n
     return [torch.from_numpy(np.ascontiguousarray(vol[i * zl:(i + 1) * zl])).to(d)
-            for i, d in enumerate(mesh.devices)]
+            if mesh.is_local(i) else None for i, d in enumerate(mesh.devices)]
+
+
+def shard_len(shards: Sharded) -> int:
+    """The planes (rows) a shard holds, read from this process's first."""
+    return int(next(t for t in shards if t is not None).shape[0])
 
 
 def frangi_halo(sigmas: Sequence[float], zdist: float) -> int:
@@ -100,11 +124,58 @@ def frangi2d_halo(sigmas: Sequence[float]) -> int:
     return int(math.ceil(3.0 * max(sigmas))) + 2
 
 
+@dataclasses.dataclass(frozen=True)
+class SlabRoute:
+    """The filter route of one halo slab: the monolithic unfused filter
+    (`tiled` False), `frangi3d_tiled` at `blocks` (bz, by), or
+    `frangi3d_blocked` (`tiled` True, `blocks` None); `peak_bytes` is its
+    planned device peak, the slab included."""
+
+    tiled: bool
+    blocks: Optional[Tuple[int, int]]
+    peak_bytes: int
+
+
+def slab_filter_route(slab_shape, sigmas, zdist, tiled: Optional[bool] = None) -> SlabRoute:
+    """The route with the lower planned peak for a (Z, Y, X) halo slab, the
+    one rule of `frangi3d_sharded` and `plan.plan_sharded`: the monolithic
+    filter at UNFUSED_PEAK_BYTES_PER_VOXEL a voxel, or the tiled engines'
+    outputs and normalisation (FUSED_PEAK_BYTES_PER_VOXEL a voxel) plus one
+    tile at the unfused peak (a `TILE_VOX_BUDGET`-voxel tile, or a 32-plane
+    block and its halo when `pick_blocks` finds no tile). With the 32-Mvox
+    tile the two cross near 35.7 Mvox. The monolithic filter also stays
+    under the single-device cap UNFUSED_MAX_VOXELS. Both routes are bitwise
+    the same filter, so only memory and speed depend on the choice.
+    `tiled` forces it (the planner's `blocked_frangi`)."""
+    from pnr_tpu_torch.pipeline import reconstruct as rc  # its caps, read at call time
+
+    z, y, x = (int(d) for d in slab_shape)
+    n = z * y * x
+    mono = rc.UNFUSED_PEAK_BYTES_PER_VOXEL * n
+    blocks = pick_blocks((z, y, x), tuple(sigmas), zdist, rc.TILE_VOX_BUDGET)
+    tile = rc.TILE_VOX_BUDGET if blocks is not None else \
+        min(32 + 2 * frangi_halo(sigmas, zdist), z) * y * x
+    tiles = rc.FUSED_PEAK_BYTES_PER_VOXEL * n + rc.UNFUSED_PEAK_BYTES_PER_VOXEL * tile
+    if tiled is None:
+        tiled = n > rc.UNFUSED_MAX_VOXELS or tiles < mono
+    return SlabRoute(True, blocks, tiles) if tiled else SlabRoute(False, None, mono)
+
+
 def _global(mesh: Mesh, jmins, jmaxs):
-    """The global Jmin and Jmax, 0-d tensors on the first shard's device."""
-    d0 = mesh.devices[0]
-    return (torch.stack([t.to(d0) for t in jmins]).min(),
-            torch.stack([t.to(d0) for t in jmaxs]).max())
+    """The global Jmin and Jmax, 0-d tensors on this process's first shard
+    device: the shards' own reduced here, then, on a multi-process mesh,
+    the processes' through `multihost.exchange` (min and max are exact, so
+    the order does not matter)."""
+    d0 = mesh.local_devices[0]
+    jmin = torch.stack([t.to(d0) for t in jmins]).min()
+    jmax = torch.stack([t.to(d0) for t in jmaxs]).max()
+    if mesh.multiprocess:
+        from pnr_tpu_torch.parallel.multihost import exchange
+
+        got = np.asarray(exchange((jmin.cpu().numpy(), jmax.cpu().numpy())))
+        jmin = torch.from_numpy(np.asarray(got[:, 0].min())).to(d0)
+        jmax = torch.from_numpy(np.asarray(got[:, 1].max())).to(d0)
+    return jmin, jmax
 
 
 def frangi3d_sharded(shards: Sharded, sigmas: Tuple[float, ...], zdist: float, mesh: Mesh,
@@ -116,23 +187,27 @@ def frangi3d_sharded(shards: Sharded, sigmas: Tuple[float, ...], zdist: float, m
     slab (`halo_exchange_z_aligned`), whose edges at the volume's borders
     are those borders, and keeps its own planes; Jmin is the min of the
     first scale's response over the shards' own planes (the monolithic
-    filter's running min), Jmax the max of J. A slab over the
-    single-device pipeline's UNFUSED_MAX_VOXELS streams through the tiled
+    filter's running min), Jmax the max of J. A slab whose tiled route
+    plans the lower peak (`slab_filter_route`) streams through the tiled
     engines, which are bitwise the monolithic filter."""
-    from pnr_tpu_torch.pipeline import reconstruct  # its caps, read at call time
-
     halo = frangi_halo(sigmas, zdist)
     args = (sigmas, zdist, alpha, beta, c)
     js, jmins, jmaxs, vxs, vys, vzs = [], [], [], [], [], []
-    for dev, v, (slab, off) in zip(mesh.devices, shards, halo_exchange_z_aligned(shards, halo)):
+    for dev, v, got in zip(mesh.devices, shards, halo_exchange_z_aligned(shards, halo, mesh)):
+        if v is None:  # another process's shard
+            for a in (js, vxs, vys, vzs):
+                a.append(None)
+            continue
+        slab, off = got
         zl = int(v.shape[0])
         rows = (off, off + zl)
         with on(dev):
-            if slab.numel() > reconstruct.UNFUSED_MAX_VOXELS:
-                blocks = pick_blocks(tuple(slab.shape), sigmas, zdist, reconstruct.TILE_VOX_BUDGET)
-                if blocks is not None:
+            route = slab_filter_route(slab.shape, sigmas, zdist)
+            if route.tiled:
+                if route.blocks is not None:
                     j, jmin, _, vx, vy, vz = frangi3d_tiled(
-                        slab, *args, block_z=blocks[0], block_y=blocks[1], jmin_rows=rows)
+                        slab, *args, block_z=route.blocks[0], block_y=route.blocks[1],
+                        jmin_rows=rows)
                 else:
                     j, jmin, _, vx, vy, vz = frangi3d_blocked(slab, *args, jmin_rows=rows)
             else:
@@ -163,8 +238,13 @@ def frangi2d_sharded(shards_t: Sharded, sigmas: Tuple[float, ...], mesh: Mesh,
 
     halo = frangi2d_halo(sigmas)
     js, jmins, jmaxs, vxs, vys, vzs = [], [], [], [], [], []
-    for dev, v, (slab, off) in zip(mesh.devices, shards_t,
-                                   halo_exchange_z_aligned(shards_t, halo)):
+    for dev, v, got in zip(mesh.devices, shards_t,
+                           halo_exchange_z_aligned(shards_t, halo, mesh)):
+        if v is None:  # another process's shard
+            for a in (js, vxs, vys, vzs):
+                a.append(None)
+            continue
+        slab, off = got
         yl = int(v.shape[0])
         img = slab[:, 0, :].contiguous()
         with on(dev):
@@ -196,6 +276,9 @@ def normalize_to_u8_sharded(j: Sharded, jmin: torch.Tensor, jmax: torch.Tensor) 
     normalization rule (ops/frangi.normalize_to_u8) on each shard."""
     out = []
     for t in j:
+        if t is None:  # another process's shard
+            out.append(None)
+            continue
         with on(t.device):
             out.append(normalize_to_u8(t, jmin.to(t.device), jmax.to(t.device)))
     return out

@@ -220,6 +220,8 @@ class ReconstructionResult:
     # capacity handshake; counted to show it)
     n_kept_local: int = -1
     n_lost: int = -1
+    # over several processes: the bytes each stage received from the others
+    received_bytes: Optional[Dict[str, int]] = None
 
 
 class _StageTimer:
@@ -412,9 +414,11 @@ class _StackFront:
 
 def _stack_front(
     vol: np.ndarray, cfg: PNRConfig, device: torch.device, verbose: bool = True,
-    tracker: Optional[BatchedTracker] = None,
+    tracker: Optional[BatchedTracker] = None, frangi=None,
 ) -> _StackFront:
-    """Soma -> Frangi -> seed extraction -> seed selection/sorting."""
+    """Soma -> Frangi -> seed extraction -> seed selection/sorting.
+    `frangi(img, cfg)` replaces the filter's routing (`_frangi`): the batch
+    over a mesh runs the unfused filter (parallel/batch_dp.py)."""
     vol = as_u8_volume(vol)
     is2d = vol.shape[0] == 1
     tm = _StageTimer(verbose, device)
@@ -428,7 +432,7 @@ def _stack_front(
 
     tm.start("frangi")
     img = torch.from_numpy(vol).to(device)
-    j, jmin, jmax, vx, vy, vz = _frangi(img, cfg)
+    j, jmin, jmax, vx, vy, vz = (frangi or _frangi)(img, cfg)
     j8 = normalize_to_u8(j, jmin, jmax)
     j = jmin = jmax = None  # the f32 vesselness volume is consumed
     tm.stop()

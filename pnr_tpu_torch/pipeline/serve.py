@@ -16,8 +16,8 @@ size) so an overwritten file is picked up again. A sentinel file
 
 The port's copy of pnr_tpu/pipeline/serve.py on its own
 `reconstruction_batch`, with a `device` ("cuda" unless the caller asks
-for the CPU). Sharded serving over several cards (`mesh`, `dp_groups`) is
-ROADMAP.md's Queue 1 item 15b and not ported: a mesh raises.
+for the CPU). With a `mesh`, each poll's arrivals run through
+`parallel.batch_dp.reconstruction_batch_sharded` (`_watch_sharded`).
 """
 
 from __future__ import annotations
@@ -136,16 +136,15 @@ def watch_and_reconstruct(
     CLI's ``--metrics`` single-document dump).
 
     Every stack runs on ``device`` (the card unless the caller asks for
-    the CPU). A ``mesh`` or ``dp_groups`` (sharded serving) raises
-    NotImplementedError: it is ROADMAP.md's Queue 1 item 15b (the single
-    stack over a mesh, `reconstruction_func_sharded`, is ported).
+    the CPU). With ``mesh`` (`parallel.Mesh`, of ``device``'s type),
+    arrivals run through the multi-device pipeline instead: each poll's
+    batch goes to `parallel.batch_dp.reconstruction_batch_sharded`, which
+    splits the mesh into per-stack submeshes: a lone arrival gets the whole
+    mesh, a burst runs ``dp_groups`` stacks at once on disjoint groups.
     """
-    if mesh is not None or dp_groups is not None:
-        raise NotImplementedError(
-            "sharded serving (mesh, dp_groups) is not yet ported to pnr_tpu_torch "
-            "(ROADMAP.md, Queue 1, item 15b)"
-        )
     device = require_cuda(device)
+    if mesh is not None and any(d.type != device.type for d in mesh.devices):
+        raise ValueError(f"the mesh's devices {mesh.devices} are not of type {device.type!r}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     if metrics_path:
@@ -170,6 +169,12 @@ def watch_and_reconstruct(
     missing = {}
     paths = []  # consumed order; reconstruction_batch preserves it
     stop_path = os.path.join(watch_dir, stop_file)
+
+    if mesh is not None:
+        return _watch_sharded(
+            watch_dir, cfg, mesh, dp_groups, out_dir, poll_s, stop_path,
+            verbose, max_stacks, seen, sizes, missing, metrics_path,
+        )
 
     def volumes():
         served = 0
@@ -221,3 +226,45 @@ def watch_and_reconstruct(
         count += 1
     return count
 
+
+def _watch_sharded(
+    watch_dir, cfg, mesh, dp_groups, out_dir, poll_s, stop_path,
+    verbose, max_stacks, seen, sizes, missing, metrics_path=None,
+) -> int:
+    """Sharded serving loop: each poll's stable arrivals go through the
+    DP x spatial driver as one batch. A stack's streams derive from
+    cfg.seed, so serving N stacks equals N `reconstruction_func_sharded`
+    runs on a same-size mesh."""
+    from pnr_tpu_torch.parallel.batch_dp import reconstruction_batch_sharded
+
+    count = 0
+    stop_polls = 0
+    while max_stacks is None or count < max_stacks:
+        batch = []
+        for path in _scan(watch_dir, seen, sizes, missing):
+            if max_stacks is not None and count + len(batch) >= max_stacks:
+                break
+            try:
+                vol = load_volume(path)
+            except Exception as e:  # unreadable/partial: skip loudly
+                if verbose:
+                    print(f"serve: skipping {path}: {e}")
+                continue
+            batch.append((path, vol))
+        if not batch:
+            # drain before stopping: size-stability needs a second poll,
+            # but a never-stabilizing candidate must not block shutdown
+            if os.path.exists(stop_path):
+                stop_polls += 1
+                if not sizes or stop_polls > 3:
+                    break
+            else:
+                stop_polls = 0
+            time.sleep(poll_s)
+            continue
+        results = reconstruction_batch_sharded(
+            [v for _, v in batch], cfg, mesh, groups=dp_groups, verbose=verbose)
+        for (path, _), result in zip(batch, results):
+            _write_swc(result, path, out_dir, cfg, verbose, metrics_path)
+            count += 1
+    return count

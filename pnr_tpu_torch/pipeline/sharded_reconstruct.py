@@ -1,10 +1,11 @@
 """Multi-device reconstruction: the full pipeline over a mesh of devices.
 
-Port of pnr_tpu/pipeline/sharded_reconstruct.py for one process. Same
-contract as `reconstruction_func`, with the heavy stages sharded over a
-1-D mesh (parallel/sharded.py: shard i on the mesh's device i; a virtual
-mesh puts every shard on one card) — Z slabs for 3-D volumes, Y slabs
-(through the transposed (Y, 1, X) layout) for a one-plane image:
+Port of pnr_tpu/pipeline/sharded_reconstruct.py. Same contract as
+`reconstruction_func`, with the heavy stages sharded over a 1-D mesh
+(parallel/sharded.py: shard i on the mesh's device i; a virtual mesh puts
+every shard on one card; a mesh from `multihost.make_global_mesh` spans
+several processes) — Z slabs for 3-D volumes, Y slabs (through the
+transposed (Y, 1, X) layout) for a one-plane image:
 
 * soma extraction: per-slab erosion and xy Gaussian (K3 on a card; no
   halo in 3-D, a replicated Y halo in 2-D), one 256-bin histogram summed
@@ -15,7 +16,8 @@ mesh puts every shard on one card) — Z slabs for 3-D volumes, Y slabs
   global Jmin/Jmax (`frangi3d_sharded`, bitwise the monolithic filter);
 * seed extraction: the native host flood on the gathered J8 (the
   single-process branch of JAX's driver), directions decoded on each
-  shard's maps;
+  shard's maps; over several processes each floods only its own slabs
+  (`_seeds_per_shard_multiprocess`), and the seed rows are all-gathered;
 * seed scoring: each seed on its shard's field (`score_seeds_sharded`);
 * tracing: shard-local SMC with boundary handoff (parallel/handoff.py),
   run in stages with the single-device path's in-order commit wavefront
@@ -36,6 +38,14 @@ traces: seeds that do not fit a wave's lanes are re-queued into the next
 wave, and in-flight migration overflow keeps traces on their shard.
 Checkpoint and resume snapshot the commit state between waves in the
 single-device path's format, so either path resumes the other's run.
+
+Over several processes (parallel/multihost.py) every process runs this
+driver alike on the same input: the redundant host driver. The device
+stages run on each process's own shards, and what the host reads crosses
+processes through `multihost.exchange` (the halos, Jmin/Jmax, the seed
+rows and scores, the handoff's lanes, the maps the result returns); the
+bytes each stage received are in the result's `received_bytes`. Only rank
+0 writes a checkpoint; every process reads it on resume.
 """
 
 from __future__ import annotations
@@ -65,13 +75,15 @@ from pnr_tpu_torch.parallel.handoff import (
     lane_estimates,
     required_trace_halo,
 )
-from pnr_tpu_torch.parallel.multihost import fetch_replicated
+from pnr_tpu_torch.parallel import multihost
+from pnr_tpu_torch.parallel.multihost import exchange, fetch_replicated
 from pnr_tpu_torch.parallel.sharded import (
     Mesh,
     frangi2d_sharded,
     frangi3d_sharded,
     normalize_to_u8_sharded,
     on,
+    shard_len,
     shard_volume,
 )
 from pnr_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
@@ -109,20 +121,61 @@ def _owner(pos: np.ndarray, zl: int, n: int, ci: int) -> np.ndarray:
 
 def _decode_seed_dirs(vx, vy, vz, pos: np.ndarray, ci: int = 2) -> np.ndarray:
     """The seed directions at `pos` (N, 3) xyz, decoded on the shards' maps
-    (each seed on the shard that holds it, at its shard-local voxel)."""
+    (each seed on the shard that holds it, at its shard-local voxel); over
+    several processes each decodes its own shards' seeds and the rows are
+    all-gathered."""
     dirs = np.zeros((len(pos), 3), np.float32)
     if not len(pos):
         return dirs
-    zl = int(vx[0].shape[0])
+    zl = shard_len(vx)
     owner = _owner(pos, zl, len(vx), ci)
+    mine = {}
     for s in range(len(vx)):
         sel = np.nonzero(owner == s)[0]
-        if len(sel):
+        if len(sel) and vx[s] is not None:
             local = pos[sel].copy()
             local[:, ci] -= s * zl
             with on(vx[s].device):
-                dirs[sel] = decode_directions_device(vx[s], vy[s], vz[s], local)
+                mine[s] = (sel, decode_directions_device(vx[s], vy[s], vz[s], local))
+    if any(t is None for t in vx):
+        for part in exchange(mine):
+            mine.update(part)
+    for sel, d in mine.values():
+        dirs[sel] = d
     return dirs
+
+
+def _seeds_per_shard_multiprocess(j8, vx, vy, vz, tolerance, span_orig: int):
+    """Slab-local seed extraction over several processes (JAX's
+    `_seeds_per_shard_multiprocess`): the reference's tolerance flood runs
+    on each z-slice alone (seed.cpp:574-791), and a Z shard holds whole
+    slices, so each process floods only its own shards' J8 with the native
+    MaximumFinder and decodes their directions on its own maps; no process
+    gathers a volume-sized array. The (x, y, z, direction) rows are
+    all-gathered (`allgather_host_rows`) and sorted by (z, y, x), the order
+    of `np.nonzero` on the whole volume, so every process holds the same
+    seed list, the single-device one."""
+    zl = shard_len(j8)
+    rows = []
+    for s, t in enumerate(j8):
+        if t is None:
+            continue
+        z0 = s * zl
+        zmax = min(zl, span_orig - z0)
+        if zmax <= 0:
+            continue  # the shard lies in the replicate padding
+        zz, yy, xx = np.nonzero(max_points_host(t[:zmax].cpu().numpy(), float(tolerance)))
+        if not len(zz):
+            continue
+        local = np.stack([xx, yy, zz], axis=-1).astype(np.float32)
+        with on(t.device):
+            d = decode_directions_device(vx[s], vy[s], vz[s], local)
+        local[:, 2] += z0
+        rows.append(np.concatenate([local, d], axis=1))
+    rows = np.concatenate(rows) if rows else np.zeros((0, 6), np.float32)
+    rows = multihost.allgather_host_rows(rows)
+    rows = rows[np.lexsort((rows[:, 0], rows[:, 1], rows[:, 2]))]
+    return rows[:, :3].copy(), rows[:, 3:].copy()
 
 
 def soma_extraction_sharded(vs, vol_shape, cfg: PNRConfig, nodes: NodeList, mesh: Mesh,
@@ -141,10 +194,13 @@ def soma_extraction_sharded(vs, vol_shape, cfg: PNRConfig, nodes: NodeList, mesh
     r = float(cfg.somaradius)
     span_orig = vol_shape[1] if is2d else vol_shape[0]
     halo = (int(math.ceil(r)) + int(math.ceil(3.0 * r))) if is2d else 0
-    padded = halo_exchange_z(vs, halo) if is2d else vs
+    padded = halo_exchange_z(vs, halo, mesh) if is2d else vs
     hist = torch.zeros(256, dtype=torch.int64)
     e8s = []
     for s, (dev, v, p) in enumerate(zip(mesh.devices, vs, padded)):
+        if v is None:  # another process's shard
+            e8s.append(None)
+            continue
         sl = int(v.shape[0])
         with on(dev):
             if is2d:
@@ -157,6 +213,8 @@ def soma_extraction_sharded(vs, vol_shape, cfg: PNRConfig, nodes: NodeList, mesh
             if keep:
                 hist += histogram256(e8[:keep]).cpu().to(torch.int64)
         e8s.append(e8)
+    if mesh.multiprocess:
+        hist = torch.from_numpy(np.sum(exchange(hist.numpy()), axis=0))
     th = maxentropy_th(hist.to(torch.int32))
     e8_np = fetch_replicated(e8s)
     e8_np = e8_np.transpose(1, 0, 2)[:, :span_orig] if is2d else e8_np[:span_orig]
@@ -173,11 +231,14 @@ def score_seeds_sharded(trackers: Trackers, mesh: Mesh, fields, pos: np.ndarray,
     """Shard-local znccBBB seed scoring: each seed on the field of the
     shard that holds it (its window placed as in the whole volume, so the
     score is the single-device one), B=1, in chunks of 1024 (tube) or
-    4096 (exact) as `_score_seeds`."""
+    4096 (exact) as `_score_seeds`. Over several processes each scores
+    its own shards' seeds and the scores are all-gathered."""
     corr = np.full(len(pos), -np.inf, np.float32)
     owner = _owner(pos, zl, mesh.size, ci)
     for s, dev in enumerate(mesh.devices):
         sel = np.nonzero(owner == s)[0]
+        if not mesh.is_local(s):
+            continue
         field, frame = fields[s]
         tracker = trackers[dev]
         chunk = 1024 if tracker.tube else 4096
@@ -188,6 +249,11 @@ def score_seeds_sharded(trackers: Trackers, mesh: Mesh, fields, pos: np.ndarray,
                 d = torch.from_numpy(np.ascontiguousarray(dirs[idx])).to(dev)
                 c, _ = tracker.engine.eval_fused(field, p[:, None, :], d[:, None, :], frame)
                 corr[idx] = c[:, 0].cpu().numpy()
+    if mesh.multiprocess:
+        mine = np.nonzero([mesh.is_local(s) for s in range(mesh.size)])[0]
+        sel = np.nonzero(np.isin(owner, mine))[0]
+        for idx, c in exchange((sel, corr[sel])):
+            corr[idx] = c
     return corr
 
 
@@ -241,17 +307,19 @@ def reconstruction_func_sharded(
     y-migration in the tracer; its seed flood runs on the gathered plane
     (the tolerance flood spans a whole slice, seed.cpp:574). `key` is the
     (2,) uint32 base key (default: the key of `cfg.seed`), as in
-    `reconstruction_func`."""
-    for d in dict.fromkeys(mesh.devices):
+    `reconstruction_func`. Over several processes (`make_global_mesh`)
+    every process calls it alike, with the same volume and config."""
+    for d in mesh.local_devices:
         require_cuda(d)
     vol = as_u8_volume(vol)
     n_dev = mesh.size
-    if verbose and mesh.devices[0].type == "cuda":
+    dev0 = mesh.local_devices[0]
+    if verbose and dev0.type == "cuda":
         # pre-flight memory check per card (an estimate: warn, don't
         # refuse); a virtual mesh holds several shards on a card
         from pnr_tpu_torch.parallel.plan import card_memory_bytes, plan_sharded
 
-        plan = plan_sharded(vol.shape, cfg, n_dev, card_memory_bytes(mesh.devices[0]),
+        plan = plan_sharded(vol.shape, cfg, n_dev, card_memory_bytes(dev0),
                             stage_iters=stage_iters)
         per_card = max(mesh.devices.count(d) for d in mesh.devices)
         if plan.peak_bytes * per_card > plan.mem_bytes * plan.usable_fraction:
@@ -268,7 +336,7 @@ def reconstruction_func_sharded(
         key = tf.key_from_seed(cfg.seed)
     zl = rep.shape[0] // n_dev
 
-    tm = _StageTimer(verbose, list(mesh.devices))
+    tm = _MeteredTimer(verbose, list(mesh.local_devices))
     nodes = NodeList()
     smap = None
     vs = shard_volume(rep, mesh)
@@ -296,17 +364,24 @@ def reconstruction_func_sharded(
         return m.transpose(1, 0, 2)[:, :span_orig] if is2d else m[:span_orig]
 
     tm.start("seed extraction (sharded)")
-    j8_np = _fetch_map(j8)
-    j8 = None
-    zz, yy, xx = np.nonzero(max_points_host(j8_np, float(cfg.tolerance)))
-    pos = np.stack([xx, yy, zz], axis=-1).astype(np.float32)
-    n_raw_seeds = len(pos)
-    if is2d:
-        # the decode reads the TRANSPOSED maps, where a seed's (x, y) is
-        # at (x, 0, y)
-        dirs = _decode_seed_dirs(vx, vy, vz, np.stack([xx, zz, yy], -1).astype(np.float32))
+    if mesh.multiprocess and not is2d:
+        # each process floods its own slabs: no volume-sized gather here
+        pos, dirs = _seeds_per_shard_multiprocess(j8, vx, vy, vz, cfg.tolerance, span_orig)
+        j8_np = None
     else:
-        dirs = _decode_seed_dirs(vx, vy, vz, pos)
+        # one process, or a plane (the flood spans whole rows of the
+        # transposed layout): the flood on the gathered J8
+        j8_np = _fetch_map(j8)
+        j8 = None
+        zz, yy, xx = np.nonzero(max_points_host(j8_np, float(cfg.tolerance)))
+        pos = np.stack([xx, yy, zz], axis=-1).astype(np.float32)
+        if is2d:
+            # the decode reads the TRANSPOSED maps, where a seed's (x, y) is
+            # at (x, 0, y)
+            dirs = _decode_seed_dirs(vx, vy, vz, np.stack([xx, zz, yy], -1).astype(np.float32))
+        else:
+            dirs = _decode_seed_dirs(vx, vy, vz, pos)
+    n_raw_seeds = len(pos)
     if not cfg.save_midres:
         vx = vy = vz = None
     # drop seeds inside the soma
@@ -352,7 +427,11 @@ def reconstruction_func_sharded(
     pending: List[int] = []
     if resume and checkpoint_path:
         if not os.path.exists(checkpoint_path):
-            raise FileNotFoundError(f"resume=True but no checkpoint at {checkpoint_path!r}")
+            # loud on every process: one that started afresh would break the
+            # redundant host driver (the same host state everywhere)
+            raise FileNotFoundError(
+                f"resume=True but no checkpoint at {checkpoint_path!r} (process "
+                f"{mesh.rank}; over several hosts the snapshot must be on a shared filesystem)")
         committer, idx, trace_count, pending, ck_nseeds = load_checkpoint(checkpoint_path)
         if tuple(committer.shape) != tuple(vol.shape):
             raise ValueError(
@@ -419,7 +498,8 @@ def reconstruction_func_sharded(
         # AFTER this one
         pending = unstarted + pending
         waves_done += 1
-        if checkpoint_path and waves_done % max(1, checkpoint_every_waves) == 0:
+        if (checkpoint_path and waves_done % max(1, checkpoint_every_waves) == 0
+                and mesh.rank == 0):  # one writer: the state is the same everywhere
             save_checkpoint(checkpoint_path, committer, idx, trace_count, pending, nseeds)
     fields = vs = None
     tm.stop()
@@ -442,8 +522,14 @@ def reconstruction_func_sharded(
         if smap is not None:
             midres["smap8"] = smap_to_u8(smap)
 
+    if j8_np is None:
+        tm.start("gather J8")
+        j8_np = _fetch_map(j8)
+        j8 = None
+        tm.stop()
+
     tm.start("reconstruct")
-    tree = reconstruct_graph(nodes.copy(), cfg, mesh.devices[0], midres=midres)
+    tree = reconstruct_graph(nodes.copy(), cfg, dev0, midres=midres)
     tm.stop()
 
     result = ReconstructionResult(
@@ -451,11 +537,31 @@ def reconstruction_func_sharded(
         timings=tm.timings, j8=j8_np, midres=midres, n_raw_seeds=n_raw_seeds,
         zncc_mode=cfg.zncc_mode, n_handoffs=totals["handoffs"], n_requeued=totals["requeued"],
         n_kept_local=totals["kept_local"], n_lost=totals["lost"],
+        received_bytes=tm.received if mesh.multiprocess else None,
     )
     warn = low_signal_diagnostic(result)
     if warn is not None:
         sys.stderr.write(f"WARNING low-signal: {warn['message']}\n")
     return result
+
+
+class _MeteredTimer(_StageTimer):
+    """`_StageTimer` that also records, per stage, the bytes this process
+    received from other processes (`multihost.RECEIVED_BYTES`)."""
+
+    def __init__(self, verbose, devices):
+        super().__init__(verbose, devices)
+        self.received = {}
+        self._b0 = 0
+
+    def start(self, name: str):
+        self._b0 = multihost.RECEIVED_BYTES
+        super().start(name)
+
+    def stop(self):
+        super().stop()
+        got = multihost.RECEIVED_BYTES - self._b0
+        self.received[self._name] = self.received.get(self._name, 0) + got
 
 
 def _trace_and_commit_wave_sharded(committer, init, stage, vs, fields, bp, bd, bi, bv, base_key,

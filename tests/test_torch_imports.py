@@ -55,6 +55,7 @@ PORT_MODULES = (
     "pnr_tpu_torch.parallel.multihost",
     "pnr_tpu_torch.parallel.handoff",
     "pnr_tpu_torch.parallel.plan",
+    "pnr_tpu_torch.parallel.batch_dp",
     "pnr_tpu_torch.seeds.extract",
     "pnr_tpu_torch.smc.directions",
     "pnr_tpu_torch.smc.priors",
@@ -94,8 +95,29 @@ def test_port_imports_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_multi_device_modules_import_no_jax():
+    """The batch-over-a-mesh and multi-process modules, and the child script
+    the two-process tests spawn, load no jax and no pnr_tpu in a fresh
+    interpreter."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        "import pnr_tpu_torch.parallel.batch_dp, pnr_tpu_torch.parallel.multihost as mh\n"
+        "import _torch_mp_child\n"
+        "assert callable(mh.init_multihost) and callable(mh.make_global_mesh)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'pnr_tpu')\n"
+        "             or m.startswith(('jax.', 'pnr_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "pnr_tpu_torch", "tests/_torch_phantoms.py",
-                                  "tests/_torch_cases.py"])
+                                  "tests/_torch_cases.py", "tests/_torch_mp_child.py"])
 def test_sources_import_no_reference_module(path):
     """No import statement of chip_smoke.py, the port, or the jax-free
     test helpers that chip_smoke.py and the card tests import names jax
@@ -135,7 +157,9 @@ def test_the_sharded_entry_points_are_exported():
     assert pipeline.reconstruction_func_sharded is reconstruction_func_sharded
     names = {"make_mesh", "shard_volume", "halo_exchange_z", "halo_exchange_z_aligned",
              "frangi3d_sharded", "frangi2d_sharded", "normalize_to_u8_sharded", "plan_sharded",
-             "min_devices"}
+             "min_devices", "reconstruction_batch_dp", "reconstruction_batch_sharded",
+             "split_mesh", "init_multihost", "make_global_mesh", "shard_volume_global",
+             "slab_filter_route"}
     assert names <= set(parallel.__all__) and all(callable(getattr(parallel, n)) for n in names)
 
 

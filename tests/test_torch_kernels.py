@@ -1122,3 +1122,53 @@ def test_sharded_path_on_a_virtual_mesh_matches_single_device(dev, mode):
     save_nodelist(got.tree, pa)
     save_nodelist(ref.tree, pb)
     assert compare_swc(read_swc(pa), read_swc(pb), dist=3.0, resample=1.0).f1 >= 0.85
+
+
+# -- batches over a mesh: one stack a shard, groups of shards sharing the card ---------
+
+
+def _two_stacks():
+    """small_stack and its y mirror (a tube at y = 31 instead of 32)."""
+    a = small_stack()
+    return [a, np.ascontiguousarray(a[:, ::-1])]
+
+
+def _assert_same_run(a, b):
+    np.testing.assert_array_equal(a.j8, b.j8)
+    assert a.trace_count == b.trace_count and len(a.n0) == len(b.n0) > 1
+    np.testing.assert_allclose(a.n0.positions(), b.n0.positions(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_batch_dp_on_a_virtual_mesh_matches_the_batch(dev, mode):
+    """reconstruction_batch_dp, one stack a shard of cuda:0, against
+    reconstruction_batch with fused_frangi=False on the card, at JAX's bar
+    (tests/test_parallel.py:743); the batch's filter launches K4 and K3 and
+    never K1."""
+    from pnr_tpu_torch.parallel import Mesh, reconstruction_batch_dp
+    from pnr_tpu_torch.pipeline import reconstruction_batch
+
+    vols = _two_stacks()
+    cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2, ni=40,
+                    np=20, zdist=2.0, nodepervol=4, vol=9, zncc_mode=mode, fused_frangi=False)
+    n1, n4 = frangi_fused.LAUNCHES, conv.CONV_YX_LAUNCHES
+    got = reconstruction_batch_dp(vols, cfg, Mesh((torch.device("cuda", 0),) * 2))
+    assert frangi_fused.LAUNCHES == n1 and conv.CONV_YX_LAUNCHES > n4
+    for a, b in zip(got, reconstruction_batch(vols, cfg, prefetch=False, device="cuda")):
+        _assert_same_run(a, b)
+
+
+def test_batch_sharded_groups_sharing_the_card_match_one_by_one(dev):
+    """reconstruction_batch_sharded: two groups of two shards of cuda:0, each
+    on its own host thread and stream, against reconstruction_func_sharded
+    one stack at a time on a two-shard mesh (tests/test_parallel.py:927)."""
+    from pnr_tpu_torch.parallel import Mesh, reconstruction_batch_sharded
+    from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+    vols = _two_stacks()
+    cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2, ni=40,
+                    np=20, zdist=2.0, nodepervol=4, vol=9)
+    got = reconstruction_batch_sharded(vols, cfg, Mesh((torch.device("cuda", 0),) * 4), groups=2)
+    sub = Mesh((torch.device("cuda", 0),) * 2)
+    for v, a in zip(vols, got):
+        _assert_same_run(a, reconstruction_func_sharded(v, cfg, sub, verbose=False))

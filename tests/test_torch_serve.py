@@ -1,7 +1,8 @@
 """The port's serve mode (pnr_tpu_torch/pipeline/serve.py) on the CPU:
-tests/test_serve.py's cases but the sharded one, on `device="cpu"`; each
-served SWC equals the batch driver's tree for its stack, and a mesh
-raises (sharded serving is not ported)."""
+tests/test_serve.py's cases on `device="cpu"`; each served SWC equals the
+batch driver's tree for its stack, and a mesh of another device type than
+the server's raises. The sharded case (a mesh) is in
+tests/test_torch_batch_dp.py."""
 
 import os
 import threading
@@ -221,10 +222,17 @@ class TestServe:
             np.testing.assert_allclose(rows[:, 2], np.asarray(tree.x[1:]), atol=1e-3)
 
     def test_mesh_raises(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            watch_and_reconstruct(str(tmp_path), CFG, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 15"):
-            watch_and_reconstruct(str(tmp_path), CFG, dp_groups=2)
+        """Sharded serving is ported (tests/test_torch_batch_dp.py); a mesh
+        whose devices are not of the server's device type raises."""
+        import torch
+
+        from pnr_tpu_torch.parallel import Mesh
+
+        mesh = Mesh((torch.device("cuda", 0),) * 2)
+        with pytest.raises(ValueError, match="not of type 'cpu'"):
+            watch_and_reconstruct(str(tmp_path), CFG, mesh=mesh)
+        with pytest.raises(ValueError, match="not of type 'cpu'"):
+            watch_and_reconstruct(str(tmp_path), CFG, mesh=mesh, dp_groups=2)
 
     def test_default_device_needs_a_card(self, tmp_path):
         import torch

@@ -174,6 +174,36 @@ def test_frangi3d_sharded_bitwise_monolithic(mesh, monkeypatch, case, route):
     assert torch.equal(jmin, want[1]) and torch.equal(jmax, want[2])
 
 
+def test_frangi3d_sharded_routes_by_the_lower_peak(mesh, monkeypatch):
+    """A slab above the crossing of the two routes' planned peaks takes the
+    tiled engines (the unfused cap left as it is), bitwise the monolithic
+    filter; below it, the monolithic filter. TILE_VOX_BUDGET is shrunk so
+    that the crossing falls under this small volume's slabs."""
+    import pnr_tpu_torch.parallel.sharded as sharded
+
+    make, sig = FRANGI_CASES["clean"]
+    vol = make()
+    want = frangi3d(torch.from_numpy(vol), sig, ZDIST)
+    calls = []
+    tiled = sharded.frangi3d_tiled
+    monkeypatch.setattr(sharded, "frangi3d_tiled", lambda *a, **k: calls.append(1) or tiled(*a, **k))
+    shards = shard_volume(vol, mesh)
+    slab = halo_exchange_z_aligned(shards, sharded.frangi_halo(sig, ZDIST))[0][0]
+    assert not sharded.slab_filter_route(slab.shape, sig, ZDIST).tiled
+    frangi3d_sharded(shards, sig, ZDIST, mesh)
+    assert not calls
+    monkeypatch.setattr(reconstruct, "TILE_VOX_BUDGET", 40_000)
+    route = sharded.slab_filter_route(slab.shape, sig, ZDIST)
+    assert route.tiled and route.blocks is not None
+    assert route.peak_bytes < reconstruct.UNFUSED_PEAK_BYTES_PER_VOXEL * slab.numel()
+    assert slab.numel() < reconstruct.UNFUSED_MAX_VOXELS
+    j, jmin, jmax, vx, vy, vz = frangi3d_sharded(shards, sig, ZDIST, mesh)
+    assert len(calls) == N
+    for a, b in zip((j, vx, vy, vz), (want[0], want[3], want[4], want[5])):
+        assert torch.equal(torch.cat(a), b)
+    assert torch.equal(jmin, want[1]) and torch.equal(jmax, want[2])
+
+
 @pytest.mark.parametrize("case", list(FRANGI_CASES))
 def test_frangi3d_sharded_matches_jax_sharded(jmesh, mesh, case):
     make, sig = FRANGI_CASES[case]

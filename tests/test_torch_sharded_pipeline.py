@@ -271,11 +271,21 @@ def plan_cfg(mode="tube", sigmas=(2.0, 4.0, 6.0), **kw):
                      nodepervol=4, vol=9, zncc_mode=mode, **kw)
 
 
-def test_plan_more_devices_shrink_per_shard_peak():
-    # a stack whose slabs all take the monolithic filter: the tiled engines
-    # hold less per voxel, so a route change can raise a shard's peak
-    peaks = [plan_sharded((256, 512, 512), plan_cfg(), n, MEM).peak_bytes for n in (1, 2, 4, 8)]
-    assert all(a > b for a, b in zip(peaks, peaks[1:]))
+@pytest.mark.parametrize("mode", ["tube", "exact"])
+@pytest.mark.parametrize("shape", [(256, 512, 512), (512, 1024, 1024)])
+def test_plan_more_devices_shrink_per_shard_peak(shape, mode):
+    """tests/test_plan.py's case, on JAX's (512, 1024, 1024) too: the slab
+    takes the route with the lower planned peak (`slab_filter_route`), so
+    a route change never raises a shard's peak as the mesh grows."""
+    peaks = [plan_sharded(shape, plan_cfg(mode), n, MEM).peak_bytes for n in (1, 2, 4, 8)]
+    assert all(a > b for a, b in zip(peaks, peaks[1:])), peaks
+
+
+def test_plan_main_stack_slabs_of_four_shards_stay_monolithic():
+    """The 54-plane halo slabs of the (128, 640, 640) stack on four shards
+    (22.1 Mvox) lie under the 35.7-Mvox crossing of the two routes."""
+    p = plan_sharded((128, 640, 640), plan_cfg(), 4, MEM)
+    assert "frangi" in p.stages, p.stages
 
 
 def test_plan_main_stack_fits_one_card():
@@ -387,7 +397,18 @@ def test_cli_plan_reads_the_header_only(tmp_path, monkeypatch, capsys, mesh):
     assert not list(tmp_path.glob("*.swc"))
 
 
-def test_cli_watch_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        cli.main(["-i", str(tmp_path), "-p", *PARAMS, "--watch", "--mesh", "2", "--device", "cpu",
-                  "--quiet"])
+def test_cli_watch_mesh_is_not_ported(tmp_path, monkeypatch):
+    """`--watch --mesh 2` no longer raises: it serves the directory through
+    the sharded server, which stops at the sentinel having written nothing
+    (tests/test_torch_batch_dp.py serves stacks through it)."""
+    from pnr_tpu_torch.pipeline import serve
+
+    called = []
+    sharded = serve._watch_sharded
+    monkeypatch.setattr(serve, "_watch_sharded", lambda *a, **k: called.append(a[2]) or
+                        sharded(*a, **k))
+    (tmp_path / ".stop").touch()
+    assert cli.main(["-i", str(tmp_path), "-p", *PARAMS, "--watch", "--mesh", "2", "--device",
+                     "cpu", "--quiet"]) == 0
+    assert called == [make_mesh(2, device="cpu")]
+    assert not list(tmp_path.glob("*.swc"))
