@@ -169,7 +169,32 @@ Phases, each of which exits non-zero on failure:
    coordinates within 1e-4 and the trace count equal to the
    single-process four-shard run of [sharded exact]; each run's seconds,
    the bytes each stage received from the other process, and both
-   processes' launches.
+   processes' launches;
+34. [flood]: the device seed flood (`max_points_device`, JAX's label
+   propagation as torch ops, the no-native route) on the card on the main
+   exact path's J8 against the native flood: equal seed counts per slice,
+   >= 95% of positions exact, every divergent seed within 2 px (JAX's
+   bound); on an (8, 240, 240) crop the card's mask bitwise the CPU run of
+   the same function; both floods timed;
+35. [no-native]: one exact run of `reconstruction_func` on the main stack
+   with `native.have_native` forced False (the native floods refused): one
+   device flood, on the card, whose mask is [flood]'s; K1 and K2 launched;
+36. [sharded step], [trace_wave]: `build_sharded_step` (a wave of 64 seeds,
+   16 a shard in 34 lanes) on the main stack over the virtual mesh, exact
+   and tube: J8 bitwise the sharded pipeline's ([sharded exact]'s), each
+   shard's seeds the strongest of the card flood of its planes, the
+   stitched traces bitwise `BatchedTracker.trace_wave` on the whole stack
+   with the same ids and key, and `trace_wave` staged bitwise unstaged;
+   K4, K3 and K2 or tube_corr launched by the step, K2 or tube_corr by the
+   wave, no K1;
+37. [alt]: `frangi3d_with_scale` on the main stack (J bitwise `frangi3d`'s;
+   one K4 and ten K3 launches a sigma) and `extract3d_alt` with the 20,000
+   strongest J8 voxels as candidates: seeds on the tube axis, ZNCC above
+   0.5, sorted by score, K4 and K3 launched and no K1;
+38. [host]: the CLI with `--device cuda` and with PNR_TPU_HOST_PATH=1 (the
+   host one-shot engine) on a (64, 256, 256) stack, each in a fresh
+   process, exact and tube: both SWCs on the tube axis, each process's
+   seconds.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its path, error, times, bound and library time; the 2-D and
@@ -178,7 +203,10 @@ soma paths' launches and the one-plane rows' times under `launches_2d`,
 `launches_sharded_exact` and `launches_sharded_tube`, and the launches of
 phases 29-33 under `launches_batch_dp_exact`, `launches_batch_dp_tube`,
 `launches_batch_dp_2d`, `launches_batch_sharded`, `launches_serve_sharded`
-and `launches_multiprocess`); the last line is
+and `launches_multiprocess`, and those of phases 35-37 under
+`launches_no_native`, `launches_sharded_step_exact`,
+`launches_sharded_step_tube`, `launches_trace_wave_exact`,
+`launches_trace_wave_tube` and `launches_alt`); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2607,6 +2635,315 @@ def phase_mesh(torch, card, vols, k1_exact, virtual_exact, single_s, main_np):
     return out
 
 
+#: [sharded step]: seeds a wave of the full library step (ceil(wave / 4)
+#: a shard, in 2 x that + 2 lanes)
+STEP_WAVE = 64
+#: [alt]: the J8 voxels the alternate extractor takes as candidates
+ALT_CANDIDATES = 20_000
+#: [host]: the stack the CLI and the host engine each run in a fresh
+#: process (4.2 Mvox, under the 8 Mvox of JAX's automatic host route)
+HOST_SHAPE = (64, 256, 256)
+HOST_TIMEOUT_S = 300
+
+
+def flood_divergence(card_mask, native_mask):
+    """JAX's bound of the device flood against the sequential one
+    (tests/test_seeds.py TestAdversarialFlood): per slice equal counts; the
+    share of seeds at the same voxel; the largest distance of a seed of
+    either set from the nearest of the other, per slice."""
+    same = total = 0
+    far = 0.0
+    counts_equal = True
+    for z in range(card_mask.shape[0]):
+        a, b = np.argwhere(card_mask[z]), np.argwhere(native_mask[z])
+        counts_equal &= len(a) == len(b)
+        total += len(b)
+        if not len(a) or not len(b):
+            far = max(far, 0.0 if len(a) == len(b) else float("inf"))
+            continue
+        d = np.linalg.norm(a[:, None].astype(float) - b[None].astype(float), axis=-1)
+        far = max(far, float(d.min(axis=1).max()), float(d.min(axis=0).max()))
+        same += len({tuple(p) for p in a} & {tuple(p) for p in b})
+    return counts_equal, (same / total if total else 1.0), far
+
+
+def phase_flood(torch, card, main_np):
+    """[flood]: the device seed flood (`max_points_device`, JAX's label
+    propagation as torch ops) on the card on the main exact path's J8 (K1
+    then normalize_to_u8) against the native sequential flood: equal seed
+    counts per slice, >= 95% of positions exact, every divergent seed within
+    2 px (JAX's bound); the card's mask on a crop bitwise the port's CPU run
+    of the same function; both floods timed. Returns the card's mask."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.ops.frangi import normalize_to_u8
+    from pnr_tpu_torch.pipeline.reconstruct import _frangi
+    from pnr_tpu_torch.seeds.extract import max_points_device, max_points_host
+
+    cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
+    vol = torch.from_numpy(main_np).to(DEVICE)
+    j, jmin, jmax, _, _, _ = _frangi(vol, cfg)
+    j8 = normalize_to_u8(j, jmin, jmax)
+    del j, vol
+    j8_np = j8.cpu().numpy()
+    max_points_device(j8[:2], cfg.tolerance)  # warm-up
+    mask, card_s = timed(torch, lambda: max_points_device(j8, cfg.tolerance))
+    mask = mask.cpu().numpy()
+    native_mask, native_s = timed(torch, lambda: max_points_host(j8_np, cfg.tolerance))
+    counts_equal, exact, far = flood_divergence(mask, native_mask)
+    # eight planes of the tube's middle, 240 x 240
+    c = min(120, MAIN_SHAPE[1] // 2, MAIN_SHAPE[2] // 2)
+    zc, yc, xc = (d // 2 for d in MAIN_SHAPE)
+    crop = j8[max(0, zc - 4):zc + 4, yc - c:yc + c, xc - c:xc + c]
+    cpu_crop = max_points_device(crop.cpu(), cfg.tolerance)
+    card_crop = max_points_device(crop, cfg.tolerance).cpu()
+    out = {"card_s": card_s, "native_s": native_s, "seeds": int(mask.sum()),
+           "native_seeds": int(native_mask.sum()), "exact_share": exact, "max_px": far,
+           "crop_seeds": int(cpu_crop.sum())}
+    print(f"[flood] card {card_s:.4f} s, native {native_s:.4f} s on the {MAIN_SHAPE} J8; seeds "
+          f"{out['seeds']} (native {out['native_seeds']}), same voxel {exact:.4f}, farthest "
+          f"{far:.3f} px; crop {tuple(crop.shape)} {out['crop_seeds']} seeds [{card}]", flush=True)
+    check(counts_equal, "[flood] equal seed counts per slice")
+    check(exact >= 0.95, "[flood] at least 95% of the seeds at the native flood's voxels")
+    check(far <= 2.0, "[flood] every divergent seed within 2 px of the native flood's")
+    check(out["crop_seeds"] > 0, "[flood] the crop holds seeds")
+    check(torch.equal(card_crop, cpu_crop), "[flood] the card's crop bitwise the CPU run")
+    return out, mask, j8_np
+
+
+def phase_no_native(torch, card, main_np, flood_mask):
+    """[no-native]: one exact run of the main path (`reconstruction_func`,
+    K1) with `native.have_native` forced False, as on a machine where g++
+    failed: the seeds come from the card's flood (its calls counted, the
+    native floods refused) and equal [flood]'s mask."""
+    from pnr_tpu_torch import PNRConfig, native
+    from pnr_tpu_torch.pipeline import reconstruction_func
+    from pnr_tpu_torch.seeds import extract
+
+    cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
+    calls, masks = [], []
+    real = (native.have_native, extract.max_points_device, native.max_finder_stack,
+            native.max_finder_2d)
+
+    def counted(*a, **k):
+        m = real[1](*a, **k)
+        calls.append(m.device.type)
+        masks.append(m.cpu().numpy())
+        return m
+
+    def refused(*a, **k):
+        raise RuntimeError("the native flood ran on the no-native route")
+
+    native.have_native = lambda: False
+    extract.max_points_device = counted
+    native.max_finder_stack = native.max_finder_2d = refused
+    try:
+        reset_counters()
+        res, wall = timed(torch, lambda: reconstruction_func(main_np, cfg, verbose=False,
+                                                             device=DEVICE))
+        n = read_counters()
+    finally:
+        (native.have_native, extract.max_points_device, native.max_finder_stack,
+         native.max_finder_2d) = real
+    print(f"[no-native] {wall:.3f} s, {len(res.tree) - 1} SWC nodes, {res.n_raw_seeds} raw "
+          f"seeds, the device flood called {len(calls)} time(s) on {calls}; stages (s) "
+          f"{json.dumps({k: round(v, 4) for k, v in res.timings.items()})}; launches "
+          f"{json.dumps(n)} [{card}]", flush=True)
+    check(calls == [torch.device(DEVICE).type], "[no-native] one device flood, on the card")
+    check(np.array_equal(masks[0], flood_mask), "[no-native] the seeds are [flood]'s mask")
+    check(res.n_raw_seeds == int(flood_mask.sum()) and len(res.tree) > 10,
+          "[no-native] the run took those seeds and traced")
+    check(all(n[k] > 0 for k in PATH_KERNELS["exact"]), "[no-native] launched K1 and K2")
+    return {"s": wall, "stages": res.timings, "launches": n}
+
+
+def phase_sharded_step(torch, card, main_np, sharded_j8):
+    """[sharded step], [trace_wave]: `build_sharded_step` (filter, J8,
+    seeds_sharded, one handed-off wave of four-iteration stages) on the
+    main stack over the virtual mesh, exact and tube, launches set to 0
+    just before and read just after: its J8 bitwise the sharded pipeline's;
+    each shard's seeds the strongest of the card flood of the step's J8 in
+    its planes (ties in voxel order); the stitched traces bitwise
+    `trace_wave` on the whole stack's field with the same ids and key; then
+    `trace_wave` staged bitwise unstaged (its launches counted too)."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.hostpath import threefry as tf
+    from pnr_tpu_torch.parallel import (build_sharded_step, frangi3d_sharded,
+                                        normalize_to_u8_sharded, seeds_sharded, shard_volume,
+                                        stitch_estimates)
+    from pnr_tpu_torch.seeds.extract import max_points_device
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    mesh = virtual_mesh(torch)
+    n = MESH_SHARDS
+    per = -(-STEP_WAVE // n)
+    lanes = 2 * per + 2
+    zl = MAIN_SHAPE[0] // n
+    key = tf.key_from_seed(0)
+    out = {}
+    for mode in ("exact", "tube"):
+        tag = f"sharded step {mode}"
+        cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), zncc_mode=mode)
+        step = build_sharded_step(cfg, mesh, wave=STEP_WAVE)
+        vs = shard_volume(main_np, mesh)
+        reset_counters()
+        res, wall = timed(torch, lambda: step(vs, key))
+        launches = read_counters()
+        j8 = torch.cat(res["j8"])
+        check(np.array_equal(j8.cpu().numpy(), sharded_j8), f"[{tag}] J8 bitwise the sharded pipeline's")
+        mask = max_points_device(j8, cfg.tolerance).cpu().numpy()
+        j8_np = j8.cpu().numpy()
+        for s in range(n):
+            zz, yy, xx = np.nonzero(mask[s * zl:(s + 1) * zl])
+            score = j8_np[s * zl:(s + 1) * zl][zz, yy, xx].astype(np.int64)
+            top = np.lexsort((np.arange(len(score)), -score))[:per]
+            want = np.stack([xx[top], yy[top], zz[top] + s * zl], -1).astype(np.float32)
+            check(np.array_equal(res["seed_pos"][s * per:s * per + len(top)], want)
+                  and int(res["seeds_found"][s]) == len(zz),
+                  f"[{tag}] shard {s}'s seeds the strongest {per} of the card flood of its planes")
+        j, jmin, jmax, vx, vy, vz = frangi3d_sharded(vs, cfg.sigmas, cfg.zdist, mesh)
+        dirs = seeds_sharded(normalize_to_u8_sharded(j, jmin, jmax), vx, vy, vz, cfg.tolerance,
+                             mesh, per)[1]
+        del j, vx, vy, vz
+        est, ids = stitch_estimates(res["est_packs"], res["est_ids"], cfg.ni)
+        rows = [divmod(int(t), lanes) for t in ids]
+        sp = np.stack([res["seed_pos"][s * per + i] for s, i in rows])
+        sd = np.stack([dirs[s * per + i] for s, i in rows])
+        tracker = BatchedTracker(cfg, DEVICE)
+        field = tracker.prepare_field(torch.from_numpy(main_np).to(DEVICE))
+        reset_counters()
+        ref, wave_s = timed(torch, lambda: tracker.trace_wave(field, sp, sd, key, ids))
+        wave_launches = read_counters()
+        unstaged, unstaged_s = timed(torch, lambda: tracker.trace_wave(field, sp, sd, key, ids,
+                                                                       staged=False))
+        ok = est[:, :, 8] > 0.5
+        handed = int(sum(len({(np.nonzero(r == t)[0][0] // lanes) for r in res["est_ids"]
+                              if (r == t).any()}) > 1 for t in ids))
+        print(f"[{tag}] {wall:.3f} s: {len(ids)} traces ({handed} on two or more shards), "
+              f"{int(ok.sum())} valid estimates, seeds found {res['seeds_found'].tolist()}; "
+              f"launches {json.dumps(launches)} [{card}]", flush=True)
+        print(f"[trace_wave {mode}] staged {wave_s:.3f} s, unstaged {unstaged_s:.3f} s, "
+              f"{len(ids)} traces; launches (staged) {json.dumps(wave_launches)} [{card}]",
+              flush=True)
+        check(ok.sum() > len(ids), f"[{tag}] the wave traced")
+        check(np.array_equal(ok, ref.valid) and np.array_equal(est[ok][:, :3], ref.pos[ok])
+              and np.array_equal(est[ok][:, 3:6], ref.dir[ok])
+              and np.array_equal(est[ok][:, 6], ref.sig[ok])
+              and np.array_equal(est[ok][:, 7], ref.corr[ok]),
+              f"[{tag}] the stitched traces bitwise trace_wave on the whole stack")
+        check(all(np.array_equal(getattr(ref, f), getattr(unstaged, f))
+                  for f in ("pos", "dir", "sig", "corr", "valid")),
+              f"[trace_wave {mode}] staged bitwise unstaged")
+        want = (("conv_yx", "conv1d_axis", "exact_sums") if mode == "exact" else
+                ("conv_yx", "conv1d_axis", "tube_corr_trace"))
+        check(all(launches[k] > 0 for k in want) and launches["frangi3d_fused"] == 0,
+              f"[{tag}] launched {', '.join(want)} and no K1")
+        wave_k = "exact_sums" if mode == "exact" else "tube_corr_trace"
+        check(wave_launches[wave_k] > 0, f"[trace_wave {mode}] launched {wave_k}")
+        out[mode] = {"s": wall, "traces": len(ids), "handed_off": handed, "launches": launches,
+                     "trace_wave": {"staged_s": wave_s, "unstaged_s": unstaged_s,
+                                    "launches": wave_launches}}
+        del field, tracker, vs, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_alt(torch, card, main_np):
+    """[alt]: `extract3d_alt` on the main stack, on the card, its candidates
+    the ALT_CANDIDATES strongest J8 voxels: `frangi3d_with_scale` (the
+    unfused per-scale filter: K4 and K3 launches counted) with J bitwise the
+    port's `frangi3d` J, and seeds on the tube axis, their ZNCC above 0.5,
+    sorted by score."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.ops.frangi import frangi3d, normalize_to_u8
+    from pnr_tpu_torch.seeds.alt import extract3d_alt, frangi3d_with_scale
+
+    cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
+    vol = torch.from_numpy(main_np).to(DEVICE)
+    reset_counters()
+    (j, _, _, _, sc), filt_s = timed(torch, lambda: frangi3d_with_scale(vol, SIGMAS, ZDIST))
+    n_filter = read_counters()
+    same_j = torch.equal(j, frangi3d(vol, SIGMAS, ZDIST)[0])
+    scales = torch.bincount(sc.reshape(-1).long(), minlength=len(SIGMAS)).tolist()
+    hist = torch.bincount(normalize_to_u8(j, j.min(), j.max()).reshape(-1).long(), minlength=256)
+    above = torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0])  # voxels >= value
+    thr = int(torch.nonzero(above <= ALT_CANDIDATES)[0, 0]) - 1
+    del j, sc, vol
+    reset_counters()
+    (pos, dirs, score, corr), alt_s = timed(
+        torch, lambda: extract3d_alt(main_np, cfg, j8_threshold=thr, device=DEVICE))
+    n = read_counters()
+    print(f"[alt] frangi3d_with_scale {filt_s:.3f} s (launches {json.dumps(n_filter)}), voxels a "
+          f"scale {scales}; extract3d_alt {alt_s:.3f} s at J8 > {thr}: {len(pos)} seeds, median y "
+          f"{np.median(pos[:, 1]) if len(pos) else float('nan'):.2f}; launches {json.dumps(n)} "
+          f"[{card}]", flush=True)
+    check(same_j, "[alt] frangi3d_with_scale's J bitwise frangi3d's")
+    check(n_filter["conv_yx"] == len(SIGMAS) and n_filter["conv1d_axis"] == 10 * len(SIGMAS),
+          "[alt] one K4 and ten K3 launches a scale")
+    check(n["conv_yx"] == len(SIGMAS) and n["conv1d_axis"] == 10 * len(SIGMAS)
+          and n["frangi3d_fused"] == 0, "[alt] extract3d_alt launched K4 and K3, no K1")
+    check(len(pos) > 0 and abs(np.median(pos[:, 1]) - MAIN_SHAPE[1] / 2) <= 3
+          and bool((corr > 0.5).all()) and bool((np.diff(score) <= 1e-6).all()),
+          "[alt] seeds on the tube axis, ZNCC above 0.5, sorted by score")
+    return {"filter_s": filt_s, "s": alt_s, "threshold": thr, "seeds": len(pos), "launches": n}
+
+
+def phase_host(torch, card, workdir):
+    """[host]: the port's CLI (`--device cuda`) and the host one-shot engine
+    (`PNR_TPU_HOST_PATH=1`) on one HOST_SHAPE stack, each in a fresh
+    process, exact and tube: both SWCs on the tube axis; the wall seconds
+    of each process, interpreter start included."""
+    src = os.path.join(workdir, "host.npy")
+    np.save(src, make_volume(HOST_SHAPE))
+    env = {k: v for k, v in os.environ.items() if k != "PNR_TPU_HOST_PATH"}
+    env["PYTHONPATH"] = HERE
+    out = {}
+    for mode in ("exact", "tube"):
+        for route in ("cuda", "host"):
+            swc = os.path.join(workdir, f"host_{mode}_{route}.swc")
+            argv = [sys.executable, "-m", "pnr_tpu_torch", "-i", src, "-p", *MAIN_PARAMS,
+                    "--zncc-mode", mode, "-o", swc, "--quiet"]
+            run_env = dict(env)
+            if route == "cuda":
+                argv += ["--device", DEVICE]
+            else:
+                run_env["PNR_TPU_HOST_PATH"] = "1"
+            t0 = time.perf_counter()
+            p = subprocess.run(argv, cwd=HERE, env=run_env, capture_output=True, text=True,
+                               timeout=HOST_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            check(p.returncode == 0, f"[host] {route} {mode} exited {p.returncode}: {p.stderr[-2000:]}")
+            rows = np.loadtxt(swc, comments="#", ndmin=2)
+            check(len(rows) > 10 and abs(np.median(rows[:, 3]) - HOST_SHAPE[1] / 2) <= 3,
+                  f"[host] {route} {mode}: the SWC lies on the tube axis")
+            out[f"{mode} {route}"] = {"s": wall, "nodes": len(rows)}
+        print(f"[host] {HOST_SHAPE} {mode}: the CLI on the card {out[f'{mode} cuda']['s']:.3f} s "
+              f"({out[f'{mode} cuda']['nodes']} nodes), the host engine "
+              f"{out[f'{mode} host']['s']:.3f} s ({out[f'{mode} host']['nodes']} nodes), fresh "
+              f"processes [{card}]", flush=True)
+    return out
+
+
+def phase_rest(torch, card, main_np, sharded_j8):
+    """The phases of the rest of the port: [flood], [no-native], [sharded
+    step] with [trace_wave], [alt], [host]."""
+    t0 = time.perf_counter()
+    out = {}
+    out["flood"], mask, _ = phase_flood(torch, card, main_np)
+    torch.cuda.empty_cache()
+    out["no-native"] = phase_no_native(torch, card, main_np, mask)
+    torch.cuda.empty_cache()
+    out["sharded step"] = phase_sharded_step(torch, card, main_np, sharded_j8)
+    out["alt"] = phase_alt(torch, card, main_np)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_host_", dir=HERE)
+    try:
+        out["host"] = phase_host(torch, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[rest] {time.perf_counter() - t0:.3f} s for [flood] .. [host] [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2699,6 +3036,7 @@ def main() -> int:
     sharded, virtual = phase_sharded(torch, card, main_np, main_rows)
     mesh = phase_mesh(torch, card, vols, k1_exact, virtual["exact"],
                       [sharded["exact"][f"run{r}"]["s"] for r in (1, 2)], main_np)
+    rest = phase_rest(torch, card, main_np, virtual["exact"].j8)
     del vols, k1_exact, virtual
     k2_ms, k2_seen = profiles["exact"]["kernels"]["K2"]
     k2.update({"device_ms_per_exact_run": k2_ms, "profiled_launches": k2_seen,
@@ -2798,6 +3136,17 @@ def main() -> int:
             row[key] = entry["launches"][sharded_counter[row["name"]]]
     kernels[4]["launches_batch_dp_tube_map_build"] = mesh["batch dp tube"]["launches"][
         "conv1d_along_axis"]
+    # each kernel's launches on the paths of the rest of the port
+    rest_paths = {"no_native": rest["no-native"]["launches"], "alt": rest["alt"]["launches"]}
+    for mode in ("exact", "tube"):
+        rest_paths[f"sharded_step_{mode}"] = rest["sharded step"][mode]["launches"]
+        rest_paths[f"trace_wave_{mode}"] = rest["sharded step"][mode]["trace_wave"]["launches"]
+    for row in kernels:
+        for path, n in rest_paths.items():
+            row[f"launches_{path}"] = n[sharded_counter[row["name"]]]
+    kernels[4]["launches_sharded_step_tube_map_build"] = rest_paths["sharded_step_tube"][
+        "conv1d_along_axis"]
+    print(f"[rest] {json.dumps(rest, default=str)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

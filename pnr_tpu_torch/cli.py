@@ -11,7 +11,11 @@ reference's intermediate dumps), `--find-maxima`, `--interactive`,
 `--watch`, each poll's arrivals over the mesh through
 `reconstruction_batch_sharded`) and
 `--plan` (the per-card memory plan, read from the image's header only).
-Every stack runs on the device (the port has no host one-shot engine).
+Every stack runs on the device, but where the caller sets
+PNR_TPU_HOST_PATH=1: a single stack (no --mesh, --watch, --checkpoint,
+--resume or --save-midres, as in JAX) then runs on the host one-shot
+engine (`pnr_tpu_torch.hostpath`). JAX's automatic route of small stacks
+to that engine is not ported: it would run on the CPU unasked.
 
     python -m pnr_tpu_torch -i image.tif -p 2,4,6 0 5 0.3 3 2 200 20 2 4 1
 
@@ -226,6 +230,25 @@ def main(argv=None) -> int:
         print(f"{len(xx)} local maxima -> {out}")
         return 0
 
+    verbose = not args.quiet
+    if (os.environ.get("PNR_TPU_HOST_PATH") == "1" and len(args.images) == 1 and not args.watch
+            and not (args.mesh and args.mesh > 1)
+            and not (args.checkpoint or args.resume or cfg.save_midres)):
+        # asked for: the one-shot host engine (NumPy, SciPy and the native
+        # runtime), no device
+        from pnr_tpu_torch.hostpath import host_reconstruction_func
+
+        if verbose:
+            print("host one-shot engine (PNR_TPU_HOST_PATH=1)")
+        result = host_reconstruction_func(load_volume(image), cfg, verbose=verbose)
+        out = args.output or (image + "_Advantra.swc")
+        _save_swc(result.tree, out, cfg)
+        if args.metrics:
+            _write_metrics(args.metrics, cfg, [metrics_entry(image, result)])
+        if verbose:
+            print(f"wrote {out} ({len(result.tree) - 1} nodes)")
+        return 0
+
     from pnr_tpu_torch.pipeline import (
         reconstruction_batch,
         reconstruction_func,
@@ -238,7 +261,6 @@ def main(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         sys.stderr.write(f"{e}\n")
         return 1
-    verbose = not args.quiet
     if verbose:
         print("-------------  PNR (PyTorch/CUDA port)  -------------")
         for k in ("sigmas", "somaradius", "tolerance", "znccth", "kappa", "step",

@@ -8,8 +8,10 @@ lockstep as blocked pairwise distances (|c|^2 + |p|^2 - 2cp, float32 —
 TF32 would collapse nodes, see `require_cuda`) and masked means as a
 mask @ P matmul. Above REFINE_GRID_CUTOVER nodes the native grid
 engine takes over, as in the JAX package. `interpolate_nodelist`,
-`group1` (on the native greedy grouping) and REFINE_GRID_CUTOVER are
-copies of pnr_tpu/graph/refine.py's.
+`group1` (on the native greedy grouping), REFINE_GRID_CUTOVER, and the
+NumPy alternates no pipeline calls (`non_blurring_reference`, the scalar
+oracle; `refine_blurring`; `group0`) are copies of
+pnr_tpu/graph/refine.py's.
 """
 
 from __future__ import annotations
@@ -175,5 +177,165 @@ def group1(nodes: NodeList, rad: float) -> NodeList:
             if j == 0:
                 continue
             out.nbr[gi].append(int(group_of[j - 1]) + 1)
+    out.check_nbr()
+    return out
+
+
+def non_blurring_reference(nodes: NodeList, sig2rad, max_iter, eps2) -> NodeList:
+    """Scalar oracle of non_blurring (for tests)."""
+    out = nodes.copy()
+    n = len(nodes)
+    px = np.asarray(nodes.x)
+    py = np.asarray(nodes.y)
+    pz = np.asarray(nodes.z)
+    ps = np.asarray(nodes.sig)
+    for i in range(1, n):
+        conv = np.array([px[i], py[i], pz[i], ps[i]], np.float64)
+        it = 0
+        while True:
+            r2 = (sig2rad * conv[3]) ** 2
+            d2 = (px[1:] - conv[0]) ** 2 + (py[1:] - conv[1]) ** 2 + (pz[1:] - conv[2]) ** 2
+            m = d2 <= r2
+            cnt = m.sum()
+            nxt = np.array(
+                [px[1:][m].sum(), py[1:][m].sum(), pz[1:][m].sum(), ps[1:][m].sum()]
+            ) / max(cnt, 1)
+            move2 = np.sum((nxt[:3] - conv[:3]) ** 2)
+            conv = nxt
+            it += 1
+            if it >= max_iter or move2 <= eps2:
+                break
+        out.x[i], out.y[i], out.z[i], out.sig[i] = conv.tolist()
+    return out
+
+
+def refine_blurring(nodes: NodeList, sig2rad: float, max_iter: int, eps2: float) -> NodeList:
+    """Blurring mean-shift variant (Advantra_plugin.cpp:863-966, the
+    alternate to `non_blurring`): all nodes shift together each global
+    iteration — the kernel support is the CURRENT (moving) positions —
+    soma nodes are frozen and excluded from the averages, and iteration
+    stops when the largest move falls below eps2.
+    """
+    out = nodes.copy()
+    n = len(nodes)
+    if n <= 1:
+        return out
+    is_soma = np.asarray([t == SOMA for t in nodes.type[1:]])
+    conv = np.stack(
+        [
+            np.asarray(nodes.x[1:], np.float64),
+            np.asarray(nodes.y[1:], np.float64),
+            np.asarray(nodes.z[1:], np.float64),
+            np.asarray(nodes.sig[1:], np.float64),
+        ],
+        axis=-1,
+    )
+    for _ in range(max_iter):
+        pts = conv[:, :3]
+        r2 = (sig2rad * conv[:, 3]) ** 2
+        d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        mask = (d2 <= r2[:, None]) & (~is_soma)[None, :]
+        cnt = np.maximum(mask.sum(1), 1)
+        nxt = (mask[..., None] * conv[None, :, :]).sum(1) / cnt[:, None]
+        nxt[is_soma] = conv[is_soma]
+        move2 = ((nxt[:, :3] - conv[:, :3]) ** 2).sum(1)
+        conv = nxt
+        if move2.max() <= eps2:
+            break
+    out.x[1:] = conv[:, 0].tolist()
+    out.y[1:] = conv[:, 1].tolist()
+    out.z[1:] = conv[:, 2].tolist()
+    out.sig[1:] = conv[:, 3].tolist()
+    return out
+
+
+def group0(
+    nodes: NodeList, d_axial: float = 2.0, sig2rad: float = 1.0
+) -> NodeList:
+    """Experimental cylinder grouping (`group0`,
+    Advantra_plugin.cpp:1645-1767; unused in the reference's live path,
+    reproduced for completeness).
+
+    Nodes are processed by descending correlation; each ungrouped node
+    gathers its spherical neighbourhood (the reference compares SQUARED
+    distances against the unsquared radius sig2rad*sig — kept), fits
+    the local orientation as the largest-|lambda| eigenvector of the
+    neighbourhood covariance, and absorbs the ungrouped neighbours
+    whose axial distance along that orientation is <= d_axial
+    (`is_cross_section`, :1054-1076), iteratively averaging position /
+    sig / corr. Divergence from the literal reference: the reference's
+    running average uses `+=` where `=` is clearly intended
+    (:1747-1751, positions would grow without bound); the intended
+    update is implemented.
+    """
+    n = len(nodes)
+    x = np.asarray(nodes.x)
+    y = np.asarray(nodes.y)
+    z = np.asarray(nodes.z)
+    sig = np.asarray(nodes.sig)
+    corr = np.asarray(nodes.corr, np.float64)
+    corr[0] = np.inf
+    order = sorted(range(n), key=lambda i: -corr[i])
+
+    out = NodeList()
+    x2y = np.full(n, -1, np.int64)
+    x2y[0] = 0
+
+    for ci in order:
+        if ci == 0 or x2y[ci] != -1:
+            continue
+        r2 = sig2rad * sig[ci]  # reference quirk: unsquared threshold
+        dx = x - x[ci]
+        dy = y - y[ci]
+        dz = z - z[ci]
+        near = (dx * dx <= r2) & (dx * dx + dy * dy <= r2) & (
+            dx * dx + dy * dy + dz * dz <= r2
+        )
+        near[0] = False
+        nci = [ci] + [j for j in np.nonzero(near)[0] if j != ci]
+        if len(nci) == 1:
+            x2y[ci] = out.add(
+                x[ci], y[ci], z[ci], corr=float(corr[ci]), sig=sig[ci],
+                ntype=nodes.type[ci],
+            )
+            out.nbr[x2y[ci]] = list(nodes.nbr[ci])
+            continue
+        pts = np.stack([x[nci], y[nci], z[nci]], axis=-1)
+        mu = pts.mean(axis=0)
+        cov = (pts - mu).T @ (pts - mu) / len(nci)
+        w, v = np.linalg.eigh(cov)
+        vdir = v[:, np.argmax(np.abs(w))]
+        gi = out.add(
+            x[ci], y[ci], z[ci], corr=float(corr[ci]), sig=sig[ci],
+            ntype=nodes.type[ci],
+        )
+        out.nbr[gi] = list(nodes.nbr[ci])
+        x2y[ci] = gi
+        gx, gy, gz, gs, gc = x[ci], y[ci], z[ci], sig[ci], float(corr[ci])
+        cnt = 1.0
+        for j in nci[1:]:
+            if x2y[j] != -1:
+                continue
+            da = (x[j] - x[ci]) * vdir[0] + (y[j] - y[ci]) * vdir[1] + (
+                z[j] - z[ci]
+            ) * vdir[2]
+            if abs(da) > d_axial:
+                continue
+            x2y[j] = gi
+            cnt += 1.0
+            a = (cnt - 1.0) / cnt
+            b = 1.0 / cnt
+            gx = a * gx + b * x[j]
+            gy = a * gy + b * y[j]
+            gz = a * gz + b * z[j]
+            gs = a * gs + b * sig[j]
+            gc = a * gc + b * corr[j]
+            out.nbr[gi].extend(nodes.nbr[j])
+        out.x[gi], out.y[gi], out.z[gi] = float(gx), float(gy), float(gz)
+        out.sig[gi], out.corr[gi] = float(gs), float(gc)
+
+    # remap neighbour links into group space and repair
+    for i in range(1, len(out)):
+        out.nbr[i] = [int(x2y[j]) for j in out.nbr[i] if x2y[j] > 0]
     out.check_nbr()
     return out

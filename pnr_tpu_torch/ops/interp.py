@@ -6,6 +6,7 @@ clamped to [0, dim-1.001] before the floor, so both gather corners stay
 in range and out-of-volume queries sample the nearest edge. The eight
 corners are read with one flat gather each. A one-plane volume (l == 1)
 ignores z and samples bilinearly, in JAX's order of operations.
+`interpz` (Frangi::interpz) interpolates along z only.
 """
 
 from __future__ import annotations
@@ -52,3 +53,22 @@ def trilinear(vol: torch.Tensor, x: torch.Tensor, y: torch.Tensor, z: torch.Tens
     plane2 = (1 - yf) * ((1 - xf) * r12a + xf * r12b) + yf * ((1 - xf) * r22a + xf * r22b)
     out = (1 - zf) * plane1 + zf * plane2
     return out.reshape(shape)
+
+
+def interpz(vol: torch.Tensor, x, y, z) -> torch.Tensor:
+    """Interpolate a (Z, Y, X) volume along z only at integer (x, y)
+    (Frangi::interpz, pnr-vaa3d/frangi.cpp:1201-1228); float32."""
+    l = vol.shape[0]
+    v = vol.to(torch.float32)
+    dev = vol.device
+    xi = torch.as_tensor(x, device=dev).to(torch.int64)
+    yi = torch.as_tensor(y, device=dev).to(torch.int64)
+    if l == 1:
+        return v[0, yi, xi]
+    z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    z1 = torch.clamp(z.to(torch.int32), 0, l - 2)
+    zf = torch.clamp(z - z1, 0.0, 1.0)
+    z1 = z1.to(torch.int64)
+    i1 = v[z1, yi, xi]
+    i2 = v[z1 + 1, yi, xi]
+    return (1 - zf) * i1 + zf * i2

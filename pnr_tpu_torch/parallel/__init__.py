@@ -4,7 +4,12 @@ stack a device, and groups of devices a stack) and the multi-process
 runtime on torch.distributed."""
 
 from pnr_tpu_torch.parallel.halo import halo_exchange_z, halo_exchange_z_aligned
-from pnr_tpu_torch.parallel.handoff import build_handoff_tracer, required_trace_halo
+from pnr_tpu_torch.parallel.handoff import (
+    build_handoff_trace_step,
+    build_handoff_tracer,
+    required_trace_halo,
+    stitch_estimates,
+)
 from pnr_tpu_torch.parallel.multihost import (
     allgather_host_rows,
     fetch_replicated,
@@ -17,12 +22,15 @@ from pnr_tpu_torch.parallel.plan import ShardPlan, card_memory_bytes, min_device
 from pnr_tpu_torch.parallel.sharded import (
     Mesh,
     assign_seeds_to_shards,
+    build_local_trace_step,
+    build_sharded_step,
     frangi2d_halo,
     frangi2d_sharded,
     frangi3d_sharded,
     frangi_halo,
     make_mesh,
     normalize_to_u8_sharded,
+    seeds_sharded,
     shard_volume,
     slab_filter_route,
 )
@@ -37,7 +45,10 @@ __all__ = [
     "ShardPlan",
     "allgather_host_rows",
     "assign_seeds_to_shards",
+    "build_handoff_trace_step",
     "build_handoff_tracer",
+    "build_local_trace_step",
+    "build_sharded_step",
     "card_memory_bytes",
     "fetch_replicated",
     "frangi2d_halo",
@@ -55,9 +66,11 @@ __all__ = [
     "reconstruction_batch_dp",
     "reconstruction_batch_sharded",
     "required_trace_halo",
+    "seeds_sharded",
     "shard_volume",
     "shard_volume_global",
     "shutdown_multihost",
     "slab_filter_route",
     "split_mesh",
+    "stitch_estimates",
 ]

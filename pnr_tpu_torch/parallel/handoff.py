@@ -55,6 +55,10 @@ estimates on its device (None for a shard with no live lane) and
 `lane_estimates` gathers them (another process's shards as host arrays).
 `ids` is -1 on free lanes; est0, ids, live and kept_local are host
 arrays.
+
+`build_handoff_trace_step` is JAX's one-shot API on top of it (every
+stage, no kill feedback, the blocks stacked), and `stitch_estimates`
+reassembles its blocks into per-trace records.
 """
 
 from __future__ import annotations
@@ -396,3 +400,67 @@ def build_handoff_tracer(
         return state, packed, _ids(state), np.concatenate(live), kept
 
     return init, stage, n_stages
+
+
+def build_handoff_trace_step(
+    cfg: PNRConfig,
+    mesh: Mesh,
+    lanes_per_shard: int,
+    stage_iters: int = 4,
+    trace_halo: Optional[int] = None,
+):
+    """One-shot API over `build_handoff_tracer`: run every stage with no
+    kill feedback and return the stacked per-stage blocks.
+
+    Returns (step, n_stages, stage_iters); step(vs, seed_pos, seed_dir,
+    trace_ids, valid, base_key) -> (packed (S+1, L, stage_iters, 9), ids
+    (S+1, L), live (S+1, L), lost (n_shards,)), host arrays. Block 0 holds
+    iteration 0 in its first row; a last stage shorter than stage_iters is
+    zero-padded. `lost` is always zero (the capacity handshake keeps
+    overflow traces on their shard instead of dropping them) and is kept
+    for JAX's API."""
+    init, stage, n_stages = build_handoff_tracer(cfg, mesh, lanes_per_shard, stage_iters,
+                                                 trace_halo)
+
+    def step(vs, seed_pos, seed_dir, trace_ids, valid, base_key):
+        state, est0, ids0, field = init(vs, seed_pos, seed_dir, trace_ids, valid, base_key)
+        lanes = len(ids0)
+        packs = [np.pad(est0[:, None, :], ((0, 0), (0, stage_iters - 1), (0, 0)))]
+        ids_all, live_all = [ids0], [np.concatenate(state.live)]
+        no_kill = np.zeros(lanes, bool)
+        it = 1
+        for _ in range(n_stages):
+            n_it = min(stage_iters, cfg.ni - it)
+            state, packed, ids, live, _kept = stage(field, state, range(it, it + n_it), no_kill)
+            packs.append(np.pad(lane_estimates(packed, lanes_per_shard, n_it),
+                                ((0, 0), (0, stage_iters - n_it), (0, 0))))
+            ids_all.append(ids)
+            live_all.append(live)
+            it += n_it
+        return (np.stack(packs), np.stack(ids_all), np.stack(live_all),
+                np.zeros(mesh.size, np.int32))
+
+    return step, n_stages, stage_iters
+
+
+def stitch_estimates(packs: np.ndarray, ids: np.ndarray, ni: int):
+    """Reassemble per-trace estimate records from per-stage blocks.
+
+    packs (S+1, L, stage_iters, 9), ids (S+1, L) with -1 for empty lanes.
+    Returns (est (n_traces, ni, 9), trace_ids (n_traces,)) in ascending
+    trace-id order; iteration 0 comes from stage block 0. Validity is a
+    prefix property (the tracker's alive chain): one invalid iteration
+    invalidates everything after it."""
+    s_tot, lanes, stage_iters, _ = packs.shape
+    all_ids = np.unique(ids[ids >= 0])
+    est = np.zeros((len(all_ids), ni, 9), np.float32)
+    id_to_row = {int(t): r for r, t in enumerate(all_ids)}
+    for s in range(s_tot):
+        it0 = 0 if s == 0 else 1 + (s - 1) * stage_iters
+        n_it = 1 if s == 0 else min(stage_iters, ni - it0)
+        if n_it <= 0:
+            continue
+        for lane in np.nonzero(ids[s] >= 0)[0]:
+            est[id_to_row[int(ids[s, lane])], it0:it0 + n_it] = packs[s, lane, :n_it]
+    est[:, :, 8] = np.minimum.accumulate(est[:, :, 8], axis=1)
+    return est, all_ids

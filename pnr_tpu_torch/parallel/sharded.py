@@ -15,6 +15,13 @@ shard's aligned halo slab, or the tiled engines where their planned peak
 is the lower (`slab_filter_route`), and is bitwise the monolithic
 filter: J, Vx, Vy, Vz on every plane, and Jmin (the first scale's min)
 and Jmax as global reductions over the shards.
+
+The library steps JAX builds over the mesh are here too, for callers
+that drive a mesh one step at a time (no pipeline calls them):
+`seeds_sharded` (the device flood on each shard's slab, the strongest
+seeds of each), `build_local_trace_step` (shard-local tracing, a trace
+ending where it leaves its slab) and `build_sharded_step` (filter, J8,
+seeds and one handed-off trace wave in one call).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from pnr_tpu_torch.ops.frangi_blocked import (
     pick_blocks_2d,
 )
 from pnr_tpu_torch.parallel.halo import halo_exchange_z_aligned
+from pnr_tpu_torch.seeds.extract import max_points_device
 from pnr_tpu_torch.utils.runtime import require_cuda
 
 Sharded = List[torch.Tensor]  # one tensor per shard, on the shard's device
@@ -302,3 +310,151 @@ def assign_seeds_to_shards(pos: np.ndarray, dirs: np.ndarray, z_total: int, n_sh
         out_d[s * seeds_per_shard: s * seeds_per_shard + k] = dirs[sel]
         valid[s * seeds_per_shard: s * seeds_per_shard + k] = True
     return out_p, out_d, valid
+
+
+def _gather_shards(mesh: Mesh, mine: dict) -> list:
+    """Per-shard host results in shard order: this process's from `mine`
+    ({shard: result}), the other processes' through one `exchange`."""
+    if mesh.multiprocess:
+        from pnr_tpu_torch.parallel.multihost import exchange
+
+        for part in exchange(dict(mine)):
+            mine.update(part)
+    return [mine[s] for s in range(mesh.size)]
+
+
+def seeds_sharded(j8: Sharded, vx_u8: Sharded, vy_u8: Sharded, vz_u8: Sharded,
+                  tolerance: float, mesh: Mesh, cap_per_shard: int):
+    """MaximumFinder seed extraction over a Z-sharded J8 volume.
+
+    The tolerance flood is strictly per z-slice (seed.cpp:574), so the
+    device flood (`max_points_device`) on each shard's slab, on its
+    device, is exact with no halo. Per shard the strongest
+    `cap_per_shard` MAX_POINTs by J8 value are kept, equal values in
+    ascending voxel order (JAX's `lax.top_k`; a stable descending sort
+    here, since `torch.topk` promises no order among ties), with their
+    decoded Frangi directions; `found` is the shard's true seed count, so
+    a caller can see the cap overflow.
+
+    Returns host arrays (pos (n*cap, 3) volume xyz, dirs (n*cap, 3),
+    valid (n*cap,), found (n,)), shard s in rows [s*cap, (s+1)*cap)."""
+    k = int(cap_per_shard)
+    mine = {}
+    for s, (t, ax, ay, az) in enumerate(zip(j8, vx_u8, vy_u8, vz_u8)):
+        if t is None:  # another process's shard
+            continue
+        zl, h, w = t.shape
+        with on(t.device):
+            mask = max_points_device(t, float(tolerance))
+            score = torch.where(mask, t.to(torch.int32) + 1, 0).reshape(-1)
+            vals, idx = torch.sort(score, descending=True, stable=True)
+            vals, idx = vals[:k], idx[:k]
+            u = torch.stack([a.reshape(-1)[idx] for a in (ax, ay, az)], dim=-1)
+            u = u.to(torch.float32) / 255.0 * 2.0 - 1.0
+            nrm = torch.sqrt(u[:, 0] * u[:, 0] + u[:, 1] * u[:, 1] + u[:, 2] * u[:, 2])
+            dirs = u / torch.where(nrm > 0, nrm, torch.ones_like(nrm))[:, None]
+            z = idx // (h * w)
+            rem = idx % (h * w)
+            pos = torch.stack([rem % w, rem // w, z + s * zl], dim=-1).to(torch.float32)
+            mine[s] = (pos.cpu().numpy(), dirs.cpu().numpy(), (vals > 0).cpu().numpy(),
+                       np.int32(mask.sum().item()))
+    per_shard = _gather_shards(mesh, mine)
+    return (np.concatenate([p[0] for p in per_shard]), np.concatenate([p[1] for p in per_shard]),
+            np.concatenate([p[2] for p in per_shard]),
+            np.array([p[3] for p in per_shard], np.int32))
+
+
+def build_local_trace_step(cfg, mesh: Mesh, seeds_per_shard: int,
+                           trace_halo: Optional[int] = None):
+    """Shard-local tracing: the volume never replicates.
+
+    Each shard traces the `seeds_per_shard` seeds of its lanes (bucket
+    them with `assign_seeds_to_shards`) against the likelihood field of
+    its `trace_halo` slab (default: the template reach ceil(4.5 * max
+    sigma) plus 4 transition steps), in one stage of ni - 1 iterations,
+    and a trace ends where its centroid leaves the slab. Positions stay
+    in the volume's coordinates (the tracer reads the slab through its
+    `SlabFrame`), so a trace that stays inside its slab is bitwise the
+    single-device trace. patch_reuse is forced to 1, as in JAX.
+
+    Returns step(vs, seed_pos (n*k, 3), seed_dir, base_key) -> host (n*k,
+    ni, 9) estimates; lane i is keyed fold_in(base_key, i)."""
+    from pnr_tpu_torch.parallel.handoff import Trackers, build_fields
+    from pnr_tpu_torch.smc.tracker import trace_keys
+
+    n, k = mesh.size, int(seeds_per_shard)
+    trackers = Trackers(cfg, mesh)
+    if trace_halo is None:
+        trace_halo = int(math.ceil(4.5 * max(cfg.sigmas))) + 4 * cfg.step
+
+    def step(vs, seed_pos, seed_dir, base_key):
+        fields = build_fields(trackers, mesh, vs, trace_halo, n * shard_len(vs))
+        sp = np.asarray(seed_pos, np.float32)
+        sd = np.asarray(seed_dir, np.float32)
+        keys = trace_keys(base_key, np.arange(n * k))
+        mine = {}
+        for s, dev in enumerate(mesh.devices):
+            if fields[s] is None:  # another process's shard
+                continue
+            f, frame = fields[s]
+            sl = slice(s * k, (s + 1) * k)
+            tracker = trackers[dev]
+            with on(dev):
+                carry, e0 = tracker.trace_init(f, sp[sl], sd[sl], keys[sl], frame)
+                _, packed = tracker.trace_stage(f, keys[sl], carry, 1, cfg.ni - 1,
+                                                torch.zeros(k, dtype=torch.bool, device=dev), frame)
+                mine[s] = torch.cat([e0[:, None, :], packed], dim=1).cpu().numpy()
+        return np.concatenate(_gather_shards(mesh, mine))
+
+    return step
+
+
+def build_sharded_step(cfg, mesh: Mesh, wave: int = 8):
+    """One full pipeline step over the mesh: the sharded filter (K4 and K3
+    on each slab) -> global J8 -> `seeds_sharded` -> one trace wave over
+    the shards with boundary handoff (`build_handoff_trace_step`, four
+    iterations a stage); the volume never replicates.
+
+    Each shard seeds up to ceil(wave / n) traces (rounded up, so no seed
+    lane is lost when the mesh does not divide the wave) in 2 * that + 2
+    lanes (headroom for arrivals). Returns step(vs, base_key) -> dict with
+    JAX's keys: "j8" (sharded, on the devices), "seed_pos", "seed_valid",
+    "seeds_found", "est_packs" (S+1, n*lanes, 4, 9), "est_ids" (S+1,
+    n*lanes), "trace_valid", "handoff_lost" (host arrays); lane i's trace
+    id is i."""
+    from pnr_tpu_torch.parallel.handoff import build_handoff_trace_step
+
+    n = mesh.size
+    per_shard = max(1, -(-wave // n))
+    lanes = 2 * per_shard + 2
+    handoff_step, _, _ = build_handoff_trace_step(cfg, mesh, lanes_per_shard=lanes, stage_iters=4)
+
+    def step(vs, base_key):
+        j, jmin, jmax, vx, vy, vz = frangi3d_sharded(
+            vs, cfg.sigmas, cfg.zdist, mesh, cfg.frangi_alpha, cfg.frangi_beta, cfg.frangi_c)
+        j8 = normalize_to_u8_sharded(j, jmin, jmax)
+        j = None
+        seed_pos, seed_dir, valid, found = seeds_sharded(j8, vx, vy, vz, cfg.tolerance, mesh,
+                                                         per_shard)
+        vx = vy = vz = None
+
+        def pad_lanes(a, fill=0):
+            a2 = a.reshape((n, per_shard) + a.shape[1:])
+            widths = ((0, 0), (0, lanes - per_shard)) + ((0, 0),) * (a.ndim - 1)
+            return np.pad(a2, widths, constant_values=fill).reshape((n * lanes,) + a.shape[1:])
+
+        packs, est_ids, _live, lost = handoff_step(
+            vs, pad_lanes(seed_pos), pad_lanes(seed_dir), np.arange(n * lanes),
+            pad_lanes(valid, False), base_key)
+        return {
+            "j8": j8,
+            "seed_pos": seed_pos,
+            "seed_valid": valid,
+            "seeds_found": found,
+            "est_packs": packs,
+            "est_ids": est_ids,
+            "trace_valid": packs[..., 8] > 0.5,
+            "handoff_lost": lost,
+        }
+
+    return step

@@ -6,6 +6,7 @@ from pnr_tpu_torch.pipeline.reconstruct import (
     reconstruct_graph,
     reconstruction_batch,
     reconstruction_func,
+    soma_extraction,
 )
 from pnr_tpu_torch.pipeline.serve import watch_and_reconstruct
 from pnr_tpu_torch.pipeline.sharded_reconstruct import reconstruction_func_sharded
@@ -16,5 +17,6 @@ __all__ = [
     "reconstruction_batch",
     "reconstruction_func",
     "reconstruction_func_sharded",
+    "soma_extraction",
     "watch_and_reconstruct",
 ]

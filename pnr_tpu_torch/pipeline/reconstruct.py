@@ -7,7 +7,9 @@ Gaussian on K3 on the device, the max-entropy threshold and the 3-D
 connected components on the host) -> Frangi (3-D: K1, or the unfused or
 tiled filter on K4 and K3 when `cfg.fused_frangi` is off or the stack is
 over K1's cap; a 2-D (one-plane) stack: `frangi2d`, tiled above 80 Mpx)
--> J8 -> native host seed flood -> the likelihood field (the volume in
+-> J8 -> the seed flood (the native host flood; without the native
+library, as in JAX, the device flood `max_points_device` on the card)
+-> the likelihood field (the volume in
 exact mode, the tube map stack in tube mode) -> seeds inside a soma
 dropped -> seed scoring (K2 in exact mode, tube_corr in tube mode) -> SMC
 tracing in waves with the in-order FCFS commit wavefront (K2, or
@@ -19,7 +21,9 @@ kind, with the next stacks' fronts (everything up to seed selection)
 prefetched on worker threads, each on its own CUDA stream, while the
 current stack traces; `reconstruction_func` checkpoints and resumes the
 trace state (`pipeline/checkpoint.py`) and, under `cfg.save_midres`,
-returns the reference's intermediate results.
+returns the reference's intermediate results. `sphere_offsets` and
+`soma_extraction_alt` (the reference's unused alternate soma extraction)
+are NumPy copies of the JAX package's.
 
 Every entry point takes a `device`, "cuda" unless the caller asks for the
 CPU (as the tests do); without a card "cuda" raises. The volume, the Frangi
@@ -70,7 +74,7 @@ from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused, fused_frangi_enabled
 from pnr_tpu_torch.ops.gaussian import imgaussian_xy
 from pnr_tpu_torch.ops.morphology import imerode_xy
 from pnr_tpu_torch.ops.thresholds import histogram256, maxentropy_th
-from pnr_tpu_torch.seeds.extract import decode_directions_device, max_points_host
+from pnr_tpu_torch.seeds.extract import decode_directions_device, seed_mask
 from pnr_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 from pnr_tpu_torch.smc.tracker import BatchedTracker, trace_keys
 from pnr_tpu_torch.utils.runtime import require_cuda
@@ -147,6 +151,93 @@ def _frangi(img: torch.Tensor, cfg: PNRConfig):
     if blocks is not None:
         return frangi3d_tiled(*args, block_z=blocks[0], block_y=blocks[1])
     return frangi3d_blocked(*args)
+
+
+def sphere_offsets(radius: float, zdist: float) -> np.ndarray:
+    """Integer ellipsoid offsets, z-range shrunk by 1/zdist
+    (Tracker::sphereXYZ, pnr-vaa3d/tracker.cpp:581-620). (K, 3) dx,dy,dz."""
+    radius = max(0.0, float(radius))
+    rxy = int(round(radius))
+    rz = int(round(radius / zdist))
+    if rxy == 0:
+        # reference: 0/0 -> NaN -> the <=1 test fails for every offset
+        return np.zeros((0, 3), np.int32)
+    out = []
+    for dx in range(-rxy, rxy + 1):
+        for dy in range(-rxy, rxy + 1):
+            for dz in range(-rz, rz + 1):
+                t = (dx * dx) / float(rxy * rxy) + (dy * dy) / float(rxy * rxy)
+                if rz != 0:
+                    t += (dz * dz) / float(rz * rz)
+                if t <= 1.0:
+                    out.append((dx, dy, dz))
+    return np.asarray(out, np.int32)
+
+
+def soma_extraction_alt(
+    e8: np.ndarray, th: int, rgrp: float, zdist: float, nodes: NodeList
+) -> np.ndarray:
+    """Alternate soma extraction (`soma_extraction`,
+    Advantra_plugin.cpp:1917-2094; unused in the reference's live path,
+    reproduced for completeness).
+
+    Greedy spherical clustering of above-threshold voxels by descending
+    value: each unmapped voxel claims its ellipsoid neighbourhood's
+    above-threshold voxels as one SOMA node (position = their running
+    average), then 6-connected adjacent clusters are linked and the
+    neighbour lists deduplicated. Returns the (Z, Y, X) int32 smap of
+    node indices (relative to `nodes`, which receives the SOMA nodes).
+    """
+    e8 = np.asarray(e8)
+    l, h, w = e8.shape
+    smap = np.zeros((l, h, w), np.int32)
+    mask = e8 > th
+    zz, yy, xx = np.nonzero(mask)
+    vals = e8[zz, yy, xx]
+    order = np.argsort(-vals.astype(np.int32), kind="stable")
+    offs = sphere_offsets(rgrp, zdist)
+    base = len(nodes) - 1
+
+    for k in order:
+        z0, y0, x0 = int(zz[k]), int(yy[k]), int(xx[k])
+        if smap[z0, y0, x0] != 0:
+            continue
+        x1 = np.clip(x0 + offs[:, 0], 0, w - 1)
+        y1 = np.clip(y0 + offs[:, 1], 0, h - 1)
+        z1 = np.clip(z0 + offs[:, 2], 0, l - 1)
+        inb = (
+            (x0 + offs[:, 0] >= 0) & (x0 + offs[:, 0] < w)
+            & (y0 + offs[:, 1] >= 0) & (y0 + offs[:, 1] < h)
+            & (z0 + offs[:, 2] >= 0) & (z0 + offs[:, 2] < l)
+        )
+        # NOTE: like the reference (:1983-2003), neighbours are stamped
+        # without checking for a prior claim — overlapping clusters
+        # overwrite earlier stamps (processing-order dependent)
+        sel = inb & mask[z1, y1, x1]
+        if not sel.any():
+            continue
+        nid = nodes.add(
+            float(x1[sel].mean()), float(y1[sel].mean()), float(z1[sel].mean()),
+            sig=rgrp, ntype=SOMA,
+        )
+        smap[z1[sel], y1[sel], x1[sel]] = nid - base
+
+    # 6-connected linking of adjacent clusters
+    lab = smap
+    for axis, shift in ((0, 1), (1, 1), (2, 1)):
+        a = lab
+        b = np.roll(lab, -shift, axis=axis)
+        sl = [slice(None)] * 3
+        sl[axis] = slice(0, -1)
+        aa = a[tuple(sl)]
+        bb = b[tuple(sl)]
+        both = (aa > 0) & (bb > 0) & (aa != bb)
+        for i, j in set(zip(aa[both].tolist(), bb[both].tolist())):
+            nodes.nbr[base + i].append(base + j)
+            nodes.nbr[base + j].append(base + i)
+    for i in range(base + 1, len(nodes)):
+        nodes.nbr[i] = sorted(set(nodes.nbr[i]))
+    return np.where(smap > 0, smap + base, 0).astype(np.int32)
 
 
 def smap_to_u8(smap: np.ndarray) -> np.ndarray:
@@ -439,8 +530,8 @@ def _stack_front(
 
     tm.start("seed extraction")
     j8_np = j8.cpu().numpy()
+    mask = seed_mask(j8, cfg.tolerance, j8_np)
     j8 = None
-    mask = max_points_host(j8_np, float(cfg.tolerance))
     zz, yy, xx = np.nonzero(mask)
     pos = np.stack([xx, yy, zz], axis=-1).astype(np.float32)
     n_raw_seeds = len(pos)

@@ -15,8 +15,10 @@ transposed (Y, 1, X) layout) for a one-plane image:
 * Frangi + J8: the unfused filter on each shard's aligned halo slab,
   global Jmin/Jmax (`frangi3d_sharded`, bitwise the monolithic filter);
 * seed extraction: the native host flood on the gathered J8 (the
-  single-process branch of JAX's driver), directions decoded on each
-  shard's maps; over several processes each floods only its own slabs
+  single-process branch of JAX's pipeline; without the native library,
+  `max_points_device` on each shard's planes on its device, as JAX
+  floods on its device), directions decoded on each shard's maps; over
+  several processes each floods only its own slabs
   (`_seeds_per_shard_multiprocess`), and the seed rows are all-gathered;
 * seed scoring: each seed on its shard's field (`score_seeds_sharded`);
 * tracing: shard-local SMC with boundary handoff (parallel/handoff.py),
@@ -93,7 +95,12 @@ from pnr_tpu_torch.pipeline.reconstruct import (
     reconstruct_graph,
     smap_to_u8,
 )
-from pnr_tpu_torch.seeds.extract import decode_directions_device, max_points_host
+from pnr_tpu_torch.seeds.extract import (
+    decode_directions_device,
+    max_points_device,
+    max_points_host,
+    seed_mask,
+)
 from pnr_tpu_torch.utils.exporters import low_signal_diagnostic
 from pnr_tpu_torch.utils.runtime import require_cuda
 
@@ -145,12 +152,31 @@ def _decode_seed_dirs(vx, vy, vz, pos: np.ndarray, ci: int = 2) -> np.ndarray:
     return dirs
 
 
+def _flood_gathered(j8, j8_np: np.ndarray, tolerance, span_orig: int, is2d: bool,
+                    mesh: Mesh) -> np.ndarray:
+    """The seed flood of one process's run, routed as JAX's `_host_flood`:
+    the native flood on the gathered J8 when the library is built, else
+    `max_points_device`. Slices flood alone, so each Z shard floods its
+    own planes on its own device; a plane (the transposed 2-D layout
+    shards rows) floods on the first shard's device."""
+    if native.have_native():
+        return max_points_host(j8_np, float(tolerance))
+    if is2d:
+        return max_points_device(torch.from_numpy(j8_np).to(mesh.devices[0]),
+                                 float(tolerance)).cpu().numpy()
+    zl = shard_len(j8)
+    parts = [max_points_device(t[:min(zl, span_orig - s * zl)], float(tolerance)).cpu().numpy()
+             for s, t in enumerate(j8) if span_orig > s * zl]
+    return np.concatenate(parts)
+
+
 def _seeds_per_shard_multiprocess(j8, vx, vy, vz, tolerance, span_orig: int):
     """Slab-local seed extraction over several processes (JAX's
     `_seeds_per_shard_multiprocess`): the reference's tolerance flood runs
     on each z-slice alone (seed.cpp:574-791), and a Z shard holds whole
-    slices, so each process floods only its own shards' J8 with the native
-    MaximumFinder and decodes their directions on its own maps; no process
+    slices, so each process floods only its own shards' J8 (`seed_mask`:
+    the native MaximumFinder, or the device flood on the shard's device
+    without it) and decodes their directions on its own maps; no process
     gathers a volume-sized array. The (x, y, z, direction) rows are
     all-gathered (`allgather_host_rows`) and sorted by (z, y, x), the order
     of `np.nonzero` on the whole volume, so every process holds the same
@@ -164,7 +190,7 @@ def _seeds_per_shard_multiprocess(j8, vx, vy, vz, tolerance, span_orig: int):
         zmax = min(zl, span_orig - z0)
         if zmax <= 0:
             continue  # the shard lies in the replicate padding
-        zz, yy, xx = np.nonzero(max_points_host(t[:zmax].cpu().numpy(), float(tolerance)))
+        zz, yy, xx = np.nonzero(seed_mask(t[:zmax], tolerance))
         if not len(zz):
             continue
         local = np.stack([xx, yy, zz], axis=-1).astype(np.float32)
@@ -255,6 +281,29 @@ def score_seeds_sharded(trackers: Trackers, mesh: Mesh, fields, pos: np.ndarray,
         for idx, c in exchange((sel, corr[sel])):
             corr[idx] = c
     return corr
+
+
+def build_seed_scorer(cfg: PNRConfig, mesh: Mesh, is2d: bool = False):
+    """Shard-local znccBBB seed scoring as a library step (JAX's
+    `build_seed_scorer`): score(vs, seed_pos, seed_dir) -> host (N,) corr.
+    Each shard builds the likelihood field of its slab and scores the
+    seeds in its slab on it (`score_seeds_sharded`), so every score is the
+    single-device one. The halo is one tracer iteration's
+    (`required_trace_halo(cfg, 1)`): JAX's scorer halo, the map and
+    template reach, plus the reach of the engines' windows. patch_reuse is
+    forced to 1, as in JAX. With `is2d`, `vs` is the transposed (Y, 1, X)
+    layout sharded over Y and seeds go to the shard of their y."""
+    trackers = Trackers(cfg, mesh, is2d)
+    ci = 1 if is2d else 2
+    halo = required_trace_halo(cfg, 1)
+
+    def score(vs, seed_pos, seed_dir):
+        zl = shard_len(vs)
+        fields = build_fields(trackers, mesh, vs, halo, mesh.size * zl, is2d)
+        return score_seeds_sharded(trackers, mesh, fields, np.asarray(seed_pos, np.float32),
+                                   np.asarray(seed_dir, np.float32), zl, ci)
+
+    return score
 
 
 def _bucket_by_shard(pos, dirs, ids, z_padded, n_shards, lanes, ci=2):
@@ -372,8 +421,8 @@ def reconstruction_func_sharded(
         # one process, or a plane (the flood spans whole rows of the
         # transposed layout): the flood on the gathered J8
         j8_np = _fetch_map(j8)
+        zz, yy, xx = np.nonzero(_flood_gathered(j8, j8_np, cfg.tolerance, span_orig, is2d, mesh))
         j8 = None
-        zz, yy, xx = np.nonzero(max_points_host(j8_np, float(cfg.tolerance)))
         pos = np.stack([xx, yy, zz], axis=-1).astype(np.float32)
         if is2d:
             # the decode reads the TRANSPOSED maps, where a seed's (x, y) is

@@ -4,8 +4,8 @@ Parity target: `Tracker::generate_directions`
 (pnr-vaa3d/tracker.cpp:770-805) — 2-D: 30 points on the circle with
 angle step 2*3.14/n (the reference's truncated pi, kept verbatim);
 3-D: 50 points on a Saff–Kuijlaars-style spherical spiral with
-h_k = 1 - 2k/(n-1). (The nearest-direction lookup of
-`Tracker::getdirection` is the tracker's own torch argmax.)
+h_k = 1 - 2k/(n-1). `nearest_direction` is `Tracker::getdirection`'s
+lookup as torch ops (the tracer inlines its own argmax).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 NDIRS_2D = 30
 NDIRS_3D = 50
@@ -64,3 +65,14 @@ def sphere_directions_frangi(ndirs: int) -> np.ndarray:
             math.cos(theta),
         )
     return out
+
+
+def nearest_direction(dirs, codebook):
+    """Index of the codebook direction with max dot product (first max wins).
+
+    dirs: (..., 3); codebook: (N, 3). Returns (...,) int32. The dots are
+    float32 multiply-adds, so no TF32 matmul setting can change a near tie."""
+    d = torch.as_tensor(dirs, dtype=torch.float32)
+    c = torch.as_tensor(codebook, dtype=torch.float32, device=d.device)
+    dots = d[..., None, 0] * c[:, 0] + d[..., None, 1] * c[:, 1] + d[..., None, 2] * c[:, 2]
+    return dots.argmax(dim=-1).to(torch.int32)

@@ -41,6 +41,7 @@ slab; inside the slab it is bitwise the trace on the whole volume.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -58,6 +59,17 @@ from pnr_tpu_torch.ops.zncc_fast import (
     build_tube_maps_packed_blocked,
     tube_tables,
 )
+
+
+@dataclasses.dataclass
+class TraceResult:
+    """Per-wave trace estimates, host-side numpy."""
+
+    pos: np.ndarray  # (T, ni, 3) centroid positions (x, y, z)
+    dir: np.ndarray  # (T, ni, 3) unit directions
+    sig: np.ndarray  # (T, ni) radius estimates (argmax-sigma of centroid zncc)
+    corr: np.ndarray  # (T, ni) centroid correlations
+    valid: np.ndarray  # (T, ni) bool: the estimate survives the stop criteria
 
 
 class TrackerTables(NamedTuple):
@@ -339,3 +351,56 @@ class BatchedTracker:
             pos, dirs = new_pos, new_dir
             ests.append(self._pack(cpos, cdir, csig, ccorr, alive))
         return (pos, dirs, wgt, resampled, res_idx, alive), torch.stack(ests, dim=1)
+
+    def trace_wave(
+        self,
+        img: torch.Tensor,
+        seed_pos: np.ndarray,
+        seed_dir: np.ndarray,
+        base_key: np.ndarray,
+        trace_ids: np.ndarray,
+        staged: bool = True,
+    ) -> TraceResult:
+        """Trace a wave of seeds in lockstep; returns host-side estimates
+        (JAX's one-shot wave API).
+
+        `img` is the likelihood field on the tracer's device (the volume
+        in exact mode, `prepare_field`'s map stack in tube mode);
+        seed_pos/seed_dir are (T, 3) in (x, y, z) order. The wave runs in
+        chunks of `TRACE_CHUNK` traces, each trace keyed fold_in(base_key,
+        trace id), so a trace's stream does not depend on the wave's
+        shape. `staged` runs `STAGE_ITERS` iterations a call and stops a
+        chunk once every trace is dead; `staged=False` runs the chunk's
+        iterations in one call. Both give the same estimates (the streams
+        key on the absolute iteration)."""
+        t = len(seed_pos)
+        ni = self.cfg.ni
+        if t == 0:  # every seed filtered out: an empty result
+            e = np.zeros((0, ni), np.float32)
+            return TraceResult(pos=np.zeros((0, ni, 3), np.float32),
+                               dir=np.zeros((0, ni, 3), np.float32), sig=e, corr=e, valid=e > 0.5)
+        step = self.STAGE_ITERS if staged else max(1, ni - 1)
+        outs = []
+        for beg in range(0, t, self.TRACE_CHUNK):
+            end = min(beg + self.TRACE_CHUNK, t)
+            keys = trace_keys(base_key, np.asarray(trace_ids[beg:end]))
+            carry, est0 = self.trace_init(img, np.asarray(seed_pos[beg:end], np.float32),
+                                          np.asarray(seed_dir[beg:end], np.float32), keys)
+            blocks = [est0.cpu().numpy()[:, None, :]]
+            none_dead = torch.zeros(end - beg, dtype=torch.bool, device=self.device)
+            it = 1
+            while it < ni:
+                n_it = min(step, ni - it)
+                carry, packed = self.trace_stage(img, keys, carry, it, n_it, none_dead)
+                blk = packed.cpu().numpy()
+                blocks.append(blk)
+                it += n_it
+                if staged and not blk[:, -1, 8].any():
+                    break
+            est = np.concatenate(blocks, axis=1)
+            if est.shape[1] < ni:  # keep the (T, ni) contract; the tail is invalid
+                est = np.pad(est, ((0, 0), (0, ni - est.shape[1]), (0, 0)))
+            outs.append(est)
+        est = np.concatenate(outs)
+        return TraceResult(pos=est[:, :, 0:3], dir=est[:, :, 3:6], sig=est[:, :, 6],
+                           corr=est[:, :, 7], valid=est[:, :, 8] > 0.5)

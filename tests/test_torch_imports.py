@@ -23,8 +23,14 @@ PORT_MODULES = (
     "pnr_tpu_torch.utils.runtime",
     "pnr_tpu_torch.utils.exporters",
     "pnr_tpu_torch.utils.swc_compare",
+    "pnr_tpu_torch.utils.stats",
     "pnr_tpu_torch.native",
+    "pnr_tpu_torch.hostpath",
     "pnr_tpu_torch.hostpath.threefry",
+    "pnr_tpu_torch.hostpath.filters",
+    "pnr_tpu_torch.hostpath.tube",
+    "pnr_tpu_torch.hostpath.tracer",
+    "pnr_tpu_torch.hostpath.pipeline",
     "pnr_tpu_torch.io.volume",
     "pnr_tpu_torch.io.pbd",
     "pnr_tpu_torch.io.swc",
@@ -57,9 +63,11 @@ PORT_MODULES = (
     "pnr_tpu_torch.parallel.plan",
     "pnr_tpu_torch.parallel.batch_dp",
     "pnr_tpu_torch.seeds.extract",
+    "pnr_tpu_torch.seeds.alt",
     "pnr_tpu_torch.smc.directions",
     "pnr_tpu_torch.smc.priors",
     "pnr_tpu_torch.smc.tracker",
+    "pnr_tpu_torch.smc.clustering",
     "pnr_tpu_torch.pipeline",
     "pnr_tpu_torch.pipeline.reconstruct",
     "pnr_tpu_torch.pipeline.checkpoint",
@@ -161,6 +169,52 @@ def test_the_sharded_entry_points_are_exported():
              "split_mesh", "init_multihost", "make_global_mesh", "shard_volume_global",
              "slab_filter_route"}
     assert names <= set(parallel.__all__) and all(callable(getattr(parallel, n)) for n in names)
+
+
+# The JAX package's library names the port carries beside its pipeline
+# (ROADMAP Queue 1 item 16), as (module, name): each with JAX's parameters.
+PORTED_NAMES = [
+    ("seeds.extract", "max_points_device"), ("seeds.extract", "extract_seeds"),
+    ("seeds.extract", "decode_directions"), ("parallel.sharded", "seeds_sharded"),
+    ("parallel.sharded", "build_sharded_step"), ("parallel.sharded", "build_local_trace_step"),
+    ("parallel.handoff", "build_handoff_trace_step"), ("parallel.handoff", "stitch_estimates"),
+    ("pipeline.sharded_reconstruct", "build_seed_scorer"), ("smc.tracker", "TraceResult"),
+    ("smc.tracker", "BatchedTracker.trace_wave"), ("smc.directions", "nearest_direction"),
+    ("ops.zncc", "zncc_batch"), ("ops.zncc", "make_zncc_fn"), ("ops.zncc", "ZNCC_CHUNK"),
+    ("ops.interp", "interpz"), ("seeds.alt", "frangi3d_with_scale"), ("seeds.alt", "extract3d_alt"),
+    ("smc.clustering", "mean_shift"), ("smc.clustering", "cluster_labels"),
+    ("smc.clustering", "largest_cluster"), ("graph.refine", "non_blurring_reference"),
+    ("graph.refine", "refine_blurring"), ("graph.refine", "group0"),
+    ("pipeline.reconstruct", "sphere_offsets"), ("pipeline.reconstruct", "soma_extraction_alt"),
+    ("utils.stats", "quantile"), ("utils.stats", "mode"), ("utils.stats", "descending"),
+    ("utils.stats", "get_k_highest"), ("utils.stats", "probability_distribution"),
+    ("hostpath", "host_reconstruction_func"),
+]
+
+
+@pytest.mark.parametrize("module,name", PORTED_NAMES, ids=[f"{m}.{n}" for m, n in PORTED_NAMES])
+def test_ported_name_has_jax_parameters(module, name):
+    """The port's name takes JAX's parameters, in JAX's order, beside any
+    it adds at the end (`device=`, a chunking knob): a caller of the JAX
+    package's function calls the port's the same way."""
+    import importlib
+    import inspect
+
+    def resolve(pkg):
+        obj = importlib.import_module(f"{pkg}.{module}")
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    port, ref = resolve("pnr_tpu_torch"), resolve("pnr_tpu")
+    if not callable(ref) or inspect.isclass(ref):
+        assert type(port) is type(ref) and (port == ref if not inspect.isclass(ref) else True)
+        if inspect.isclass(ref) and hasattr(ref, "__dataclass_fields__"):
+            assert list(port.__dataclass_fields__) == list(ref.__dataclass_fields__)
+        return
+    theirs = list(inspect.signature(getattr(ref, "__wrapped__", ref)).parameters)
+    ours = list(inspect.signature(port).parameters)
+    assert ours[:len(theirs)] == theirs, (ours, theirs)
 
 
 def test_every_port_module_is_listed():

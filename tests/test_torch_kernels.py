@@ -1172,3 +1172,99 @@ def test_batch_sharded_groups_sharing_the_card_match_one_by_one(dev):
     sub = Mesh((torch.device("cuda", 0),) * 2)
     for v, a in zip(vols, got):
         _assert_same_run(a, reconstruction_func_sharded(v, cfg, sub, verbose=False))
+
+
+# -- the device seed flood, the one-shot wave, the alternate extractor, the sharded seeds ---
+
+
+def test_device_flood_on_card_bitwise_cpu(dev, monkeypatch):
+    """max_points_device on the card is bitwise its CPU run (the same torch
+    ops; the centroid sums in int64, the fma of the distances in float64),
+    whole and in chunks of 4 planes, and within JAX's bound of the native
+    flood."""
+    from pnr_tpu_torch import native
+    from pnr_tpu_torch.seeds import extract
+    from pnr_tpu_torch.seeds.extract import max_points_device
+
+    rng = np.random.default_rng(0)
+    j8 = (rng.integers(0, 5, (6, 96, 128)) * 50).astype(np.uint8)
+    smooth = np.clip(small_stack()[:, :, :].astype(np.int32) + 20, 0, 255).astype(np.uint8)
+    for vol, tol in ((j8, 10.0), (smooth, 10.0), (smooth, 0.0)):
+        cpu = max_points_device(torch.from_numpy(vol), tol)
+        card = max_points_device(torch.from_numpy(vol).to(dev), tol)
+        assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
+        with monkeypatch.context() as m:
+            m.setattr(extract, "FLOOD_BUDGET_BYTES", 4 * extract.FLOOD_BYTES_PER_VOXEL * vol[0].size)
+            assert torch.equal(max_points_device(torch.from_numpy(vol).to(dev), tol).cpu(), cpu)
+        assert int(cpu.sum()) == int(native.max_finder_stack(vol, tol).sum())
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_trace_wave_on_card_staged_bitwise_unstaged(dev, mode):
+    """BatchedTracker.trace_wave on the card: staged bitwise unstaged, and
+    K2 (exact) or tube_corr (tube) launched."""
+    from pnr_tpu_torch.hostpath import threefry as tf
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    cfg = PNRConfig(sigmas=(2.0, 3.0), znccth=0.3, kappa=3.0, step=2, ni=24, np=20, zdist=2.0,
+                    nodepervol=4, vol=9, zncc_mode=mode)
+    tracker = BatchedTracker(cfg, dev, stage_iters=5)
+    field = tracker.prepare_field(torch.from_numpy(small_stack()).to(dev))
+    rng = np.random.default_rng(2)
+    n = 150  # two chunks of TRACE_CHUNK
+    sp = np.stack([rng.uniform(10, 86, n), rng.normal(32, 2, n), rng.normal(12, 1, n)], -1).astype(np.float32)
+    sd = np.tile(np.float32([[1.0, 0.0, 0.0]]), (n, 1))
+    sd[::2, 0] = -1.0
+    k2, tc = zncc_exact.LAUNCHES, tube_corr.TRACE_LAUNCHES
+    a = tracker.trace_wave(field, sp, sd, tf.key_from_seed(4), np.arange(n))
+    assert (zncc_exact.LAUNCHES > k2) if mode == "exact" else (tube_corr.TRACE_LAUNCHES > tc)
+    b = tracker.trace_wave(field, sp, sd, tf.key_from_seed(4), np.arange(n), staged=False)
+    assert a.valid.sum() > n
+    for name in ("pos", "dir", "sig", "corr", "valid"):
+        assert np.array_equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_frangi3d_with_scale_launches_k4_and_k3(dev):
+    """frangi3d_with_scale runs the unfused per-scale filter on the card:
+    one K4 and four K3 launches a scale, J bitwise frangi3d's."""
+    from pnr_tpu_torch.seeds.alt import frangi3d_with_scale
+
+    vol = torch.from_numpy(small_stack()).to(dev)
+    sig = (2.0, 3.0)
+    n3, n4 = conv.CONV1D_LAUNCHES, conv.CONV_YX_LAUNCHES
+    j, vx, vy, vz, sc = frangi3d_with_scale(vol, sig, ZDIST)
+    assert conv.CONV_YX_LAUNCHES - n4 == len(sig)
+    assert conv.CONV1D_LAUNCHES - n3 == 10 * len(sig)
+    assert torch.equal(j, frangi3d(vol, sig, ZDIST)[0]) and sc.dtype == torch.uint8
+    assert int(sc.max()) == len(sig) - 1
+
+
+def test_seeds_sharded_on_a_virtual_mesh(dev):
+    """seeds_sharded on four shards of cuda:0: each shard's seeds are the
+    strongest of the card flood of its planes, ties in voxel order, and
+    the card run's positions, validity and counts are bitwise the CPU
+    mesh's and its directions within 1e-6 (torch divides by 255 through
+    the reciprocal on a card)."""
+    from pnr_tpu_torch.ops.frangi import normalize_to_u8
+    from pnr_tpu_torch.parallel import Mesh, make_mesh, seeds_sharded, shard_volume
+    from pnr_tpu_torch.seeds.extract import max_points_device
+
+    j, jmin, jmax, vx, vy, vz = frangi3d(torch.from_numpy(small_stack()).to(dev), (2.0, 3.0), ZDIST)
+    maps = [a.cpu().numpy() for a in (normalize_to_u8(j, jmin, jmax), vx, vy, vz)]
+    cap = 5
+    got = seeds_sharded(*[shard_volume(a, Mesh((dev,) * 4)) for a in maps], 10.0,
+                        Mesh((dev,) * 4), cap)
+    cpu = make_mesh(4, device="cpu")
+    want = seeds_sharded(*[shard_volume(a, cpu) for a in maps], 10.0, cpu, cap)
+    for i in (0, 2, 3):
+        assert np.array_equal(got[i], want[i]), i
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-6)
+    mask = max_points_device(torch.from_numpy(maps[0]).to(dev), 10.0).cpu().numpy()
+    zl = maps[0].shape[0] // 4
+    for s in range(4):
+        zz, yy, xx = np.nonzero(mask[s * zl:(s + 1) * zl])
+        score = maps[0][s * zl:(s + 1) * zl][zz, yy, xx].astype(int)
+        top = np.lexsort((np.arange(len(score)), -score))[:cap]
+        assert np.array_equal(got[0][s * cap:s * cap + len(top)],
+                              np.stack([xx[top], yy[top], zz[top] + s * zl], -1).astype(np.float32))
+        assert got[3][s] == len(zz)

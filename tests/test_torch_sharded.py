@@ -30,7 +30,7 @@ from pnr_tpu_torch.hostpath import threefry as tf
 from pnr_tpu_torch.ops.frangi import frangi2d, frangi3d
 from pnr_tpu_torch.parallel import (
     Mesh,
-    build_handoff_tracer,
+    build_handoff_trace_step,
     frangi2d_sharded,
     frangi3d_sharded,
     halo_exchange_z,
@@ -38,8 +38,8 @@ from pnr_tpu_torch.parallel import (
     make_mesh,
     normalize_to_u8_sharded,
     shard_volume,
+    stitch_estimates,
 )
-from pnr_tpu_torch.parallel.handoff import lane_estimates
 from pnr_tpu_torch.pipeline import reconstruct
 from pnr_tpu_torch.smc.tracker import BatchedTracker, trace_keys
 
@@ -246,46 +246,6 @@ def test_frangi2d_sharded_bitwise_monolithic(mesh, monkeypatch, route):
 # -- boundary handoff -------------------------------------------------------------
 
 
-def one_shot(cfg, mesh, lanes, stage_iters=2):
-    """JAX's `build_handoff_trace_step` on the port's staged tracer: every
-    stage, no kill. step(...) -> (packs (S+1, L, stage_iters, 9), ids
-    (S+1, L), kept_local (S, n_shards))."""
-    init, stage, n_stages = build_handoff_tracer(cfg, mesh, lanes, stage_iters)
-
-    def step(vs, seed_pos, seed_dir, trace_ids, valid, base_key):
-        state, est0, ids0, field = init(vs, seed_pos, seed_dir, trace_ids, valid, base_key)
-        packs = [np.pad(est0[:, None, :], ((0, 0), (0, stage_iters - 1), (0, 0)))]
-        ids_all, kept_all, it = [ids0], [], 1
-        for _ in range(n_stages):
-            n_it = min(stage_iters, cfg.ni - it)
-            state, packed, ids, _, kept = stage(field, state, range(it, it + n_it),
-                                                np.zeros(len(ids0), bool))
-            packs.append(np.pad(lane_estimates(packed, lanes, n_it),
-                                ((0, 0), (0, stage_iters - n_it), (0, 0))))
-            ids_all.append(ids)
-            kept_all.append(kept)
-            it += n_it
-        return np.stack(packs), np.stack(ids_all), np.stack(kept_all)
-
-    return step
-
-
-def stitch(packs, ids, ni):
-    """JAX's `stitch_estimates`: per-trace (ni, 9) records from the stage
-    blocks, in ascending trace id, validity a prefix."""
-    all_ids = np.unique(ids[ids >= 0])
-    est = np.zeros((len(all_ids), ni, 9), np.float32)
-    row = {int(t): r for r, t in enumerate(all_ids)}
-    stage_iters = packs.shape[2]
-    for s in range(packs.shape[0]):
-        it0 = 0 if s == 0 else 1 + (s - 1) * stage_iters
-        n_it = 1 if s == 0 else min(stage_iters, ni - it0)
-        for lane in np.nonzero(ids[s] >= 0)[0]:
-            est[row[int(ids[s, lane])], it0:it0 + n_it] = packs[s, lane, :n_it]
-    est[:, :, 8] = np.minimum.accumulate(est[:, :, 8], axis=1)
-    return est, all_ids
-
-
 def spanning_volume():
     """tests/test_parallel.py's TestHandoffTracing volume: a tube along z."""
     rng = np.random.default_rng(9)
@@ -307,7 +267,7 @@ def test_z_spanning_trace_bitwise_single_device(mesh, mode):
     and stays bitwise the port's single-device trace (same key)."""
     vol, cfg, lanes = spanning_volume(), spanning_cfg(mode), 4
     stage_iters = 2
-    step = one_shot(cfg, mesh, lanes, stage_iters)
+    step, _, _ = build_handoff_trace_step(cfg, mesh, lanes, stage_iters)
     seeds = np.zeros((N * lanes, 3), np.float32)
     dirs = np.zeros((N * lanes, 3), np.float32)
     dirs[:, 0] = 1.0
@@ -315,8 +275,9 @@ def test_z_spanning_trace_bitwise_single_device(mesh, mode):
     valid = np.zeros(N * lanes, bool)
     seeds[0], dirs[0], valid[0] = (32.0, 12.0, 2.0), (0.0, 0.0, 1.0), True
     key = tf.key_from_seed(0)
-    packs, sids, _ = step(shard_volume(vol, mesh), seeds, dirs, ids, valid, key)
-    est, tids = stitch(packs, sids, cfg.ni)
+    packs, sids, _, lost = step(shard_volume(vol, mesh), seeds, dirs, ids, valid, key)
+    assert not lost.any()
+    est, tids = stitch_estimates(packs, sids, cfg.ni)
     got = est[list(tids).index(0)]
     shards = {int(np.nonzero(row == 0)[0][0]) // lanes for row in sids if (row == 0).any()}
     assert len(shards) >= 2, "the trace never left shard 0"
@@ -339,19 +300,36 @@ def test_z_spanning_trace_bitwise_single_device(mesh, mode):
     np.testing.assert_array_equal(got[ok], ref[ok])
 
 
+def kept_local(packs, ids, lanes, zl, ni):
+    """Movers a stage kept on their shard, read from the one-shot blocks: a
+    live, alive lane whose last centroid lies in another shard's slab and
+    whose trace is still in that lane at the next stage (the handoff's
+    `kept_local`, summed over stages and shards)."""
+    stage_iters, n = packs.shape[2], ids.shape[1] // lanes
+    kept = 0
+    for s in range(packs.shape[0] - 1):
+        last = 0 if s == 0 else min(stage_iters, ni - 1 - (s - 1) * stage_iters) - 1
+        for lane in np.nonzero(ids[s] >= 0)[0]:
+            row = packs[s, lane, last]
+            owner = min(max(int(np.floor(row[2] / zl)), 0), n - 1)
+            kept += int(row[8] > 0.5 and owner != lane // lanes and ids[s + 1, lane] == ids[s, lane])
+    return kept
+
+
 def test_lane_overflow_keeps_traces_local(mesh):
     """With one lane per shard, every migration lands on a full shard: the
     movers stay local (kept_local > 0), no trace is lost, and the traced
     work stays comparable to a run with free lanes (JAX's
     test_lane_overflow_loses_zero_traces)."""
     vol, cfg = spanning_volume(), spanning_cfg("tube")
+    zl = vol.shape[0] // N
     seeds = np.array([[32.0, 12.0, 8.0 * s + 2.0] for s in range(N)], np.float32)
     dirs = np.tile(np.float32([[0.0, 0.0, 1.0]]), (N, 1))
     ids, key = np.arange(N), tf.key_from_seed(0)
-    step = one_shot(cfg, mesh, 1)
-    packs, sids, kept = step(shard_volume(vol, mesh), seeds, dirs, ids, np.ones(N, bool), key)
-    assert kept.sum() > 0
-    est, got_ids = stitch(packs, sids, cfg.ni)
+    step, _, _ = build_handoff_trace_step(cfg, mesh, 1, 2)
+    packs, sids, _, lost = step(shard_volume(vol, mesh), seeds, dirs, ids, np.ones(N, bool), key)
+    assert kept_local(packs, sids, 1, zl, cfg.ni) > 0 and not lost.any()
+    est, got_ids = stitch_estimates(packs, sids, cfg.ni)
     assert sorted(got_ids.tolist()) == list(range(N))
     narrow = (est[:, :, 8] > 0.5).sum()
 
@@ -361,10 +339,10 @@ def test_lane_overflow_keeps_traces_local(mesh):
     valid = np.zeros(N * wide_lanes, bool)
     sp[::wide_lanes], sd[::wide_lanes], valid[::wide_lanes] = seeds, dirs, True
     tid = np.repeat(ids, wide_lanes)
-    step_w = one_shot(cfg, mesh, wide_lanes)
-    packs_w, sids_w, kept_w = step_w(shard_volume(vol, mesh), sp, sd, tid, valid, key)
-    assert kept_w.sum() == 0
-    est_w, _ = stitch(packs_w, sids_w, cfg.ni)
+    step_w, _, _ = build_handoff_trace_step(cfg, mesh, wide_lanes, 2)
+    packs_w, sids_w, _, _ = step_w(shard_volume(vol, mesh), sp, sd, tid, valid, key)
+    assert kept_local(packs_w, sids_w, wide_lanes, zl, cfg.ni) == 0
+    est_w, _ = stitch_estimates(packs_w, sids_w, cfg.ni)
     assert narrow >= 0.5 * (est_w[:, :, 8] > 0.5).sum()
 
 
