@@ -57,8 +57,10 @@ Phases, each of which exits non-zero on failure:
    sigma agreement > 0.99; both rows timed in turns with one `grid_sample`
    call on the field at the same rows' global coordinates (CUDA events, so
    the wrapper's host cost is included: per call in runs of 20 back-to-back
-   calls, the kernels line's `ms`, and alone), their device time per launch
-   read from torch.profiler, and the plain chain timed;
+   calls, the kernels line's `ms`, and alone; and per call inside a
+   captured CUDA graph of 20 calls, `graph_ms` and `library_graph_ms`),
+   their device time per launch read from torch.profiler, and the plain
+   chain timed;
 9. bf16 field: a forced bfloat16 field on a (64, 256, 256) noisy tube:
    tube_corr against its plain chain on it at the bars above, and the
    field against the float32 one: corr max error < 8e-3, sigma flips < 3%;
@@ -74,9 +76,18 @@ Phases, each of which exits non-zero on failure:
    once per sigma plus its decode);
 11. profile: one more run of each path under torch.profiler; prints the
    card's busy time, its idle share, each kernel's device time (K1 and K3
-   per run of each path also on one line) and the
-   host's kernel-launch calls (tube: also per tracer step, one step being
-   one iteration of one chunk, and the device time per tube_corr launch);
+   per run of each path also on one line), the host's launch calls
+   (kernel launches and `cudaGraphLaunch`) per tracer step, one step being
+   one iteration of one chunk, the `cudaStreamSynchronize` calls per
+   tracer stage, and in tube mode the device time per tube_corr launch;
+   [graphs exact], [graphs tube]: the main stack through
+   `reconstruction_func`, the tracer's stages eager
+   (`BatchedTracker(..., graphs=False)`) and replayed as CUDA graphs (the
+   default; smc/graphs.py) in turns, three runs each: trees, n0, seeds and
+   trace counts bitwise, kernel launches equal, graph replays in every
+   graph run; each run's seconds and tracing-stage seconds, the captures,
+   replays and the graphs' memory, then one eager run under the profiler
+   (the graph route's profile is the phase above);
 12. the exact and tube paths on a small stack on the card and on the CPU
    (plain versions) must agree; no module of jax or of pnr_tpu was loaded;
 13. [K2 2d], [maps 2d], [tube_corr 2d]: on the 2-D main plane (1, 4096,
@@ -206,7 +217,9 @@ phases 29-33 under `launches_batch_dp_exact`, `launches_batch_dp_tube`,
 and `launches_multiprocess`, and those of phases 35-37 under
 `launches_no_native`, `launches_sharded_step_exact`,
 `launches_sharded_step_tube`, `launches_trace_wave_exact`,
-`launches_trace_wave_tube` and `launches_alt`); the last line is
+`launches_trace_wave_tube` and `launches_alt`, and the graph replays of
+the tracer's stages in run 1 of the exact and tube main paths under
+`replays_exact` and `replays_tube`); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -345,6 +358,35 @@ def time_turns_ms(torch, fns, reps=21, calls=1, warmup=5):
             start.record()
             for _ in range(calls):
                 fns[i]()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end) / calls)
+    return [statistics.median(t) for t in times]
+
+
+def graph_turns_ms(torch, fns, calls=20, reps=21):
+    """Device time per call of each of `fns` inside a CUDA graph of `calls`
+    calls: each graph captured once (after a warm-up call), then replayed
+    between CUDA events, the graphs in turns as in `time_turns_ms`
+    (median). The replay has no per-call host cost."""
+    graphs = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        graphs.append(g)
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for r in range(reps):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[i].replay()
             end.record()
             end.synchronize()
             times[i].append(start.elapsed_time(end) / calls)
@@ -1058,16 +1100,20 @@ def tube_corr_row(torch, card, eng, field, label, lay, corners, pos, d, single):
     # between its other small launches; and one call alone after a sync
     ms, library_ms = time_turns_ms(torch, (kern, lib), calls=20)
     single_ms, library_single_ms = time_turns_ms(torch, (kern, lib), reps=51)
+    # inside a CUDA graph of 20 calls, as the tracer's stage graphs launch it
+    graph_ms, library_graph_ms = graph_turns_ms(torch, (kern, lib))
     dev_ms, seen = device_ms_per_launch(torch, kern)
     row = {"ms": ms,
            "plain_ms": time_ms(torch, lambda: tc.tube_corr_plain(field, lay.groups, corners, pos, d,
                                                                    eng.tables)),
            "library_ms": library_ms, "device_ms": dev_ms, "single_ms": single_ms,
-           "library_single_ms": library_single_ms, **bound(nbytes, flops)}
+           "library_single_ms": library_single_ms, "graph_ms": graph_ms,
+           "library_graph_ms": library_graph_ms, **bound(nbytes, flops)}
     print(f"[{label}] T={t} N={n}: kernel {ms:.4f} ms per call back to back, {single_ms:.4f} ms "
-          f"alone (device {dev_ms:.4f} ms per launch, {seen} launches profiled); grid_sample "
-          f"{library_ms:.4f} ms back to back, {library_single_ms:.4f} ms alone; plain "
-          f"{row['plain_ms']:.3f} ms; bound {row['bound_ms']:.5f} ms ({row['bound_by']}: "
+          f"alone, {graph_ms:.4f} ms in a graph of 20 calls (device {dev_ms:.4f} ms per launch, "
+          f"{seen} launches profiled); grid_sample {library_ms:.4f} ms back to back, "
+          f"{library_single_ms:.4f} ms alone, {library_graph_ms:.4f} ms in a graph of 20 calls; "
+          f"plain {row['plain_ms']:.3f} ms; bound {row['bound_ms']:.5f} ms ({row['bound_by']}: "
           f"{nbytes} B, {flops} FLOP) [{card}]", flush=True)
     return row
 
@@ -1148,6 +1194,7 @@ def cli_argv(src, workdir, tag, mode, params=MAIN_PARAMS):
 def counters():
     """Every kernel launch counter of the port, by name."""
     from pnr_tpu_torch.ops import conv, cuda, frangi_fused, gaussian, tube_corr, zncc_exact
+    from pnr_tpu_torch.smc import graphs
 
     return {
         "frangi3d_fused": (frangi_fused, "LAUNCHES"),
@@ -1158,6 +1205,10 @@ def counters():
         "tube_corr_trace": (tube_corr, "TRACE_LAUNCHES"),
         "tube_corr_score": (tube_corr, "SCORE_LAUNCHES"),
         "self_check": (cuda, "PROBE_LAUNCHES"),
+        # the tracer's stage graphs (smc/graphs.py): each replay has added
+        # its stage's K2 or tube_corr launches to their counters above
+        "graph_replays": (graphs, "REPLAYS"),
+        "graph_captures": (graphs, "CAPTURES"),
     }
 
 
@@ -1204,6 +1255,30 @@ def counting_seed_scoring():
 
     def undo():
         reconstruct._score_seeds = score
+
+    return counts, undo
+
+
+def counting_stages():
+    """Count the tracer's stages (eager `BatchedTracker.trace_stage` calls
+    and the stage-graph runner's `stage` calls); returns the count and an
+    undo."""
+    from pnr_tpu_torch.smc import graphs
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    counts = {"stages": 0}
+    real = (BatchedTracker.trace_stage, graphs.StageGraphs.stage)
+
+    def counted(fn):
+        def wrapped(*a, **k):
+            counts["stages"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    BatchedTracker.trace_stage, graphs.StageGraphs.stage = (counted(f) for f in real)
+
+    def undo():
+        BatchedTracker.trace_stage, graphs.StageGraphs.stage = real
 
     return counts, undo
 
@@ -1328,24 +1403,34 @@ PROFILE_KERNELS = {
 }
 
 
-def phase_profile(torch, card, mode, run, unprofiled_s):
+def phase_profile(torch, card, mode, run, unprofiled_s, label=None):
     """One more run of a path (`run()`) under torch.profiler: the card's
     busy time (union of its kernel and copy spans), idle share, per-kernel
-    device time and the host's kernel-launch calls; in tube mode also those
-    calls per tracer step (one iteration of one chunk: two tube_corr
-    launches) and the device time per tube_corr launch."""
+    device time, the host's launch calls (kernel launches and CUDA graph
+    launches) per tracer step (one iteration of one chunk: two K2 or
+    tube_corr launches), the stream synchronisations per tracer stage, and
+    in tube mode the device time per tube_corr launch. `label` names the
+    run (default: the mode)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    label = label or mode
     reset_counters()
+    stages, undo_stages = counting_stages()
+    scoring, undo_scoring = counting_seed_scoring()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiler_warmup(torch)
-        with record_function("chip_smoke run"):
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_warmup(torch)
+            with record_function("chip_smoke run"):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+    finally:
+        undo_stages()
+        undo_scoring()
+    n = read_counters()
     events = prof.events()
     span = next(e.time_range for e in events
                 if e.name == "chip_smoke run" and e.device_type == DeviceType.CPU)
@@ -1353,7 +1438,7 @@ def phase_profile(torch, card, mode, run, unprofiled_s):
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not e.name.startswith("Activity Buffer") and "spin_kernel" not in e.name
            and e.name != "chip_smoke run"]
-    check(dev, f"the profiler recorded device work in the {mode} path")
+    check(dev, f"the profiler recorded device work in the {label} path")
     busy_us, end = 0.0, -1.0
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
         if b > end:
@@ -1361,35 +1446,118 @@ def phase_profile(torch, card, mode, run, unprofiled_s):
             end = b
     busy_s = busy_us / 1e6
     per = {}
-    for label, names in PROFILE_KERNELS.items():
+    for name, names in PROFILE_KERNELS.items():
         hit = [e for e in dev if any(nm in e.name for nm in names)]
-        per[label] = (sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit))
-    host_launch = [e for e in events if e.device_type == DeviceType.CPU
-                   and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-                   and span.start <= e.time_range.start <= span.end]
+        per[name] = (sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit))
+
+    def host_calls(*prefixes):
+        return [e for e in events if e.device_type == DeviceType.CPU
+                and e.name.startswith(prefixes) and span.start <= e.time_range.start <= span.end]
+
+    host_launch = host_calls("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
+    graph_launch = host_calls("cudaGraphLaunch")
+    syncs = host_calls("cudaStreamSynchronize")
     launch_ms = sum(e.time_range.elapsed_us() for e in host_launch) / 1e3
-    print(f"[profile {mode}] run 3 under torch.profiler: {wall:.3f} s; card busy "
-          f"{busy_s * 1e3:.3f} ms, idle {1 - busy_s / wall:.4f} of the profiled run and "
+    idle = 1 - busy_s / wall
+    print(f"[profile {label}] run 3 under torch.profiler: {wall:.3f} s; card busy "
+          f"{busy_s * 1e3:.3f} ms, idle {idle:.4f} of the profiled run and "
           f"{1 - busy_s / unprofiled_s:.4f} of run 2's {unprofiled_s:.3f} s [{card}]", flush=True)
-    print(f"[profile {mode}] " + "; ".join(
-        f"{k} {ms:.3f} ms in {n} launches" for k, (ms, n) in per.items() if n)
-        + f"; {len(dev)} device ops; {len(host_launch)} host kernel-launch calls taking "
-          f"{launch_ms:.3f} ms", flush=True)
+    print(f"[profile {label}] " + "; ".join(
+        f"{k} {ms:.3f} ms in {c} launches" for k, (ms, c) in per.items() if c)
+        + f"; {len(dev)} device ops; {len(host_launch)} host launch calls taking "
+          f"{launch_ms:.3f} ms ({len(graph_launch)} of them cudaGraphLaunch)", flush=True)
+    tracer = (n["tube_corr_trace"] if mode.endswith("tube")
+              else n["exact_sums"] - scoring["exact_sums"])
+    steps = max(tracer // 2, 1)
+    out = {"busy_ms": busy_s * 1e3, "kernels": per, "wall_s": wall, "idle": idle,
+           "host_launch_calls": len(host_launch), "graph_launches": len(graph_launch),
+           "steps": steps, "stages": stages["stages"], "graph_replays": n["graph_replays"],
+           "stream_syncs": len(syncs),
+           "host_calls_per_step": len(host_launch) / steps,
+           "syncs_per_stage": len(syncs) / max(stages["stages"], 1)}
+    print(f"[profile {label}] {steps} tracer steps in {stages['stages']} stages "
+          f"({n['graph_replays']} of them graph replays): {out['host_calls_per_step']:.1f} host "
+          f"launch calls per step (the whole run's calls over its steps); {len(syncs)} "
+          f"cudaStreamSynchronize calls, {out['syncs_per_stage']:.2f} per stage [{card}]",
+          flush=True)
     if mode.endswith("tube"):
-        steps = read_counters()["tube_corr_trace"] // 2
-        ms, n = per["tube_corr (K5, K6)"]
-        print(f"[profile {mode}] {steps} tracer steps: {len(host_launch) / max(steps, 1):.1f} host "
-              f"kernel-launch calls per step (the whole run's calls over its steps); tube_corr "
-              f"{ms / max(n, 1) * 1e3:.3f} us of device time per launch [{card}]", flush=True)
+        ms, c = per["tube_corr (K5, K6)"]
+        print(f"[profile {label}] tube_corr {ms / max(c, 1) * 1e3:.3f} us of device time per "
+              f"launch [{card}]", flush=True)
     k1 = "K1 (frangi_fused, decode_stats)"
     k3 = "K3 (and the map build's)"
     want = {"exact": (k1, "K2"), "tube": (k1, k3, "tube_corr (K5, K6)"),
             "unfused": (k3, "K4", "K2"), "2d exact": (k3, "K2"),
             "2d tube": (k3, "tube_corr (K5, K6)")}[mode]
-    check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {mode} path")
+    check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {label} path")
     top = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
-    print(f"[profile {mode}] top device ops:\n" + top, flush=True)
-    return {"busy_ms": busy_s * 1e3, "kernels": per}
+    print(f"[profile {label}] top device ops:\n" + top, flush=True)
+    return out
+
+
+def phase_graphs(torch, card, main_np, mode):
+    """[graphs exact], [graphs tube]: the main stack through
+    `reconstruction_func` at MAIN_PARAMS, the tracer's stages eager
+    (`BatchedTracker(..., graphs=False)`) and replayed as CUDA graphs (the
+    default), in turns (eager, graphs, graphs, eager, eager, graphs),
+    launch counts set to 0 just before each run and read just after: every
+    run's tree, n0, seeds and trace count bitwise the first eager run's,
+    its kernel launches equal, graph replays in every graph run and none in
+    an eager one. Prints each run's seconds and tracing-stage seconds, the
+    routes, captures and replays, and the graphs' memory (the allocator's
+    reserved bytes added while capturing); then one eager run under the
+    profiler (the graph route's profile is [profile exact]/[profile
+    tube]'s)."""
+    from pnr_tpu_torch import PNRConfig
+    from pnr_tpu_torch.pipeline import reconstruction_func
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    tag = f"graphs {mode}"
+    cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), zncc_mode=mode)
+    runs = {False: [], True: []}
+    ref = None
+    for use in (False, True, True, False, False, True):
+        tracker = BatchedTracker(cfg, DEVICE, graphs=use)
+        reset_counters()
+        res, wall = timed(torch, lambda: reconstruction_func(main_np, cfg, verbose=False,
+                                                             device=DEVICE, _tracker=tracker))
+        n = read_counters()
+        runner = tracker._stage_graphs
+        route = "graphs" if use else "eager"
+        info = {"s": wall, "tracing_s": res.timings["tracing"], "launches": n,
+                "routes": dict(runner.routes) if runner else None,
+                "graphs": len(runner.graphs) if runner else 0,
+                "graph_reserved_bytes": runner.reserved_bytes if runner else 0}
+        print(f"[{tag}] {route}: {wall:.3f} s, tracing {info['tracing_s']:.4f} s, "
+              f"{res.trace_count} traces, {len(res.tree) - 1} SWC nodes; routes "
+              f"{json.dumps(info['routes'])}, {n['graph_captures']} captures, "
+              f"{n['graph_replays']} replays; launches {json.dumps(n)} [{card}]", flush=True)
+        if ref is None:
+            ref = (res, n)
+        check(same_tree(res, ref[0]), f"[{tag}] {route}: tree, n0, seeds and trace count bitwise "
+                                      f"the eager run's")
+        kernels = {k: v for k, v in n.items() if not k.startswith("graph_")}
+        check(kernels == {k: v for k, v in ref[1].items() if not k.startswith("graph_")},
+              f"[{tag}] {route}: the eager run's kernel launches")
+        check((n["graph_replays"] > 0) == use and (n["graph_captures"] > 0) == use,
+              f"[{tag}] {route}: graph replays {'in' if use else 'not in'} the run")
+        runs[use].append(info)
+        del tracker, runner, res
+    g = runs[True][-1]
+    print(f"[{tag}] the graphs' memory: {g['graph_reserved_bytes']} bytes reserved while "
+          f"capturing {g['graphs']} graphs; the allocator's peak reserved "
+          f"{torch.cuda.memory_stats()['reserved_bytes.all.peak']} bytes [{card}]", flush=True)
+    for key in ("s", "tracing_s"):
+        print(f"[{tag}] {key} eager {[round(r[key], 4) for r in runs[False]]}, graphs "
+              f"{[round(r[key], 4) for r in runs[True]]} (in turns) [{card}]", flush=True)
+    eager_s = statistics.median(r["s"] for r in runs[False])
+    profile = phase_profile(
+        torch, card, mode,
+        lambda: reconstruction_func(main_np, cfg, verbose=False, device=DEVICE,
+                                    _tracker=BatchedTracker(cfg, DEVICE, graphs=False)),
+        eager_s, label=f"{tag} eager")
+    return {"eager": runs[False], "graphs": runs[True], "eager_profile": profile,
+            "launches": ref[1]}
 
 
 def phase_small_agreement(torch, mode):
@@ -2997,6 +3165,7 @@ def main() -> int:
                 check(rc == 0, f"profiled {mode} CLI run exited {rc}")
 
             profiles[mode] = phase_profile(torch, card, mode, run, run2_s)
+        graph_phases = {mode: phase_graphs(torch, card, main_np, mode) for mode in ("exact", "tube")}
         # the soma path: the CLI on the soma stack, exact mode
         soma_src = os.path.join(workdir, "soma.npy")
         np.save(soma_src, soma_np)
@@ -3146,7 +3315,13 @@ def main() -> int:
             row[f"launches_{path}"] = n[sharded_counter[row["name"]]]
     kernels[4]["launches_sharded_step_tube_map_build"] = rest_paths["sharded_step_tube"][
         "conv1d_along_axis"]
+    # graph replays of the tracer's stages in run 1 of the exact and tube
+    # main paths (each replay launched one stage's K2 or tube_corr calls)
+    for row in kernels:
+        for mode in ("exact", "tube"):
+            row[f"replays_{mode}"] = launches[mode]["graph_replays"]
     print(f"[rest] {json.dumps(rest, default=str)}", flush=True)
+    print(f"[graphs] {json.dumps(graph_phases, default=str)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

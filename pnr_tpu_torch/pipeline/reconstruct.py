@@ -377,7 +377,8 @@ def _trace_and_commit_wave(
     in the next stage. Stage k+1 is launched before stage k is collected,
     so its kill mask is one stage stale: an economy cost, not a result
     change, since the random streams key on (trace id, absolute
-    iteration)."""
+    iteration). On a card the stages go through the tracker's stage-graph
+    runner (smc/graphs.py): captured once per key, then replayed."""
     ni = cfg.ni
     nb = len(seed_pos)
     t_real = 2 * nb
@@ -401,11 +402,15 @@ def _trace_and_commit_wave(
 
     # packed estimates: [..., 0:3]=pos, 3:6=dir, 6=sig, 7=corr, 8=valid
     est = np.zeros((t_real, ni, 9), np.float32)
+    graphs = tracker.stage_graphs(field)  # None: eager stages
     carries = []
     init_pend = []
-    for slc in slices:
+    for c, slc in enumerate(slices):
         carry, est0 = tracker.trace_init(field, sp[slc], sd[slc], keys[slc])
-        carries.append(carry)
+        if graphs is None:
+            carries.append(carry)
+        else:
+            graphs.load(c, carry)
         init_pend.append((slc, est0))
     for slc, est0 in init_pend:
         est[slc, 0] = est0.cpu().numpy()
@@ -445,38 +450,46 @@ def _trace_and_commit_wave(
         return False
 
     def dispatch_stage(it0):
-        """Launch iterations [it0, it0 + n) for every live chunk."""
+        """Launch iterations [it0, it0 + n) for every live chunk; returns
+        (slice, fetch) pairs, fetch() giving the (T, n, 9) estimates."""
         n_it = min(stage, ni - it0)
         pend = []
         for c, slc in enumerate(slices):
             if killed[slc].all():
                 continue  # whole chunk retired: no device work left
+            if graphs is not None:
+                pend.append((slc, graphs.stage(c, keys[slc], it0, n_it, killed[slc]).numpy))
+                continue
             kill = torch.from_numpy(killed[slc].copy()).to(field.device)
             carries[c], packed = tracker.trace_stage(
                 field, keys[slc], carries[c], it0, n_it, kill
             )
-            pend.append((slc, packed))
+            pend.append((slc, lambda packed=packed: packed.cpu().numpy()))
         return pend
 
     next_pending = None
     next_it0 = None
-    while True:
-        capped = advance_commits(it_done)
-        if commit_ptr >= t_real or it_done >= ni or capped:
-            break
-        if next_pending is None or next_it0 != it_done:
-            next_pending = dispatch_stage(it_done)
-            next_it0 = it_done
-        pending = next_pending
-        n_it = min(stage, ni - it_done)
-        if it_done + n_it < ni:
-            next_pending = dispatch_stage(it_done + n_it)
-            next_it0 = it_done + n_it
-        else:
-            next_pending = None
-        for slc, packed in pending:
-            est[slc, it_done : it_done + n_it] = packed.cpu().numpy()
-        it_done += n_it
+    try:
+        while True:
+            capped = advance_commits(it_done)
+            if commit_ptr >= t_real or it_done >= ni or capped:
+                break
+            if next_pending is None or next_it0 != it_done:
+                next_pending = dispatch_stage(it_done)
+                next_it0 = it_done
+            pending = next_pending
+            n_it = min(stage, ni - it_done)
+            if it_done + n_it < ni:
+                next_pending = dispatch_stage(it_done + n_it)
+                next_it0 = it_done + n_it
+            else:
+                next_pending = None
+            for slc, fetch in pending:
+                est[slc, it_done : it_done + n_it] = fetch()
+            it_done += n_it
+    finally:
+        if graphs is not None:
+            graphs.finish()
 
     advance_commits(it_done)
     unstarted = [int(seed_global_idx[si]) for si in range(nb) if not seed_started[si]]

@@ -12,9 +12,10 @@ filter is API-only): N times (2 by default) without
 a profiler (the runs after the first are the warm ones), then, unless
 --no-profile, once under torch.profiler. Prints one JSON line: the
 warm runs' seconds, tracing and frangi stages (and the medians), and for the
-profiled run the tracer steps (one iteration of one chunk, counted at
-`BatchedTracker._estimate`), the host's kernel-launch calls in all and
-per step, the card's busy time and idle share, and the device time of
+profiled run the tracer steps (one iteration of one chunk: two tracer
+launches of `tube_corr` or K2, from the launch counters, so that stages
+replayed as CUDA graphs count too), the host's launch calls (kernel and
+graph launches) in all and per step, the card's busy time and idle share, and the device time of
 the likelihood's kernels (tube: named hat_* or tube_corr_*; exact: K2's
 exact_sums_*). It needs a CUDA
 device and takes the stack, the parameters and the device from
@@ -60,20 +61,31 @@ def main() -> int:
     spec.loader.exec_module(cs)
     sys.path.insert(0, root)
     from pnr_tpu_torch import cli
-    from pnr_tpu_torch.smc.tracker import BatchedTracker
+    from pnr_tpu_torch.ops import tube_corr, zncc_exact
+    from pnr_tpu_torch.pipeline import reconstruct
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not cli.__file__.startswith(root):
         raise RuntimeError(f"pnr_tpu_torch came from {cli.__file__}, not from {root}")
-    steps = [0]
-    estimate = BatchedTracker._estimate
+    # K2's launches in seed scoring, to leave out of the tracer's
+    scoring = [0]
+    score = reconstruct._score_seeds
 
-    def counted(self, *a, **k):
-        steps[0] += 1
-        return estimate(self, *a, **k)
+    def counted(*a, **k):
+        n = zncc_exact.LAUNCHES
+        try:
+            return score(*a, **k)
+        finally:
+            scoring[0] += zncc_exact.LAUNCHES - n
 
-    BatchedTracker._estimate = counted
+    reconstruct._score_seeds = counted
+
+    def tracer_launches():
+        if args.mode == "tube":
+            return tube_corr.TRACE_LAUNCHES
+        return zncc_exact.LAUNCHES - scoring[0]
+
     workdir = tempfile.mkdtemp(prefix=".tube_ab_", dir=root)
     try:
         src = os.path.join(workdir, "stack.npy")
@@ -121,9 +133,10 @@ def main() -> int:
         if args.no_profile:
             print(json.dumps(row), flush=True)
             return 0
-        steps[0] = 0
+        before = tracer_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled_s = run(f"{args.mode}p")
+        steps = (tracer_launches() - before) // 2
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     events = prof.events()
@@ -136,12 +149,12 @@ def main() -> int:
             end = b
     names = ("hat_", "tube_corr") if args.mode == "tube" else ("exact_sums",)
     lik = [e for e in dev if e.name.startswith(names) or any(f"::{n}" in e.name for n in names)]
-    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
-                   and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    launches = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")))
     print(json.dumps({
         **row, "profiled_s": profiled_s,
-        "steps": steps[0], "host_launches": launches,
-        "host_launches_per_step": launches / max(steps[0], 1),
+        "steps": steps, "host_launches": launches,
+        "host_launches_per_step": launches / max(steps, 1),
         "busy_ms": busy_us / 1e3, "idle": 1 - busy_us / 1e6 / profiled_s,
         "likelihood_kernel_ms": sum(e.time_range.elapsed_us() for e in lik) / 1e3,
         "likelihood_kernel_launches": len(lik),

@@ -67,6 +67,7 @@ PORT_MODULES = (
     "pnr_tpu_torch.smc.directions",
     "pnr_tpu_torch.smc.priors",
     "pnr_tpu_torch.smc.tracker",
+    "pnr_tpu_torch.smc.graphs",
     "pnr_tpu_torch.smc.clustering",
     "pnr_tpu_torch.pipeline",
     "pnr_tpu_torch.pipeline.reconstruct",

@@ -1268,3 +1268,171 @@ def test_seeds_sharded_on_a_virtual_mesh(dev):
         assert np.array_equal(got[0][s * cap:s * cap + len(top)],
                               np.stack([xx[top], yy[top], zz[top] + s * zl], -1).astype(np.float32))
         assert got[3][s] == len(zz)
+
+
+# -- the tracer's stage graphs (smc/graphs.py) -----------------------------
+
+
+def _graph_cfg(mode):
+    return PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2,
+                     ni=60, np=20, zdist=2.0, nodepervol=4, vol=9, zncc_mode=mode)
+
+
+def _trace_counts():
+    return zncc_exact.LAUNCHES, tube_corr.TRACE_LAUNCHES, tube_corr.SCORE_LAUNCHES
+
+
+def _drive_waves(tracker, waves, use_graphs):
+    """Each (field, n traces) wave as the wave loop runs it: `trace_init`
+    per TRACE_CHUNK slot, then every stage, eagerly (`trace_stage`) or
+    through the tracker's stage-graph runner, with a kill mask that retires
+    every third trace from the third stage on. Returns per wave the packed
+    estimates of every stage and the final carries, on the host."""
+    from pnr_tpu_torch.hostpath import threefry as tf
+    from pnr_tpu_torch.smc.tracker import trace_keys
+
+    out = []
+    for w, (field, n) in enumerate(waves):
+        rng = np.random.default_rng(w)
+        sp = np.stack([rng.uniform(10, 86, n), rng.normal(32, 2, n), rng.normal(12, 1, n)],
+                      -1).astype(np.float32)
+        sd = np.tile(np.float32([[1.0, 0.0, 0.0]]), (n, 1))
+        sd[::2, 0] = -1.0
+        keys = trace_keys(tf.key_from_seed(5), np.arange(n) + 1000 * w)
+        slices = [slice(b, min(b + tracker.TRACE_CHUNK, n))
+                  for b in range(0, n, tracker.TRACE_CHUNK)]
+        runner = tracker.stage_graphs(field) if use_graphs else None
+        assert (runner is not None) == use_graphs
+        carries, packs = [], []
+        for c, slc in enumerate(slices):
+            carry, _ = tracker.trace_init(field, sp[slc], sd[slc], keys[slc])
+            carries.append(carry)
+            if runner is not None:
+                runner.load(c, carry)
+        ni, stage = tracker.cfg.ni, tracker.STAGE_ITERS
+        for k, it0 in enumerate(range(1, ni, stage)):
+            n_it = min(stage, ni - it0)
+            for c, slc in enumerate(slices):
+                killed = np.zeros(slc.stop - slc.start, bool)
+                if k >= 2:
+                    killed[::3] = True
+                if runner is not None:
+                    packs.append(runner.stage(c, keys[slc], it0, n_it, killed).numpy())
+                    continue
+                carries[c], packed = tracker.trace_stage(
+                    field, keys[slc], carries[c], it0, n_it, torch.from_numpy(killed).to(field.device))
+                packs.append(packed.cpu().numpy())
+        if runner is not None:
+            runner.finish()
+            carries = [runner.slots[(c, slc.stop - slc.start)].carry
+                       for c, slc in enumerate(slices)]
+        out.append((packs, [[t.cpu().numpy() for t in carry] for carry in carries]))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_stage_graphs_bitwise_eager_stages(dev, mode):
+    """The stage-graph runner against the eager stages: two waves on one
+    field (256 traces in two slots, then 90 reusing slot 0 at a new T) and
+    a wave on a second field, with a kill mask: bitwise equal packed
+    estimates and carries, equal launch counts, and the routes of
+    `StagePlan` (one capture per key that runs twice; the new field
+    captures anew)."""
+    from pnr_tpu_torch.smc import graphs
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    cfg = _graph_cfg(mode)
+    vols = [small_stack(), small_stack()[:, ::-1].copy()]
+    runs = {}
+    for use in (False, True):
+        tracker = BatchedTracker(cfg, dev, graphs=use)
+        fields = [tracker.prepare_field(torch.from_numpy(v).to(dev)) for v in vols]
+        before = _trace_counts()
+        caps, reps = graphs.CAPTURES, graphs.REPLAYS
+        result = _drive_waves(tracker, [(fields[0], 256), (fields[0], 90), (fields[1], 128)], use)
+        torch.cuda.synchronize()
+        runs[use] = (result, [a - b for a, b in zip(_trace_counts(), before)],
+                     graphs.CAPTURES - caps, graphs.REPLAYS - reps)
+        if use:
+            # the second field's routes, one slot of T=128: the full stages'
+            # key runs eagerly, is captured, then replays; the last, shorter
+            # stage's key runs once, eagerly
+            full, rest = divmod(cfg.ni - 1, tracker.STAGE_ITERS)
+            assert rest and full >= 3
+            assert tracker._stage_graphs.routes == {"eager": 2, "capture": 1,
+                                                     "replay": full - 2}
+    (eager, n_eager, c0, r0), (graph, n_graph, caps, reps) = runs[False], runs[True]
+    assert (c0, r0) == (0, 0)
+    # keys (slot, T, n_it) captured: (0, 128, S), (1, 128, S), (0, 90, S), then (0, 128, S)
+    # again on the second field
+    assert caps == 4 and reps > caps
+    assert n_graph == n_eager and n_eager[1 if mode == "tube" else 0] > 0
+    for (pa, ca), (pb, cb) in zip(eager, graph):
+        assert len(pa) == len(pb)
+        for a, b in zip(pa, pb):
+            assert np.array_equal(a, b)
+        for a, b in zip(ca, cb):
+            for x, y in zip(a, b):
+                assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_main_path_graphs_bitwise_eager(dev, mode):
+    """reconstruction_func on the card with stage graphs (the default)
+    against `BatchedTracker(..., graphs=False)`: bitwise the same tree, n0
+    and trace count, the same launches, and graph replays in the run."""
+    from pnr_tpu_torch.pipeline import reconstruction_func
+    from pnr_tpu_torch.smc import graphs
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    cfg = _graph_cfg(mode)
+    vol = small_stack()
+    counters = PATH_COUNTERS[mode]
+    runs = []
+    for use in (True, False):
+        before = [getattr(m, a) for m, a in counters]
+        reps = graphs.REPLAYS
+        res = reconstruction_func(vol, cfg, verbose=False, device="cuda",
+                                  _tracker=BatchedTracker(cfg, dev, graphs=use))
+        runs.append((res, [getattr(m, a) - b for (m, a), b in zip(counters, before)],
+                     graphs.REPLAYS - reps))
+    (g, n_g, reps_g), (e, n_e, reps_e) = runs
+    assert reps_g > 0 and reps_e == 0
+    assert n_g == n_e
+    assert g.trace_count == e.trace_count > 0
+    for f in ("x", "y", "z", "sig", "corr"):
+        assert np.array_equal(np.asarray(getattr(g.tree, f)), np.asarray(getattr(e.tree, f)))
+        assert np.array_equal(np.asarray(getattr(g.n0, f)), np.asarray(getattr(e.n0, f)))
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_batch_graphs_prefetch_bitwise_eager_one_by_one(dev, mode):
+    """Two stacks through `reconstruction_batch` with prefetch on (stage
+    graphs captured while a worker runs the next front on its own stream;
+    each new field recaptures) against the stacks one by one with eager
+    stages (stack i keyed fold_in(key, i), as the batch keys it): bitwise
+    the same trees and n0, and the same launches."""
+    from pnr_tpu_torch.hostpath import threefry as tf
+    from pnr_tpu_torch.pipeline import reconstruction_batch, reconstruction_func
+    from pnr_tpu_torch.smc import graphs
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    vols = [small_stack(), small_stack()[:, ::-1].copy()]
+    cfg = _graph_cfg(mode)
+    counters = PATH_COUNTERS[mode]
+    before = [getattr(m, a) for m, a in counters]
+    caps = graphs.CAPTURES
+    batch = list(reconstruction_batch(vols, cfg, prefetch=True, device="cuda"))
+    n_batch = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    assert graphs.CAPTURES - caps >= 2  # at least one key a stack
+    before = [getattr(m, a) for m, a in counters]
+    key = tf.key_from_seed(cfg.seed)
+    eager = [reconstruction_func(v, cfg, verbose=False, key=tf.fold_in(key, i), device="cuda",
+                                 _tracker=BatchedTracker(cfg, dev, graphs=False))
+             for i, v in enumerate(vols)]
+    assert n_batch == [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    for a, b in zip(batch, eager):
+        assert a.trace_count == b.trace_count > 0
+        for f in ("x", "y", "z", "sig", "corr"):
+            assert np.array_equal(np.asarray(getattr(a.tree, f)), np.asarray(getattr(b.tree, f)))
+            assert np.array_equal(np.asarray(getattr(a.n0, f)), np.asarray(getattr(b.n0, f)))
