@@ -81,13 +81,17 @@ Phases, each of which exits non-zero on failure:
    one iteration of one chunk, the `cudaStreamSynchronize` calls per
    tracer stage, and in tube mode the device time per tube_corr launch;
    [graphs exact], [graphs tube]: the main stack through
-   `reconstruction_func`, the tracer's stages eager
-   (`BatchedTracker(..., graphs=False)`) and replayed as CUDA graphs (the
-   default; smc/graphs.py) in turns, three runs each: trees, n0, seeds and
-   trace counts bitwise, kernel launches equal, graph replays in every
-   graph run; each run's seconds and tracing-stage seconds, the captures,
-   replays and the graphs' memory, then one eager run under the profiler
-   (the graph route's profile is the phase above);
+   `reconstruction_func` on three routes of the tracer in turns, three
+   runs each: eager stages (`BatchedTracker(..., graphs=False)`), CUDA
+   graphs captured at each key's first stage (PNR_TPU_NO_WARM_ASYNC=1)
+   and graphs captured by the warm thread while the front runs (the
+   default; smc/graphs.py): trees, n0, seeds and trace counts bitwise, two
+   keys, no capture on the tracing thread with the warm thread, the
+   tracer's launches two a `trace_init` and 2 x STAGE_ITERS a stage (the
+   eager route's plus the warm thread's `trace_init`); each run's seconds
+   and tracing seconds, stages by route, the warm thread's captures,
+   seconds and overlap with the front, the graphs' memory, then one eager
+   run under the profiler (the warm route's profile is the phase above);
 12. the exact and tube paths on a small stack on the card and on the CPU
    (plain versions) must agree; no module of jax or of pnr_tpu was loaded;
 13. [K2 2d], [maps 2d], [tube_corr 2d]: on the 2-D main plane (1, 4096,
@@ -124,7 +128,9 @@ Phases, each of which exits non-zero on failure:
    its launches equal, each stack's seconds, peak device bytes and K1, K2,
    K3 and tube_corr launches, the share of the fronts the prefetch hid, and
    the prefetched batch's peak within a single run's plus two fronts'
-   modelled peaks (`front_device_bytes`);
+   modelled peaks (`front_device_bytes`); per stack the stage-graph
+   captures on the tracing thread (none after the first stack), replays
+   and the warm thread's captures and seconds;
 20. [serve]: `watch_and_reconstruct` on a directory with stacks 0 and 1,
    stack 2 written after the first SWC, then `.stop`: three SWCs, each the
    text of the exact batch's tree for its index;
@@ -219,7 +225,9 @@ and `launches_multiprocess`, and those of phases 35-37 under
 `launches_sharded_step_tube`, `launches_trace_wave_exact`,
 `launches_trace_wave_tube` and `launches_alt`, and the graph replays of
 the tracer's stages in run 1 of the exact and tube main paths under
-`replays_exact` and `replays_tube`); the last line is
+`replays_exact` and `replays_tube`, and the captures of their warm
+threads under `warm_captures_exact` and `warm_captures_tube`); the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -233,6 +241,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1209,6 +1218,8 @@ def counters():
         # its stage's K2 or tube_corr launches to their counters above
         "graph_replays": (graphs, "REPLAYS"),
         "graph_captures": (graphs, "CAPTURES"),
+        # of those, the captures of the warm thread (BatchedTracker.warm_async)
+        "warm_captures": (graphs, "WARM_CAPTURES"),
     }
 
 
@@ -1236,25 +1247,42 @@ PATH_KERNELS = {
 
 def counting_seed_scoring():
     """Wrap the pipeline's seed scoring so that it counts the K2 and
-    tube_corr launches made inside it; returns the counts and an undo."""
+    tube_corr launches made inside it, on its own thread (the warm thread
+    launches the tracer's kernels meanwhile); returns the counts and an
+    undo."""
     from pnr_tpu_torch.ops import tube_corr, zncc_exact
     from pnr_tpu_torch.pipeline import reconstruct
 
     score = reconstruct._score_seeds
-    counts = {"exact_sums": 0, "tube_corr": 0}
+    kernels = {"exact_sums": (zncc_exact, "_exact_sums_cuda"),
+               "tube_corr": (tube_corr, "_tube_corr_cuda")}
+    real = {k: getattr(mod, name) for k, (mod, name) in kernels.items()}
+    counts = {k: 0 for k in kernels}
+    scoring = threading.local()
 
     def counted(*a, **k):
-        n2, n6 = zncc_exact.LAUNCHES, tube_corr.SCORE_LAUNCHES + tube_corr.TRACE_LAUNCHES
+        scoring.on = True
         try:
             return score(*a, **k)
         finally:
-            counts["exact_sums"] += zncc_exact.LAUNCHES - n2
-            counts["tube_corr"] += tube_corr.SCORE_LAUNCHES + tube_corr.TRACE_LAUNCHES - n6
+            scoring.on = False
+
+    def launch(name):
+        def wrapped(*a, **k):
+            out = real[name](*a, **k)
+            if getattr(scoring, "on", False):
+                counts[name] += 1
+            return out
+        return wrapped
 
     reconstruct._score_seeds = counted
+    for k, (mod, name) in kernels.items():
+        setattr(mod, name, launch(k))
 
     def undo():
         reconstruct._score_seeds = score
+        for k, (mod, name) in kernels.items():
+            setattr(mod, name, real[k])
 
     return counts, undo
 
@@ -1495,69 +1523,137 @@ def phase_profile(torch, card, mode, run, unprofiled_s, label=None):
     return out
 
 
+def counting_inits():
+    """Count the tracer's `trace_init` calls (the warm thread's too);
+    returns the count and an undo."""
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    counts = {"inits": 0}
+    real = BatchedTracker.trace_init
+    lock = threading.Lock()
+
+    def counted(*a, **k):
+        with lock:
+            counts["inits"] += 1
+        return real(*a, **k)
+
+    BatchedTracker.trace_init = counted
+
+    def undo():
+        BatchedTracker.trace_init = real
+
+    return counts, undo
+
+
+#: the tracer's routes in [graphs exact] / [graphs tube], in turns: eager
+#: stages, stage graphs without the warm thread (PNR_TPU_NO_WARM_ASYNC=1),
+#: stage graphs with it (the default)
+GRAPH_ROUTES = ("eager", "graphs", "warm", "warm", "graphs", "eager", "eager", "warm", "graphs")
+
+
 def phase_graphs(torch, card, main_np, mode):
     """[graphs exact], [graphs tube]: the main stack through
-    `reconstruction_func` at MAIN_PARAMS, the tracer's stages eager
-    (`BatchedTracker(..., graphs=False)`) and replayed as CUDA graphs (the
-    default), in turns (eager, graphs, graphs, eager, eager, graphs),
-    launch counts set to 0 just before each run and read just after: every
-    run's tree, n0, seeds and trace count bitwise the first eager run's,
-    its kernel launches equal, graph replays in every graph run and none in
-    an eager one. Prints each run's seconds and tracing-stage seconds, the
-    routes, captures and replays, and the graphs' memory (the allocator's
-    reserved bytes added while capturing); then one eager run under the
-    profiler (the graph route's profile is [profile exact]/[profile
-    tube]'s)."""
+    `reconstruction_func` at MAIN_PARAMS on three routes of the tracer in
+    turns (GRAPH_ROUTES): eager stages (`BatchedTracker(...,
+    graphs=False)`), stage graphs captured on the tracing thread at each
+    key's first stage (PNR_TPU_NO_WARM_ASYNC=1), and stage graphs captured
+    by the warm thread while the front runs (the default). Launch counts
+    set to 0 just before each run and read just after. Checks: every run's
+    tree, n0, seeds and trace count bitwise the first eager run's; the
+    wave loop's two keys; with the warm thread no capture on the tracing
+    thread; the tracer's launches exactly two a `trace_init` (the warm
+    thread's included) and 2 * STAGE_ITERS a stage, the eager route's
+    plus the warm thread's `trace_init`, and the other kernels' equal.
+    Prints each run's seconds, tracing seconds, stages on the tracing
+    thread by route, the warm thread's captures, seconds and the part of
+    them that overlapped the front, and the graphs' memory; then one eager
+    run under the profiler (the warm route's profile is [profile
+    exact]/[profile tube]'s)."""
     from pnr_tpu_torch import PNRConfig
     from pnr_tpu_torch.pipeline import reconstruction_func
     from pnr_tpu_torch.smc.tracker import BatchedTracker
 
     tag = f"graphs {mode}"
     cfg = dataclasses.replace(PNRConfig.from_cli_params(MAIN_PARAMS), zncc_mode=mode)
-    runs = {False: [], True: []}
+    tracer = "tube_corr_trace" if mode == "tube" else "exact_sums"
+    runs = {r: [] for r in dict.fromkeys(GRAPH_ROUTES)}
     ref = None
-    for use in (False, True, True, False, False, True):
-        tracker = BatchedTracker(cfg, DEVICE, graphs=use)
+    for route in GRAPH_ROUTES:
+        tracker = BatchedTracker(cfg, DEVICE, graphs=route != "eager")
+        if route == "graphs":
+            os.environ["PNR_TPU_NO_WARM_ASYNC"] = "1"
+        stages, undo_stages = counting_stages()
+        inits, undo_inits = counting_inits()
+        scoring, undo_scoring = counting_seed_scoring()
         reset_counters()
-        res, wall = timed(torch, lambda: reconstruction_func(main_np, cfg, verbose=False,
-                                                             device=DEVICE, _tracker=tracker))
+        try:
+            res, wall = timed(torch, lambda: reconstruction_func(
+                main_np, cfg, verbose=False, device=DEVICE, _tracker=tracker))
+        finally:
+            os.environ.pop("PNR_TPU_NO_WARM_ASYNC", None)
+            undo_stages()
+            undo_inits()
+            undo_scoring()
         n = read_counters()
-        runner = tracker._stage_graphs
-        route = "graphs" if use else "eager"
+        # the run's runner (none on the eager route; on the CPU none at all)
+        log = tracker.graph_log[-1] if tracker.graph_log else None
         info = {"s": wall, "tracing_s": res.timings["tracing"], "launches": n,
-                "routes": dict(runner.routes) if runner else None,
-                "graphs": len(runner.graphs) if runner else 0,
-                "graph_reserved_bytes": runner.reserved_bytes if runner else 0}
+                "stages": stages["stages"], "inits": inits["inits"], "runner": log}
+        warm = (f"; warm thread: {log['warm_captures']} captures, {log['warm_s']:.4f} s, "
+                f"{log['warm_s'] - log['warm_wait_s']:.4f} s of them overlapping the front "
+                f"(the tracing thread waited {log['warm_wait_s']:.4f} s); captures took "
+                f"{log['capture_s']:.4f} s") if log else ""
         print(f"[{tag}] {route}: {wall:.3f} s, tracing {info['tracing_s']:.4f} s, "
-              f"{res.trace_count} traces, {len(res.tree) - 1} SWC nodes; routes "
-              f"{json.dumps(info['routes'])}, {n['graph_captures']} captures, "
-              f"{n['graph_replays']} replays; launches {json.dumps(n)} [{card}]", flush=True)
+              f"{res.trace_count} traces, {len(res.tree) - 1} SWC nodes; {stages['stages']} stages"
+              f" on the tracing thread" + (f", by route {json.dumps(log['routes'])}, "
+                                          f"{log['graphs']} keys" if log else "")
+              + warm + f"; launches {json.dumps(n)} [{card}]", flush=True)
         if ref is None:
             ref = (res, n)
         check(same_tree(res, ref[0]), f"[{tag}] {route}: tree, n0, seeds and trace count bitwise "
                                       f"the eager run's")
-        kernels = {k: v for k, v in n.items() if not k.startswith("graph_")}
-        check(kernels == {k: v for k, v in ref[1].items() if not k.startswith("graph_")},
-              f"[{tag}] {route}: the eager run's kernel launches")
-        check((n["graph_replays"] > 0) == use and (n["graph_captures"] > 0) == use,
-              f"[{tag}] {route}: graph replays {'in' if use else 'not in'} the run")
-        runs[use].append(info)
-        del tracker, runner, res
-    g = runs[True][-1]
-    print(f"[{tag}] the graphs' memory: {g['graph_reserved_bytes']} bytes reserved while "
-          f"capturing {g['graphs']} graphs; the allocator's peak reserved "
+        # the tracer's launches, from the code: two a trace_init, 2 * STAGE_ITERS a stage
+        traced = n[tracer] - (scoring["exact_sums"] if mode == "exact" else 0)
+        want = 2 * inits["inits"] + 2 * tracker.STAGE_ITERS * stages["stages"]
+        check(traced == want, f"[{tag}] {route}: the tracer launched {tracer} {traced} times, "
+                              f"2 x {inits['inits']} inits + 2 x {tracker.STAGE_ITERS} x "
+                              f"{stages['stages']} stages = {want}")
+        extra = 2 * log["warm_inits"] if log else 0
+        kernels = {k: v for k, v in n.items() if not k.startswith(("graph_", "warm_"))}
+        want_k = {k: v + (extra if k == tracer else 0) for k, v in ref[1].items()
+                  if not k.startswith(("graph_", "warm_"))}
+        check(kernels == want_k, f"[{tag}] {route}: the eager run's kernel launches, plus the warm "
+                                 f"thread's trace_init ({extra})")
+        check((n["graph_replays"] > 0) == (route != "eager"),
+              f"[{tag}] {route}: graph replays {'in' if route != 'eager' else 'not in'} the run")
+        if log:
+            check(log["graphs"] == 2, f"[{tag}] {route}: the wave loop used two keys "
+                                      f"({log['graphs']})")
+            if route == "warm":
+                check(log["warm_captures"] == 2 and log["routes"]["capture"] == 0
+                      and n["warm_captures"] == 2,
+                      f"[{tag}] warm: both keys captured by the warm thread, none on the tracing "
+                      f"thread")
+            else:
+                check(log["warm_captures"] == 0 and log["routes"]["capture"] == 2,
+                      f"[{tag}] graphs: both keys captured at their first stage")
+        runs[route].append(info)
+        del tracker, res
+    g = runs["warm"][-1]["runner"] or {"reserved_bytes": 0, "graphs": 0}
+    print(f"[{tag}] the graphs' memory: {g['reserved_bytes']} bytes reserved while capturing "
+          f"{g['graphs']} graphs; the allocator's peak reserved "
           f"{torch.cuda.memory_stats()['reserved_bytes.all.peak']} bytes [{card}]", flush=True)
     for key in ("s", "tracing_s"):
-        print(f"[{tag}] {key} eager {[round(r[key], 4) for r in runs[False]]}, graphs "
-              f"{[round(r[key], 4) for r in runs[True]]} (in turns) [{card}]", flush=True)
-    eager_s = statistics.median(r["s"] for r in runs[False])
+        print(f"[{tag}] {key} (in turns) " + ", ".join(
+            f"{route} {[round(r[key], 4) for r in rs]}" for route, rs in runs.items())
+            + f" [{card}]", flush=True)
+    eager_s = statistics.median(r["s"] for r in runs["eager"])
     profile = phase_profile(
         torch, card, mode,
         lambda: reconstruction_func(main_np, cfg, verbose=False, device=DEVICE,
                                     _tracker=BatchedTracker(cfg, DEVICE, graphs=False)),
         eager_s, label=f"{tag} eager")
-    return {"eager": runs[False], "graphs": runs[True], "eager_profile": profile,
-            "launches": ref[1]}
+    return {**runs, "eager_profile": profile, "launches": ref[1]}
 
 
 def phase_small_agreement(torch, mode):
@@ -1940,8 +2036,16 @@ def run_batch(torch, vols, cfg, prefetch):
     peak reset at each result), the whole batch's peak, and the kernel
     launches (counts set to 0 just before, read just after; per stack
     too, read at each result: exact only without prefetch, since the
-    workers run later stacks' fronts meanwhile)."""
-    from pnr_tpu_torch.pipeline import reconstruction_batch
+    workers run later stacks' fronts meanwhile), and each stack's
+    stage-graph runner's `stats()` (the batch's tracker's `graph_log`)."""
+    from pnr_tpu_torch.pipeline import reconstruct, reconstruction_batch
+
+    made = []
+    real = reconstruct.BatchedTracker
+
+    def keep(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1952,22 +2056,27 @@ def run_batch(torch, vols, cfg, prefetch):
     batch_peak = 0
     last = read_counters()
     t0 = time.perf_counter()
-    for res in reconstruction_batch(vols, cfg, prefetch=prefetch, device=DEVICE):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        results.append(res)
-        secs.append(t1 - t0)
-        peak = torch.cuda.max_memory_allocated() - base
-        peaks.append(peak)
-        batch_peak = max(batch_peak, peak)
-        now = read_counters()
-        launches.append(kernel_launches({k: now[k] - last[k] for k in now}))
-        last = now
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
+    reconstruct.BatchedTracker = keep
+    try:
+        for res in reconstruction_batch(vols, cfg, prefetch=prefetch, device=DEVICE):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            results.append(res)
+            secs.append(t1 - t0)
+            peak = torch.cuda.max_memory_allocated() - base
+            peaks.append(peak)
+            batch_peak = max(batch_peak, peak)
+            now = read_counters()
+            launches.append(kernel_launches({k: now[k] - last[k] for k in now}))
+            last = now
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+    finally:
+        reconstruct.BatchedTracker = real
     total = kernel_launches(read_counters())
     return {"results": results, "s": secs, "peaks": peaks, "peak": batch_peak,
-            "launches": launches, "total": total}
+            "launches": launches, "total": total,
+            "graph_logs": [log for t in made for log in t.graph_log]}
 
 
 def phase_batch(torch, card, vols, mode):
@@ -2001,8 +2110,11 @@ def phase_batch(torch, card, vols, mode):
     tracker = reconstruct.BatchedTracker(cfg, DEVICE)
 
     def front():
-        reconstruct._stack_front(vols[0], cfg, torch.device(DEVICE), verbose=False,
-                                 tracker=tracker)
+        # the front and its warm thread's graphs, dropped as a stack's
+        # tracing would
+        f = reconstruct._stack_front(vols[0], cfg, torch.device(DEVICE), verbose=False,
+                                     tracker=tracker)
+        tracker.drop_stage_graphs(f.field)
 
     front()
     front_peak = peak_above(front)
@@ -2024,6 +2136,18 @@ def phase_batch(torch, card, vols, mode):
     want = ("K1", "K2") if mode == "exact" else ("K1", "K3", "tube_corr")
     check(all(runs[True][0]["total"][k] > 0 for k in want),
           f"{tag}: the batch launched {', '.join(want)}")
+    for prefetch, rs in runs.items():
+        for j, r in enumerate(rs):
+            logs = r["graph_logs"]
+            print(f"[{tag}] prefetch={prefetch} run {j + 1}: per stack, captures on the tracing "
+                  f"thread {[log['routes']['capture'] for log in logs]}, replays "
+                  f"{[log['routes']['replay'] for log in logs]}, warm captures "
+                  f"{[log['warm_captures'] for log in logs]}, warm seconds "
+                  f"{[round(log['warm_s'], 4) for log in logs]}, waited for "
+                  f"{[round(log['warm_wait_s'], 4) for log in logs]} [{card}]", flush=True)
+            check(len(logs) == n and all(log["routes"]["capture"] == 0 for log in logs[1:]),
+                  f"{tag}: prefetch={prefetch} run {j + 1}: no capture on the tracing thread "
+                  f"after the first stack")
     for prefetch, rs in runs.items():
         for j, r in enumerate(rs):
             print(f"[{tag}] prefetch={prefetch} run {j + 1}: {sum(r['s']):.3f} s for {n} stacks; "
@@ -2057,8 +2181,6 @@ def phase_serve(torch, card, vols, batch_results, workdir):
     """[serve]: `watch_and_reconstruct` on a directory holding stacks 0 and
     1; stack 2 is written once the server has served one, then `.stop`:
     three SWCs, each the text of the exact batch's tree for its index."""
-    import threading
-
     from pnr_tpu_torch import PNRConfig
     from pnr_tpu_torch.io.swc import save_nodelist
     from pnr_tpu_torch.pipeline import watch_and_reconstruct
@@ -3320,6 +3442,8 @@ def main() -> int:
     for row in kernels:
         for mode in ("exact", "tube"):
             row[f"replays_{mode}"] = launches[mode]["graph_replays"]
+            # the stage graphs its warm thread captured while the front ran
+            row[f"warm_captures_{mode}"] = launches[mode]["warm_captures"]
     print(f"[rest] {json.dumps(rest, default=str)}", flush=True)
     print(f"[graphs] {json.dumps(graph_phases, default=str)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -373,9 +373,65 @@ size_t smem_bytes(int py, int pitch, int step, int B, int S) {
          sizeof(float) * 3 * (size_t)B * S + sizeof(float) * Q_COLS * (size_t)B;
 }
 
+// Make a launch with `smem` bytes a block in clusters of `ncl` blocks
+// possible on the current device `dev`: raise the kernel's shared memory
+// limit, and check once per (ncl, smem) that such a cluster can be
+// scheduled. Launches call it; so does pnr_exact_sums_prepare, ahead of a
+// CUDA graph capture, which must not find this state missing.
+int prepare_launch(int dev, size_t smem, int ncl) {
+  cudaError_t err = raise_smem_limit(g_smem_limit, exact_sums_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(g_ok_mu);
+  for (int i = 0; i < g_ok_n[dev]; ++i)
+    if (g_ok_ncl[dev][i] == ncl && g_ok_smem[dev][i] == smem) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned int)ncl);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, exact_sums_kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return kErrUnschedulable;
+  const int i = g_ok_n[dev] < kCache ? g_ok_n[dev]++ : kCache - 1;
+  g_ok_ncl[dev][i] = ncl;
+  g_ok_smem[dev][i] = smem;
+  return 0;
+}
+
+// The plan's checks of pnr_exact_sums: 0, or kErrPlan.
+int check_plan(int pz, int py, int px, int nslab, int step, int pitch) {
+  if (py < 2 || px < 2 || pitch < px + 3 || pitch % 4 != 0) return kErrPlan;
+  if (pz == 1 ? (nslab != 1 || step != 0)
+              : (pz < 2 || nslab < 1 || step < 1 || (long long)(nslab - 1) * step >= pz - 1 ||
+                 (long long)nslab * step < pz - 1))
+    return kErrPlan;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
+
+// pnr_exact_sums's launch state for a plan (its arguments as there) on the
+// current device, set up without launching: see prepare_launch.
+int pnr_exact_sums_prepare(int B, int S, int pz, int py, int px, int nslab, int step,
+                           int pitch) {
+  if (check_plan(pz, py, px, nslab, step, pitch)) return kErrPlan;
+  const size_t smem = smem_bytes(py, pitch, step, B, S);
+  if (smem > kMaxSmem) return kErrPlan;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return kErrPlan;
+  return prepare_launch(dev, smem, nslab < kMaxCluster ? nslab : kMaxCluster);
+}
 
 // vol: uint8 (Z, Y, X); corner: int32 (T, 3) zyx, each patch inside vol;
 // qs: float32 (T, B, 16); tab: float32 (S, Kmax, 4) rows (v, u, w, g);
@@ -387,11 +443,7 @@ int pnr_exact_sums(const void* vol, int Z, int Y, int X, const void* corner, con
                    int T, int B, const void* tab, const void* cnt, int S, int Kmax, int pz, int py,
                    int px, int nslab, int step, int pitch, void* out, void* stream) {
   if (T == 0 || B == 0) return 0;
-  if (py < 2 || px < 2 || pitch < px + 3 || pitch % 4 != 0) return kErrPlan;
-  if (pz == 1 ? (nslab != 1 || step != 0)
-              : (pz < 2 || nslab < 1 || step < 1 || (long long)(nslab - 1) * step >= pz - 1 ||
-                 (long long)nslab * step < pz - 1))
-    return kErrPlan;
+  if (check_plan(pz, py, px, nslab, step, pitch)) return kErrPlan;
   const size_t smem = smem_bytes(py, pitch, step, B, S);
   if (smem > kMaxSmem) return kErrPlan;
   const int ncl = nslab < kMaxCluster ? nslab : kMaxCluster;
@@ -399,8 +451,8 @@ int pnr_exact_sums(const void* vol, int Z, int Y, int X, const void* corner, con
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return kErrPlan;
-  err = raise_smem_limit(g_smem_limit, exact_sums_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int ready = prepare_launch(dev, smem, ncl);
+  if (ready) return ready;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned int)(ncl * T));
   cfg.blockDim = dim3(kThreads);
@@ -413,21 +465,6 @@ int pnr_exact_sums(const void* vol, int Z, int Y, int X, const void* corner, con
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  {
-    std::lock_guard<std::mutex> lock(g_ok_mu);
-    bool known = false;
-    for (int i = 0; i < g_ok_n[dev]; ++i)
-      known = known || (g_ok_ncl[dev][i] == ncl && g_ok_smem[dev][i] == smem);
-    if (!known) {
-      int clusters = 0;
-      err = cudaOccupancyMaxActiveClusters(&clusters, exact_sums_kernel, &cfg);
-      if (err != cudaSuccess) return (int)err;
-      if (clusters < 1) return kErrUnschedulable;
-      const int i = g_ok_n[dev] < kCache ? g_ok_n[dev]++ : kCache - 1;
-      g_ok_ncl[dev][i] = ncl;
-      g_ok_smem[dev][i] = smem;
-    }
-  }
   err = cudaLaunchKernelEx(&cfg, exact_sums_kernel, (const unsigned char*)vol, Z, Y, X,
                            (const int*)corner, (const float*)qs, B, (const float4*)tab,
                            (const int*)cnt, S, Kmax, pz, py, px, nslab, step, pitch, ncl,

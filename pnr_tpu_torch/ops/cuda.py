@@ -50,6 +50,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,
     ),
     "pnr_frangi_smem_bytes": (_I, _I, _I, _I),
+    "pnr_exact_sums_prepare": (_I, _I, _I, _I, _I, _I, _I, _I),
     "pnr_exact_sums": (
         _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ),

@@ -316,6 +316,13 @@ def _check_struct() -> None:
     _STRUCT_CHECKED = True
 
 
+def check_struct() -> None:
+    """`_check_struct`, once a process (the kernel's first launch runs it;
+    the tracer runs it ahead of a CUDA graph capture)."""
+    if not _STRUCT_CHECKED:
+        _check_struct()
+
+
 def tube_corr(field, groups, corners, pos, dirs, tables: TubeTables, params: KernelParams = None,
               scoring: bool = False, with_sums: bool = False, frame=None):
     """Tube ZNCC of the queries pos, dirs (T, N, 3) xyz over the windows
@@ -367,8 +374,7 @@ def _tube_corr_cuda(field, corners, pos, dirs, params: KernelParams, scoring=Fal
     if not (field.is_contiguous() and corners.is_contiguous() and pos.is_contiguous()
             and dirs.is_contiguous()):
         raise ValueError("tube_corr: field, corners, pos and dirs must be contiguous")
-    if not _STRUCT_CHECKED:
-        _check_struct()
+    check_struct()
     t, n = shape[0], shape[1]
     out = pos.new_empty((2, t, n))
     sums = pos.new_empty((t, n, params.field_shape[0], 3)) if with_sums else None

@@ -235,6 +235,21 @@ def _exact_sums_cuda(vol, corner, qs, tables, patch_shape, slab_budget=None):
     return out
 
 
+def prepare_launch(vol: torch.Tensor, patch_shape, b: int, s: int, slab_budget: int = None):
+    """Set up K2's launch state for B queries of S sigmas in patches of
+    `patch_shape` of the CUDA volume `vol`, without launching: the
+    kernel's shared-memory limit and the check that its cluster can be
+    scheduled, as the first launch of that plan would. A CUDA graph
+    capture must find this state in place (smc/graphs.py)."""
+    plan = kernel_plan(tuple(patch_shape), b, s, slab_budget)
+    pz, py, px = patch_shape
+    with torch.cuda.device(vol.device):
+        err = cuda.library().pnr_exact_sums_prepare(b, s, pz, py, px, plan.nz, plan.step,
+                                                    plan.pitch)
+    if err:
+        _raise(err, vol, patch_shape, plan, b, s)
+
+
 def _raise(err, vol, patch_shape, plan, b, s):
     what = (f"volume {tuple(vol.shape)}, patch {tuple(patch_shape)}, {plan.nz} slabs of "
             f"{plan.step} floors, pitch {plan.pitch}, B={b}, S={s}, "
@@ -450,3 +465,13 @@ class ExactPatchEngine:
     def eval_fused(self, vol, pos, dirs, frame=None):
         corner = self.corners(vol.shape, pos.mean(dim=1), frame)
         return self.corr(vol, corner, pos, dirs, frame)
+
+    def prepare(self, vol, b: int) -> None:
+        """K2's launch state for this volume's patches at B = b queries a
+        trace and at B = 1 (the tracer's particles and its centroid), set
+        up ahead of a CUDA graph capture (`prepare_launch`); nothing on the
+        CPU."""
+        if vol.is_cuda:
+            s = int(self.tables.tab.shape[0])
+            for q in sorted({1, int(b)}):
+                prepare_launch(vol, self.patch_dims(vol), q, s)

@@ -41,6 +41,7 @@ from pnr_tpu_torch.ops.interp import trilinear
 from pnr_tpu_torch.ops.tube_corr import (
     KernelParams,
     TubeTables,
+    check_struct,
     corr_from_sums,
     finish,
     hat_sample_patch_plain,
@@ -307,6 +308,15 @@ class TubePatchEngine:
         out, _ = tube_corr(maps, lay.groups, corners, pos, dirs, self.tables, lay.params,
                            scoring=scoring, frame=frame)
         return out[0], out[1]
+
+    def prepare(self, maps: torch.Tensor, b: int) -> None:
+        """The tracer's window table and `tube_corr`'s constants for this
+        field, made ahead of a CUDA graph capture (their copies to the card
+        cannot be captured); `b` is unused: the kernel's launch does not
+        depend on it."""
+        self.layout(maps)
+        if maps.is_cuda:
+            check_struct()
 
     def eval_fused(self, maps: torch.Tensor, pos: torch.Tensor, dirs: torch.Tensor, frame=None):
         single = maps.dtype == torch.float32

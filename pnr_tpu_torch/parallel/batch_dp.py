@@ -199,7 +199,8 @@ def reconstruction_batch_dp(
     for d in devices:
         if d not in trackers:
             with on(d):
-                trackers[d] = BatchedTracker(cfg, d, is2d=is2d)
+                # its lockstep waves run eagerly: no stage graphs to warm
+                trackers[d] = BatchedTracker(cfg, d, is2d=is2d, graphs=False)
 
     def front(i):
         with on(devices[i]):

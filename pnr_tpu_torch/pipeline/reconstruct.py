@@ -76,7 +76,7 @@ from pnr_tpu_torch.ops.morphology import imerode_xy
 from pnr_tpu_torch.ops.thresholds import histogram256, maxentropy_th
 from pnr_tpu_torch.seeds.extract import decode_directions_device, seed_mask
 from pnr_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
-from pnr_tpu_torch.smc.tracker import BatchedTracker, trace_keys
+from pnr_tpu_torch.smc.tracker import TRACE_CHUNK, BatchedTracker, trace_keys
 from pnr_tpu_torch.utils.runtime import require_cuda
 
 
@@ -116,6 +116,12 @@ FRANGI2D_TILED_PEAK_BYTES_PER_PIXEL = 59
 #: measured by chip_smoke.py ([batch tube]) on an NVIDIA H100 80GB HBM3
 #: at 700 W (PERF.md, PR 9)
 TUBE_BUILD_PEAK_BYTES_PER_VOXEL = 36
+#: device bytes the caching allocator reserves for one stage graph of the
+#: tracer (its private pool: the stage's intermediate tensors): the two
+#: graphs of the main stack reserved 46,137,344 bytes in exact and in tube
+#: mode, measured by chip_smoke.py ([graphs exact], [graphs tube]) on an
+#: NVIDIA H100 80GB HBM3 at 700 W (PERF.md, PR 14)
+STAGE_GRAPH_BYTES = 46_137_344 // 2
 #: device memory the in-flight fronts of `reconstruction_batch` and the
 #: stack being traced may hold together: the filter's 60 GB, leaving the
 #: tracer's state and the allocator's headroom the rest of the 80-GB card
@@ -377,8 +383,17 @@ def _trace_and_commit_wave(
     in the next stage. Stage k+1 is launched before stage k is collected,
     so its kill mask is one stage stale: an economy cost, not a result
     change, since the random streams key on (trace id, absolute
-    iteration). On a card the stages go through the tracker's stage-graph
-    runner (smc/graphs.py): captured once per key, then replayed."""
+    iteration).
+
+    The wave has JAX's shapes (pnr_tpu/pipeline/reconstruct.py:288-299,
+    :373): it is padded to whole TRACE_CHUNK chunks, the pad lanes taking
+    seed 0's position and direction and trace id 0, killed from the start
+    and never committed; every stage runs STAGE_ITERS iterations (their
+    uniforms drawn past ni too) and only the rows below ni are kept. So
+    every stage of a chunk slot has one shape. On a card the stages go
+    through the tracker's stage-graph runner of the field (smc/graphs.py):
+    each key captured once, at its first stage or ahead of the wave by the
+    warm thread (which is joined first), and replayed."""
     ni = cfg.ni
     nb = len(seed_pos)
     t_real = 2 * nb
@@ -390,19 +405,27 @@ def _trace_and_commit_wave(
     ids = np.empty(t_real, np.int64)
     ids[0::2] = 2 * np.asarray(seed_global_idx)
     ids[1::2] = 2 * np.asarray(seed_global_idx) + 1
-    keys = trace_keys(base_key, ids)
 
     chunk = tracker.TRACE_CHUNK
     stage = tracker.STAGE_ITERS
-    slices = [slice(b, min(b + chunk, t_real)) for b in range(0, t_real, chunk)]
+    tpad = -(-t_real // chunk) * chunk
+    padn = tpad - t_real
+    sp = np.concatenate([sp, np.repeat(sp[:1], padn, axis=0)])
+    sd = np.concatenate([sd, np.repeat(sd[:1], padn, axis=0)])
+    ids = np.concatenate([ids, np.zeros(padn, np.int64)])
+    keys = trace_keys(base_key, ids)
+    slices = [slice(b, b + chunk) for b in range(0, tpad, chunk)]
     cursors = [committer.begin_trace() for _ in range(t_real)]
-    killed = np.zeros(t_real, bool)
+    killed = np.zeros(tpad, bool)
+    killed[t_real:] = True  # pad lanes never commit; their chunk retires without them
     seed_started = [False] * nb
     commit_ptr = 0
 
     # packed estimates: [..., 0:3]=pos, 3:6=dir, 6=sig, 7=corr, 8=valid
-    est = np.zeros((t_real, ni, 9), np.float32)
+    est = np.zeros((tpad, ni, 9), np.float32)
     graphs = tracker.stage_graphs(field)  # None: eager stages
+    if graphs is not None:
+        graphs.join_warm()
     carries = []
     init_pend = []
     for c, slc in enumerate(slices):
@@ -450,19 +473,19 @@ def _trace_and_commit_wave(
         return False
 
     def dispatch_stage(it0):
-        """Launch iterations [it0, it0 + n) for every live chunk; returns
-        (slice, fetch) pairs, fetch() giving the (T, n, 9) estimates."""
-        n_it = min(stage, ni - it0)
+        """Launch iterations [it0, it0 + stage) for every live chunk;
+        returns (slice, fetch) pairs, fetch() giving the (T, stage, 9)
+        estimates."""
         pend = []
         for c, slc in enumerate(slices):
             if killed[slc].all():
                 continue  # whole chunk retired: no device work left
             if graphs is not None:
-                pend.append((slc, graphs.stage(c, keys[slc], it0, n_it, killed[slc]).numpy))
+                pend.append((slc, graphs.stage(c, keys[slc], it0, killed[slc]).numpy))
                 continue
             kill = torch.from_numpy(killed[slc].copy()).to(field.device)
             carries[c], packed = tracker.trace_stage(
-                field, keys[slc], carries[c], it0, n_it, kill
+                field, keys[slc], carries[c], it0, stage, kill
             )
             pend.append((slc, lambda packed=packed: packed.cpu().numpy()))
         return pend
@@ -485,7 +508,7 @@ def _trace_and_commit_wave(
             else:
                 next_pending = None
             for slc, fetch in pending:
-                est[slc, it_done : it_done + n_it] = fetch()
+                est[slc, it_done : it_done + n_it] = fetch()[:, :n_it]
             it_done += n_it
     finally:
         if graphs is not None:
@@ -536,6 +559,12 @@ def _stack_front(
 
     tm.start("frangi")
     img = torch.from_numpy(vol).to(device)
+    if tracker is None:
+        tracker = BatchedTracker(cfg, device, is2d=is2d)
+    if not tracker.tube:
+        # the field is the volume: its stage graphs are captured while the
+        # filter and the seed flood run (BatchedTracker.warm_async)
+        tracker.warm_async(img)
     j, jmin, jmax, vx, vy, vz = (frangi or _frangi)(img, cfg)
     j8 = normalize_to_u8(j, jmin, jmax)
     j = jmin = jmax = None  # the f32 vesselness volume is consumed
@@ -558,12 +587,12 @@ def _stack_front(
         print(f"{len(pos) / 1000.0}k seeds")
 
     tm.start("seed selection & sorting")
-    if tracker is None:
-        tracker = BatchedTracker(cfg, device, is2d=is2d)
     field = tracker.prepare_field(img)
     # tube mode: the map field replaces the volume (exact mode: the same
     # tensor), so the volume is dropped before scoring and tracing
     img = None
+    if tracker.tube:
+        tracker.warm_async(field)  # JAX's place (pnr_tpu/pipeline/reconstruct.py:597-600)
     if len(pos) and smap is not None:
         # drop the seeds inside a soma (smap > 0)
         xi, yi, zi = (np.floor(pos[:, i] + 0.5).astype(int) for i in range(3))
@@ -585,6 +614,62 @@ def _stack_front(
         nodes=nodes, smap=smap, j8_np=j8_np, pos=pos, dirs=dirs, corr=corr, field=field,
         tracker=tracker, timings=tm.timings, n_raw_seeds=n_raw_seeds, vx=vx, vy=vy, vz=vz,
     )
+
+
+def _trace_stack(tracker, field, shape, nodes, smap, pos, dirs, key, cfg, verbose,
+                 checkpoint_path, checkpoint_every_waves, resume):
+    """The tracing stage of one stack: the selected seeds in waves of
+    `cfg.wave_size`, checkpointed and resumed as `reconstruction_func`
+    says. Returns (committer, trace count)."""
+    committer = TraceCommitter(shape, cfg.vol, cfg.nodepervol, nodes, smap)
+    trace_count = 0
+    idx = 0
+    nseeds = len(pos)
+    pending: List[int] = []  # selected-but-untraced seeds (cap-cut wave tail)
+    if resume and checkpoint_path:
+        if not os.path.exists(checkpoint_path):
+            raise FileNotFoundError(f"resume=True but no checkpoint at {checkpoint_path!r}")
+        committer, idx, trace_count, pending, ck_nseeds = load_checkpoint(checkpoint_path)
+        if tuple(committer.shape) != tuple(shape):
+            raise ValueError(
+                f"checkpoint was taken on a {tuple(committer.shape)} volume, "
+                f"not {tuple(shape)} — wrong checkpoint or wrong input"
+            )
+        if ck_nseeds >= 0 and ck_nseeds != nseeds:
+            raise ValueError(
+                f"checkpoint expects {ck_nseeds} seeds, this run selected "
+                f"{nseeds} — the front-half config differs from the "
+                "checkpointed run"
+            )
+        nodes = committer.nodes
+        if verbose:
+            print(f"resumed at seed {idx}, {trace_count} traces, |n0|={len(nodes)}")
+    wave = max(1, cfg.wave_size)
+    waves_done = 0
+    while (pending or idx < nseeds) and trace_count <= cfg.max_trace_count:
+        # the next wave of seeds that pass the (stale) suppression check:
+        # suppression is monotone, so a stale "blocked" is exact; resumed
+        # pending seeds go first (they precede idx in the seed order)
+        batch: List[int] = []
+        while pending and len(batch) < wave:
+            si = pending.pop(0)
+            if committer.seed_allowed(pos[si]):
+                batch.append(si)
+        while idx < nseeds and len(batch) < wave:
+            if committer.seed_allowed(pos[idx]):
+                batch.append(idx)
+            idx += 1
+        if not batch:
+            break
+        sel = np.asarray(batch)
+        trace_count, unstarted = _trace_and_commit_wave(
+            tracker, committer, field, pos[sel], dirs[sel], sel, key, cfg, trace_count
+        )
+        pending = unstarted + pending
+        waves_done += 1
+        if checkpoint_path and waves_done % max(1, checkpoint_every_waves) == 0:
+            save_checkpoint(checkpoint_path, committer, idx, trace_count, pending, nseeds)
+    return committer, trace_count
 
 
 def reconstruction_func(
@@ -622,54 +707,13 @@ def reconstruction_func(
     pos, dirs, corr = front.pos, front.dirs, front.corr
 
     tm.start("tracing")
-    committer = TraceCommitter(vol.shape, cfg.vol, cfg.nodepervol, nodes, smap)
-    trace_count = 0
-    idx = 0
-    nseeds = len(pos)
-    pending: List[int] = []  # selected-but-untraced seeds (cap-cut wave tail)
-    if resume and checkpoint_path:
-        if not os.path.exists(checkpoint_path):
-            raise FileNotFoundError(f"resume=True but no checkpoint at {checkpoint_path!r}")
-        committer, idx, trace_count, pending, ck_nseeds = load_checkpoint(checkpoint_path)
-        if tuple(committer.shape) != tuple(vol.shape):
-            raise ValueError(
-                f"checkpoint was taken on a {tuple(committer.shape)} volume, "
-                f"not {tuple(vol.shape)} — wrong checkpoint or wrong input"
-            )
-        if ck_nseeds >= 0 and ck_nseeds != nseeds:
-            raise ValueError(
-                f"checkpoint expects {ck_nseeds} seeds, this run selected "
-                f"{nseeds} — the front-half config differs from the "
-                "checkpointed run"
-            )
-        nodes = committer.nodes
-        if verbose:
-            print(f"resumed at seed {idx}, {trace_count} traces, |n0|={len(nodes)}")
-    wave = max(1, cfg.wave_size)
-    waves_done = 0
-    while (pending or idx < nseeds) and trace_count <= cfg.max_trace_count:
-        # the next wave of seeds that pass the (stale) suppression check:
-        # suppression is monotone, so a stale "blocked" is exact; resumed
-        # pending seeds go first (they precede idx in the seed order)
-        batch: List[int] = []
-        while pending and len(batch) < wave:
-            si = pending.pop(0)
-            if committer.seed_allowed(pos[si]):
-                batch.append(si)
-        while idx < nseeds and len(batch) < wave:
-            if committer.seed_allowed(pos[idx]):
-                batch.append(idx)
-            idx += 1
-        if not batch:
-            break
-        sel = np.asarray(batch)
-        trace_count, unstarted = _trace_and_commit_wave(
-            tracker, committer, field, pos[sel], dirs[sel], sel, key, cfg, trace_count
-        )
-        pending = unstarted + pending
-        waves_done += 1
-        if checkpoint_path and waves_done % max(1, checkpoint_every_waves) == 0:
-            save_checkpoint(checkpoint_path, committer, idx, trace_count, pending, nseeds)
+    try:
+        committer, trace_count = _trace_stack(
+            tracker, field, vol.shape, nodes, smap, pos, dirs, key, cfg, verbose,
+            checkpoint_path, checkpoint_every_waves, resume)
+    finally:
+        tracker.drop_stage_graphs(field)  # this stack's graphs are done
+    nodes = committer.nodes
     tm.stop()
     if verbose:
         used = (100.0 * trace_count) / max(len(pos), 1)
@@ -705,8 +749,10 @@ def front_device_bytes(shape, cfg: PNRConfig) -> Tuple[int, int]:
     """(held, peak) device bytes of one stack's front at `shape`: `held`
     is what a finished front keeps until its stack is traced (the field:
     the uint8 volume in exact mode, the packed tube maps in tube mode at
-    `prepare_field`'s dtype; and the three uint8 direction volumes under
-    `cfg.save_midres`); `peak` is the most it holds while it runs, the
+    `prepare_field`'s dtype; the three uint8 direction volumes under
+    `cfg.save_midres`; and the stage graphs its warm thread captured,
+    STAGE_GRAPH_BYTES a chunk slot of a full wave); `peak` is the most it
+    holds while it runs, the
     larger of the filter route's peak (as `_frangi` routes it; the
     direction volumes are among its outputs) and the field's build with
     the directions kept beside it."""
@@ -720,6 +766,7 @@ def front_device_bytes(shape, cfg: PNRConfig) -> Tuple[int, int]:
     else:
         field = build = n
     midres = 3 * n if cfg.save_midres else 0
+    graphs = STAGE_GRAPH_BYTES * -(-2 * max(1, cfg.wave_size) // TRACE_CHUNK)
     if shape[0] == 1:
         per = (FRANGI2D_TILED_PEAK_BYTES_PER_PIXEL if n > FRANGI2D_TILED_PIXELS
                else FRANGI2D_PEAK_BYTES_PER_PIXEL)
@@ -732,7 +779,7 @@ def front_device_bytes(shape, cfg: PNRConfig) -> Tuple[int, int]:
         # the tiled engines: the outputs and the stage's normalisation, and
         # one tile's working set
         filt = FUSED_PEAK_BYTES_PER_VOXEL * n + TILE_VOX_BUDGET * UNFUSED_PEAK_BYTES_PER_VOXEL
-    return field + midres, max(filt, build + midres)
+    return field + midres + graphs, max(filt, build + midres) + graphs
 
 
 def _front_on_stream(vol, cfg, device, verbose, tracker, streams: threading.local):
@@ -788,8 +835,9 @@ def reconstruction_batch(
     feed again at the next top-up; the feed owns any sleep.
 
     With `prefetch`, up to `prefetch_depth` worker threads run the next
-    stacks' fronts (soma, Frangi, J8 fetch, seed extraction and scoring)
-    while the current stack traces, each on its own CUDA stream on a card;
+    stacks' fronts (soma, Frangi, J8 fetch, seed extraction and scoring,
+    and the warm thread that captures the stack's stage graphs) while the
+    current stack traces, each on its own CUDA stream on a card;
     the results are bitwise those of prefetch=False, since the front is a
     pure function of (vol, cfg). The fronts in flight, and the stack being
     traced, share BATCH_BUDGET_BYTES (`front_device_bytes`): a front is
@@ -878,10 +926,19 @@ def reconstruction_batch(
             i, vol, fut, held, _ = queue.popleft()
             front = _hand_over(*fut.result(), device)
             topup(held)  # keep the pipeline full while this stack traces
-            yield reconstruction_func(vol, cfg, verbose=verbose, key=tf.fold_in(key, i),
+            res = reconstruction_func(vol, cfg, verbose=verbose, key=tf.fold_in(key, i),
                                       _front=front, device=device)
             fut = front = None  # this stack's device memory is free
+            # the caller runs while this generator waits: the fronts in
+            # flight capture no stage graph meanwhile (graphs.CaptureGate)
+            for t in trackers.values():
+                t.capture_gate.close()
+            yield res
+            for t in trackers.values():
+                t.capture_gate.open()
     finally:
+        for t in trackers.values():
+            t.capture_gate.cancel()  # a front left in flight captures nothing
         ex.shutdown(wait=True, cancel_futures=True)
 
 

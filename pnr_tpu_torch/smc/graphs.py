@@ -1,24 +1,25 @@
 """CUDA graphs of the single-stack tracer's stages.
 
 The counterpart of JAX's jitted stage (`pnr_tpu/smc/tracker.py:172-173`,
-`jax.jit(stage_fn)`, the body at `:385`): JAX compiles a stage once into
-one executable, Threefry draws included. The port's stage is
-`BatchedTracker._stage_body`, whose iterations issue ~90-280 torch ops and
-kernel launches each from Python; on a card
-`pipeline.reconstruct._trace_and_commit_wave` hands each stage of a wave
-to `StageGraphs`, which captures the body once per key and replays it.
-The module has no JAX counterpart module.
+`jax.jit(stage_fn)`, the body at `:385`) and of its `warm_async`
+(`:180-221`): JAX compiles a stage once into one executable, Threefry
+draws included, and builds it on a worker thread while the front of the
+stack runs. The port's stage is `BatchedTracker._stage_body`, whose
+iterations issue ~90-280 torch ops and kernel launches each from Python;
+on a card `pipeline.reconstruct._trace_and_commit_wave` hands each stage
+of a wave to `StageGraphs`, which captures the body once per key and
+replays it. The module has no JAX counterpart module.
 
-* Keys: one graph per (chunk slot, T, n_it) within one field. A wave of
-  256 traces fills two slots of T=128; a later wave of 90 traces reuses
-  slot 0 at T=90. Binding another field (the next stack of a batch) drops
-  every graph, buffer and route of the last one.
+* Keys: one graph per (chunk slot, T, n_it) within one field. The wave
+  loop runs JAX's shapes: every chunk padded to TRACE_CHUNK traces and
+  every stage at STAGE_ITERS iterations, so a wave of 256 traces uses the
+  keys (0, 128, S) and (1, 128, S), and every later wave of the field
+  reuses them. A runner belongs to one field (`tracker.stage_graphs`);
+  the tracker drops it when that stack's tracing ends.
 * Static buffers, per (slot, T): the six carry tensors, the uniforms `u1`
-  (STAGE_ITERS, T, np) and `ru` (STAGE_ITERS, T) (a stage of n_it
-  iterations reads their first n_it rows) and the kill mask (T,). A graph
-  reads them and ends by copying the new carry back into the carry
-  buffers, so replays chain. `load` copies `trace_init`'s carry in once a
-  wave.
+  (n_it, T, np) and `ru` (n_it, T) and the kill mask (T,). A graph reads
+  them and ends by copying the new carry back into the carry buffers, so
+  replays chain. `load` copies `trace_init`'s carry in once a wave.
 * Copies: the uniforms are drawn on the host (`stage_uniforms`, bitwise
   JAX's) and go in, with the kill mask, through one of two pinned staging
   sets per slot (a stage is dispatched before the previous one is
@@ -26,31 +27,44 @@ The module has no JAX counterpart module.
   one of two pinned host buffers per slot, read after an event. No copy
   synchronises a stream: a pageable copy would, and the wave loop's
   "dispatch stage k+1 before collecting k" would then wait for stage k.
-* Routes (`StagePlan`): a key's first stage runs eagerly (the warm-up a
-  capture needs: K2's shared-memory attribute, the kernels' constants and
-  window tables, cuBLAS's workspace on the runner's stream), its second is
-  captured and replayed, every later one replays. A key that runs once
-  (a chunk's last, shorter stage) is never captured.
+* Routes (`StagePlan`): a key is captured the first time it runs and
+  replayed at once, and every later stage replays. Before each capture
+  `BatchedTracker.prepare_graphs` sets up, on the capturing thread and the
+  runner's stream, the lazy state a capture must not create: cuBLAS's
+  workspace (one matmul of the stage's shapes), K2's shared-memory
+  attribute and cluster check for the field's plans, and the tube
+  engine's window table and kernel constants.
+* Warm thread (`warm`, started by `BatchedTracker.warm_async`): while the
+  front of the stack runs, it runs `trace_init` on JAX's dummy seeds,
+  loads that carry into each slot a full wave fills and captures each
+  slot's key, so the tracing thread only replays. It works on the
+  runner's stream after an event recorded behind the field's last write;
+  the wave loop joins it (`join_warm`) before its first stage and raises
+  its exception there. Its captures pass the tracker's `CaptureGate`,
+  which the batch driver closes while its caller runs.
 * Stream: every stage runs on the runner's own stream (a capture cannot
-  run on the legacy default stream, and the warm-up runs where the
-  capture will); `load` and `finish` order it against the caller's
-  stream. Captures use `capture_error_mode="thread_local"`: the batch
-  driver's prefetch workers launch fronts on their own streams meanwhile.
+  run on the legacy default stream); `load` and `finish` order it against
+  the caller's stream. Captures use `capture_error_mode="thread_local"`:
+  the batch driver's prefetch workers launch fronts on their own streams
+  meanwhile, and the tracing thread replays another field's graphs while
+  a warm thread captures.
 * Launch counts: capturing runs the wrappers, which count launches that
   do not happen. The tracer tallies its own kernel calls while its thread
   captures (`tally_launch`; another thread's launches meanwhile are real
   and stay counted), `_take_back` subtracts the tally, and every replay
   adds it (`_count_replay`), under `ops.cuda.COUNT_LOCK`: a run's counts
-  equal the eager route's.
+  equal the eager route's, plus the warm thread's real `trace_init`.
 * Errors: a capture or replay that fails raises with its key and CUDA's
   error. Nothing falls back to the eager stage.
 
-One thread traces with a tracker at a time, as with the eager stages.
+One thread traces on a runner at a time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 import weakref
 from typing import Dict, Optional, Tuple
 
@@ -62,26 +76,78 @@ from pnr_tpu_torch.ops import cuda
 #: stage graphs replayed; each replay adds its graph's launches to the
 #: kernels' counters
 REPLAYS = 0
-#: stage graphs captured
+#: stage graphs captured (by the tracing thread or a warm thread)
 CAPTURES = 0
+#: stage graphs captured by a warm thread (`StageGraphs.warm`)
+WARM_CAPTURES = 0
 
-EAGER, CAPTURE, REPLAY = "eager", "capture", "replay"
+CAPTURE, REPLAY = "capture", "replay"
 
 Key = Tuple[int, int, int]  # (chunk slot, T, n_it)
 Counter = Tuple[object, str]  # (module, name of its launch counter)
 
 
 class StagePlan:
-    """The route of each stage of one field, by key: EAGER the first time
-    a key runs, CAPTURE (then replay) the second, REPLAY after that."""
+    """The route of each stage of one field, by key: CAPTURE (then
+    replay) the first time a key runs, REPLAY after that."""
 
     def __init__(self):
-        self.seen: Dict[Key, int] = {}
+        self.seen = set()
 
     def route(self, key: Key) -> str:
-        n = self.seen.get(key, 0)
-        self.seen[key] = n + 1
-        return EAGER if n == 0 else CAPTURE if n == 1 else REPLAY
+        if key in self.seen:
+            return REPLAY
+        self.seen.add(key)
+        return CAPTURE
+
+
+class CaptureGate:
+    """When a tracker's warm threads may capture. A CUDA graph capture on
+    one thread fails, together with the other thread's call, when another
+    thread synchronises the whole device meanwhile (`torch.cuda.
+    synchronize()`), as a caller of `reconstruction_batch` may while the
+    generator waits at a yield and the next stacks' fronts, and their warm
+    threads, run on. The batch driver closes the gate before it yields
+    (the captures in progress finish first) and opens it when it resumes;
+    a warm thread waits at a closed gate before each capture. `cancel`
+    ends the waits for good: a capture asked for after it raises."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._open = True
+        self._cancelled = False
+        self._busy = 0
+
+    @contextlib.contextmanager
+    def capture(self):
+        """Hold the gate open for one capture."""
+        with self._cond:
+            self._cond.wait_for(lambda: self._open or self._cancelled)
+            if self._cancelled:
+                raise RuntimeError("the stage-graph captures were cancelled")
+            self._busy += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._busy -= 1
+                self._cond.notify_all()
+
+    def close(self) -> None:
+        """Start no capture, and wait for those in progress."""
+        with self._cond:
+            self._open = False
+            self._cond.wait_for(lambda: self._busy == 0)
+
+    def open(self) -> None:
+        with self._cond:
+            self._open = True
+            self._cond.notify_all()
+
+    def cancel(self) -> None:
+        with self._cond:
+            self._cancelled = True
+            self._cond.notify_all()
 
 
 class _Tally(threading.local):
@@ -119,6 +185,12 @@ def _count_replay(launches: Dict[Counter, int]) -> None:
         REPLAYS += 1
 
 
+def _count_warm_capture() -> None:
+    global WARM_CAPTURES
+    with cuda.COUNT_LOCK:
+        WARM_CAPTURES += 1
+
+
 class _Graph:
     """A captured stage: the graph, its static `packed` output, and the
     launches each replay makes."""
@@ -154,7 +226,7 @@ class _Slot:
         self.ru = torch.empty((iters, t), dtype=torch.float32, device=dev)
         self.kill = torch.empty((t,), dtype=torch.bool, device=dev)
         self.staging = [_Staging(iters, t, npart) for _ in range(2)]
-        self.outs = [torch.empty((t * iters * 9,), dtype=torch.float32, pin_memory=True)
+        self.outs = [torch.empty((t, iters, 9), dtype=torch.float32, pin_memory=True)
                      for _ in range(2)]
         self.turn = 0
 
@@ -174,40 +246,110 @@ class PendingStage:
 
 
 class StageGraphs:
-    """The stage-graph runner of one tracker on a card (see the module
-    docstring). `bind(field)`, then per wave `load` each slot's carry,
-    `stage` each stage and `finish`."""
+    """The stage-graph runner of one tracker on one field (see the module
+    docstring): optionally `warm` on a thread first; then per wave `load`
+    each slot's carry, `stage` each stage and `finish`."""
 
-    def __init__(self, tracker):
-        # the tracker owns its runner: a strong reference back would keep
+    def __init__(self, tracker, field: torch.Tensor):
+        # the tracker owns its runners: a strong reference back would keep
         # both, and the graphs' device memory, alive until a cyclic GC
         self.tracker = weakref.proxy(tracker)
-        self.stream: Optional[torch.cuda.Stream] = None
-        self._field = None
-        self._reset()
-
-    def _reset(self):
+        self.stream = torch.cuda.Stream(field.device)
+        self._field = weakref.ref(field)
+        field.record_stream(self.stream)
         self.plan = StagePlan()
         self.slots: Dict[Tuple[int, int], _Slot] = {}
         self.graphs: Dict[Key, _Graph] = {}
-        #: stages by route, for this field
-        self.routes = {EAGER: 0, CAPTURE: 0, REPLAY: 0}
+        #: stages on the tracing thread, by route
+        self.routes = {CAPTURE: 0, REPLAY: 0}
+        #: graphs captured by the warm thread, and its `trace_init` calls
+        #: (each launches the tracer's kernel twice, counted)
+        self.warm_captures = 0
+        self.warm_inits = 0
+        #: the warm thread's seconds, how long the tracing thread waited
+        #: for it in `join_warm`, and the seconds of every capture (its
+        #: preparation and the graph's instantiation included)
+        self.warm_s = 0.0
+        self.warm_wait_s = 0.0
+        self.capture_s = 0.0
         #: the caching allocator's reserved bytes added while capturing
         #: (other threads' allocations meanwhile included)
         self.reserved_bytes = 0
+        self.warm_started = False
+        self._warm_thread: Optional[threading.Thread] = None
+        self._warm_error: Optional[BaseException] = None
 
-    def bind(self, field: torch.Tensor) -> None:
-        """Trace on `field` from now on; a new field drops the old graphs."""
-        if self._field is not None and self._field() is field:
-            return
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(field.device)
-        else:
-            # nothing may still replay into the memory the graphs release
-            self.stream.synchronize()
-        self._reset()
-        self._field = weakref.ref(field)
-        field.record_stream(self.stream)
+    def stats(self) -> dict:
+        """The runner's routes, warm captures and `trace_init` calls, warm
+        seconds, graphs and their memory."""
+        return {"routes": dict(self.routes), "warm_captures": self.warm_captures,
+                "warm_inits": self.warm_inits,
+                "warm_s": self.warm_s, "warm_wait_s": self.warm_wait_s,
+                "capture_s": self.capture_s,
+                "graphs": len(self.plan.seen), "reserved_bytes": self.reserved_bytes}
+
+    # -- the warm thread ----------------------------------------------------
+    def start_warm(self, ready: torch.cuda.Event, slots: int) -> threading.Thread:
+        """Run `warm` on a thread, keeping its exception and its seconds;
+        `ready` is recorded behind the field's last write."""
+        th = threading.Thread(target=self._warm_main, args=(ready, slots), daemon=True,
+                              name="pnr-warm-graphs")
+        self.warm_started = True
+        self._warm_thread = th
+        th.start()
+        return th
+
+    def _warm_main(self, ready, slots: int) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.warm(ready, slots)
+        except BaseException as e:  # raised again by join_warm
+            self._warm_error = e
+        finally:
+            self.warm_s = time.perf_counter() - t0
+
+    def warm(self, ready: torch.cuda.Event, slots: int) -> None:
+        """Capture the graphs of `slots` chunk slots at TRACE_CHUNK traces
+        ahead of the first wave (JAX's `warm_async`), on the runner's
+        stream after `ready`: `trace_init` on JAX's dummy seeds (positions
+        ones, directions (1, 0, 0), keys fold_in(key(0), i)), its carry
+        loaded into each slot, each slot's key captured."""
+        from pnr_tpu_torch.hostpath import threefry as tf
+        from pnr_tpu_torch.smc.tracker import trace_keys
+
+        tr = self.tracker
+        t = tr.TRACE_CHUNK
+        field = self._field()
+        with torch.cuda.device(field.device), torch.cuda.stream(self.stream):
+            self.stream.wait_event(ready)
+            sp = np.ones((t, 3), np.float32)
+            sd = np.tile(np.float32([[1.0, 0.0, 0.0]]), (t, 1))
+            keys = trace_keys(tf.key_from_seed(0), np.arange(t))
+            carry, _ = tr.trace_init(field, sp, sd, keys)
+            self.warm_inits += 1
+            for slot in range(slots):
+                self.load(slot, carry)
+                key = self._key(slot, t)
+                if self.plan.route(key) == CAPTURE:
+                    with tr.capture_gate.capture():
+                        self.graphs[key] = self._capture(key, field, self.slots[(slot, t)])
+                    self.warm_captures += 1
+                    _count_warm_capture()
+
+    def join_warm(self) -> None:
+        """Wait for the warm thread, if one ran, and raise its exception."""
+        th, self._warm_thread = self._warm_thread, None
+        if th is not None:
+            t0 = time.perf_counter()
+            th.join()
+            self.warm_wait_s = time.perf_counter() - t0
+        err, self._warm_error = self._warm_error, None
+        if err is not None:
+            raise RuntimeError(f"warming the tracer's stage graphs failed: {err}") from err
+
+    # -- the wave ---------------------------------------------------------
+    def _key(self, slot: int, t: int) -> Key:
+        return (slot, t, self.tracker.STAGE_ITERS)
 
     def load(self, slot: int, carry) -> None:
         """Copy `trace_init`'s carry of chunk `slot` into the slot's
@@ -228,51 +370,58 @@ class StageGraphs:
         """Order the caller's stream after every stage dispatched so far."""
         torch.cuda.current_stream(self.stream.device).wait_stream(self.stream)
 
-    def stage(self, slot: int, keys: np.ndarray, it0: int, n_it: int,
-              kill: np.ndarray) -> PendingStage:
-        """Iterations it0 .. it0+n_it-1 of chunk `slot` (its carry
-        `load`ed this wave) with the kill mask `kill` (T,) bool: eagerly,
-        captured or replayed as `plan` routes its key."""
+    def stage(self, slot: int, keys: np.ndarray, it0: int, kill: np.ndarray) -> PendingStage:
+        """Iterations it0 .. it0+STAGE_ITERS-1 of chunk `slot` (its carry
+        `load`ed this wave) with the kill mask `kill` (T,) bool: captured
+        and replayed, or replayed, as `plan` routes its key."""
         field = self._field()
         t = len(kill)
         s = self.slots[(slot, t)]
-        if not 1 <= n_it <= s.iters:
-            raise ValueError(f"a stage of {n_it} iterations; the slot holds 1 to {s.iters}")
-        key = (slot, t, n_it)
+        n_it = s.iters
+        key = self._key(slot, t)
         route = self.plan.route(key)
         self.routes[route] += 1
         u1, ru = self.tracker.stage_uniforms(keys, it0, n_it)
         st = s.staging[s.turn]
-        out = s.outs[s.turn][: t * n_it * 9].view(t, n_it, 9)
+        out = s.outs[s.turn]
         s.turn ^= 1
         st.copied.synchronize()  # the copies that last read this set have run
-        st.u1_np[:n_it] = u1
-        st.ru_np[:n_it] = ru
+        st.u1_np[:] = u1
+        st.ru_np[:] = ru
         st.kill_np[:] = kill
         with torch.cuda.stream(self.stream):
-            s.u1[:n_it].copy_(st.u1[:n_it], non_blocking=True)
-            s.ru[:n_it].copy_(st.ru[:n_it], non_blocking=True)
+            s.u1.copy_(st.u1, non_blocking=True)
+            s.ru.copy_(st.ru, non_blocking=True)
             s.kill.copy_(st.kill, non_blocking=True)
             st.copied.record()
-            if route == EAGER:
-                packed = self._run(field, s, n_it)
-            else:
-                if route == CAPTURE:
-                    self.graphs[key] = self._capture(key, field, s, n_it)
-                packed = self._replay(key)
+            if route == CAPTURE:
+                self.graphs[key] = self._capture(key, field, s)
+            packed = self._replay(key)
             out.copy_(packed, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
         return PendingStage(out, done)
 
-    def _run(self, field, s: _Slot, n_it: int) -> torch.Tensor:
-        carry, packed = self.tracker._stage_body(field, s.carry, s.u1[:n_it], s.ru[:n_it],
-                                                 s.kill, n_it)
+    def close(self) -> None:
+        """Drop the graphs once nothing replays into their memory; then
+        raise the warm thread's exception if no wave has."""
+        try:
+            self.join_warm()
+        finally:
+            self.stream.synchronize()
+            self.graphs.clear()
+            self.slots.clear()
+
+    def _run(self, field, s: _Slot) -> torch.Tensor:
+        carry, packed = self.tracker._stage_body(field, s.carry, s.u1, s.ru, s.kill, s.iters)
         for dst, src in zip(s.carry, carry):
             dst.copy_(src)
         return packed
 
-    def _capture(self, key: Key, field, s: _Slot, n_it: int) -> _Graph:
+    def _capture(self, key: Key, field, s: _Slot) -> _Graph:
+        t0 = time.perf_counter()
+        # on this thread and stream: the lazy state no capture may create
+        self.tracker.prepare_graphs(field, self.stream)
         graph = torch.cuda.CUDAGraph()
         launches: Dict[Counter, int] = {}
         before = torch.cuda.memory_reserved(self.stream.device)
@@ -280,7 +429,7 @@ class StageGraphs:
         try:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                packed = self._run(field, s, n_it)
+                packed = self._run(field, s)
             finally:
                 graph.capture_end()
         except RuntimeError as e:
@@ -290,6 +439,7 @@ class StageGraphs:
             _TALLY.counts = None
         _take_back(launches)
         self.reserved_bytes += torch.cuda.memory_reserved(self.stream.device) - before
+        self.capture_s += time.perf_counter() - t0
         return _Graph(graph, packed, launches)
 
     def _replay(self, key: Key) -> torch.Tensor:

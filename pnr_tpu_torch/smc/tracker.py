@@ -24,8 +24,9 @@ A stage is `trace_stage`: the host draws, then `_stage_body`, which takes
 device tensors only. On a card the single-stack wave loop
 (pipeline/reconstruct.py) captures that body as a CUDA graph per (chunk
 slot, T, n_it) and replays it (smc/graphs.py), the port's counterpart of
-JAX's jitted stage; the sharded and batch-over-a-mesh tracers call
-`trace_stage` eagerly.
+JAX's jitted stage, and `warm_async` captures those graphs on a thread
+while the front of the stack runs, as JAX's builds its executables; the
+sharded and batch-over-a-mesh tracers call `trace_stage` eagerly.
 
 The likelihood is evaluated in one window per trace, centred on the
 particle cloud; the centroid's ZNCC reuses the iteration's window.
@@ -48,8 +49,12 @@ slab; inside the slab it is bitwise the trace on the whole volume.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import os
+import threading
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +63,7 @@ from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.hostpath import threefry as tf
 from pnr_tpu_torch.ops import tube_corr, zncc_exact
 from pnr_tpu_torch.ops.zncc_model import TubeZnccModel, ZnccTemplates
-from pnr_tpu_torch.smc.graphs import StageGraphs, tally_launch
+from pnr_tpu_torch.smc.graphs import CaptureGate, StageGraphs, tally_launch
 from pnr_tpu_torch.smc.priors import PriorTables, build_prior_tables
 from pnr_tpu_torch.ops.zncc_exact import ExactPatchEngine, TemplateTables, template_tables
 from pnr_tpu_torch.ops.zncc_fast import (
@@ -128,6 +133,9 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
 
 Carry = Tuple[torch.Tensor, ...]  # (pos, dirs, wgt, resampled, res_idx, alive)
 
+#: traces per chunk, JAX's default
+TRACE_CHUNK = 128
+
 
 class BatchedTracker:
     """Lockstep SMC tracer for a fixed config, on one device.
@@ -139,12 +147,13 @@ class BatchedTracker:
     `is2d` selects the 2-D (one-plane) direction set, priors and
     templates, as JAX's tracer does.
 
-    On a card, `pipeline.reconstruct`'s wave loop replays the repeated
-    stages as CUDA graphs (`stage_graphs`, smc/graphs.py); `graphs=False`
-    keeps every stage eager there, for the A/B against the graph route."""
+    On a card, `pipeline.reconstruct`'s wave loop replays the stages as
+    CUDA graphs (`stage_graphs`, smc/graphs.py), captured ahead of the
+    first wave by `warm_async`; `graphs=False` keeps every stage eager
+    there, for the A/B against the graph route."""
 
     def __init__(
-        self, cfg: PNRConfig, device, trace_chunk: int = 128,
+        self, cfg: PNRConfig, device, trace_chunk: int = TRACE_CHUNK,
         stage_iters: Optional[int] = None, is2d: bool = False, graphs: bool = True,
     ):
         # cfg.zncc_exact_hilo is accepted and ignored: it selects the TPU
@@ -177,18 +186,76 @@ class BatchedTracker:
         # the launch counter each likelihood evaluation adds to
         self._counter = (tube_corr, "TRACE_LAUNCHES") if self.tube else (zncc_exact, "LAUNCHES")
         self.graphs = bool(graphs)
-        self._stage_graphs = None
+        # id(field) -> (weak reference to the field, its runner); the batch
+        # driver's prefetch worker warms the next stack's runner while the
+        # tracing thread replays the current one's
+        self._runners: Dict[int, Tuple[weakref.ref, StageGraphs]] = {}
+        self._runners_lock = threading.Lock()
+        #: `StageGraphs.stats()` of the runners dropped, oldest first
+        self.graph_log = collections.deque(maxlen=64)
+        #: when the warm threads may capture (the batch driver's yields)
+        self.capture_gate = CaptureGate()
 
     def stage_graphs(self, field: torch.Tensor) -> Optional[StageGraphs]:
-        """The stage-graph runner bound to `field`, or None where stages
-        run eagerly (a CPU field, or `graphs=False`). One runner per
-        tracker; binding another field drops the graphs of the last one."""
+        """The stage-graph runner of `field`, made at its first call, or
+        None where stages run eagerly (a CPU field, or `graphs=False`).
+        The tracker holds one runner per live field, by weak reference,
+        until `drop_stage_graphs(field)`."""
         if not (self.graphs and field.is_cuda):
             return None
-        if self._stage_graphs is None:
-            self._stage_graphs = StageGraphs(self)
-        self._stage_graphs.bind(field)
-        return self._stage_graphs
+        with self._runners_lock:
+            for k in [k for k, (ref, _) in self._runners.items() if ref() is None]:
+                del self._runners[k]
+            entry = self._runners.get(id(field))
+            if entry is None:
+                entry = self._runners[id(field)] = (weakref.ref(field), StageGraphs(self, field))
+            return entry[1]
+
+    def drop_stage_graphs(self, field: torch.Tensor) -> None:
+        """Drop `field`'s runner and its graphs (its stack's tracing has
+        ended), noting its `stats()` in `graph_log`; raises the warm
+        thread's exception if no wave has."""
+        with self._runners_lock:
+            entry = self._runners.pop(id(field), None)
+        if entry is None:
+            return
+        runner = entry[1]
+        try:
+            runner.close()
+        finally:
+            self.graph_log.append(runner.stats())
+
+    def warm_async(self, field: torch.Tensor) -> Optional[threading.Thread]:
+        """Capture the stage graphs of `field` on a thread while the
+        caller's front of the stack still runs (JAX's `warm_async`,
+        pnr_tpu/smc/tracker.py:180-221): the slots a full wave fills,
+        ceil(2 * wave_size / TRACE_CHUNK), at TRACE_CHUNK traces and
+        STAGE_ITERS iterations. The thread works on the runner's stream
+        after an event recorded now on the caller's stream, so the field's
+        writes so far come first. Returns the thread, or None on the CPU,
+        with `graphs=False`, or under PNR_TPU_NO_WARM_ASYNC=1 (JAX's
+        switch). Unlike JAX's, a failure is not swallowed: the wave loop
+        raises it (`StageGraphs.join_warm`)."""
+        if os.environ.get("PNR_TPU_NO_WARM_ASYNC"):
+            return None
+        runner = self.stage_graphs(field)
+        if runner is None or runner.warm_started:
+            return None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(field.device))
+        slots = -(-2 * max(1, int(self.cfg.wave_size)) // self.TRACE_CHUNK)
+        return runner.start_warm(ready, slots)
+
+    def prepare_graphs(self, field: torch.Tensor, stream: torch.cuda.Stream) -> None:
+        """Set up, on the calling thread and `stream`, the lazy state a
+        CUDA graph capture of `_stage_body` must find in place: cuBLAS's
+        workspace for this thread's handle on `stream` (one matmul of the
+        stage's codebook shapes) and the engine's (`prepare`)."""
+        with torch.cuda.stream(stream):
+            dirs = torch.zeros((self.TRACE_CHUNK * self.cfg.np, 3), dtype=torch.float32,
+                               device=field.device)
+            dirs @ self.tables.v.T
+            self.engine.prepare(field, self.cfg.np)
 
     def prepare_field(self, img: torch.Tensor) -> torch.Tensor:
         """The likelihood field of a (Z, Y, X) uint8 volume on the

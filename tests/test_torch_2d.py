@@ -43,6 +43,17 @@ from pnr_tpu_torch.ops.hessian import hessian2d
 from pnr_tpu_torch.ops.interp import trilinear
 from pnr_tpu_torch.ops.zncc_exact import ExactPatchEngine, exact_sums_plain, slab_plan
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PLANES = {
     "line": lambda: plane_tube()[0],
     "line_steep_ragged": lambda: plane_tube((1, 61, 83), angle=1.1, seed=6)[0],

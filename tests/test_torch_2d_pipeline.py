@@ -14,21 +14,39 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_phantoms as phantoms
 import test_phantom_neuron as jax_phantom
+from _torch_once import once
 from pnr_tpu.io.swc import read_swc, save_nodelist
 from pnr_tpu.utils.swc_compare import compare_swc
 from pnr_tpu_torch.pipeline import reconstruct
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 MODES = ["exact", "tube"]
 
 
 @pytest.fixture(scope="module", params=MODES)
 def runs(request, tmp_path_factory):
+    mode = request.param
+    return mode, once(tmp_path_factory, f"2d_pipeline_{mode}", lambda: _both(mode, tmp_path_factory))
+
+
+def _both(mode, tmp_path_factory):
     from pnr_tpu.pipeline import reconstruction_func as jax_reconstruction
 
-    cfg = dataclasses.replace(jax_phantom.CFG, zdist=1.0, zncc_mode=request.param)
+    cfg = dataclasses.replace(jax_phantom.CFG, zdist=1.0, zncc_mode=mode)
     vol, gold = phantoms.branching_neuron_phantom_2d()
     tmp = tmp_path_factory.mktemp("plane")
     out = {}
@@ -39,7 +57,7 @@ def runs(request, tmp_path_factory):
         path = str(tmp / f"{name}.swc")
         save_nodelist(res.tree, path)
         out[name] = (res, compare_swc(read_swc(path), gold, dist=4.0, resample=1.0))
-    return request.param, out
+    return out
 
 
 def test_2d_seed_sets_equal_jax(runs):

@@ -9,11 +9,24 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
+from _torch_once import once
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.hostpath import threefry as tf
 from pnr_tpu_torch.pipeline import reconstruct
 from pnr_tpu_torch.pipeline import reconstruction_batch, reconstruction_func
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CFG = PNRConfig(
     sigmas=(2.0,), somaradius=0, tolerance=10.0, znccth=0.5, kappa=2.0,
@@ -49,10 +62,12 @@ def batch(vols, cfg=CFG, **kw):
 
 
 @pytest.fixture(scope="module", params=["tube", "exact"])
-def three(request):
+def three(request, tmp_path_factory):
     cfg = dataclasses.replace(CFG, zncc_mode=request.param)
     vols = [tube_stack(i) for i in range(3)]
-    return cfg, vols, batch(vols, cfg, prefetch=False)
+    off = once(tmp_path_factory, f"batch_three_{request.param}",
+               lambda: batch(vols, cfg, prefetch=False))
+    return cfg, vols, off
 
 
 def test_prefetch_is_bitwise_prefetch_off(three):
@@ -158,20 +173,26 @@ def test_front_device_bytes():
     peaks (pipeline/reconstruct.py); at the main stack the model gives the
     peaks chip_smoke.py measured on the card (PERF.md, PR 9): 13 bytes a
     voxel in exact mode with and without the directions kept, 73 in tube
-    mode and 76 with them."""
+    mode and 76 with them; each plus the stage graphs the warm thread
+    captures while the front runs, STAGE_GRAPH_BYTES for each of the two
+    chunk slots a wave of 128 seeds fills."""
     shape = (128, 640, 640)
     n = 128 * 640 * 640
-    exact = dataclasses.replace(CFG, sigmas=(2.0, 4.0, 6.0), zncc_mode="exact")
+    g = 2 * reconstruct.STAGE_GRAPH_BYTES
+    exact = dataclasses.replace(CFG, sigmas=(2.0, 4.0, 6.0), zncc_mode="exact", wave_size=128)
     held, peak = reconstruct.front_device_bytes(shape, exact)
-    assert held == n and peak == reconstruct.FUSED_PEAK_BYTES_PER_VOXEL * n
+    assert held == n + g and peak == reconstruct.FUSED_PEAK_BYTES_PER_VOXEL * n + g
     tube = dataclasses.replace(exact, zncc_mode="tube")
     held, peak = reconstruct.front_device_bytes(shape, tube)
-    assert held == 36 * n
-    assert peak == (36 + reconstruct.TUBE_BUILD_PEAK_BYTES_PER_VOXEL + 1) * n == 73 * n
+    assert held == 36 * n + g
+    assert peak == (36 + reconstruct.TUBE_BUILD_PEAK_BYTES_PER_VOXEL + 1) * n + g == 73 * n + g
     mid = dataclasses.replace(exact, save_midres=True)
-    assert reconstruct.front_device_bytes(shape, mid) == (4 * n, 13 * n)
+    assert reconstruct.front_device_bytes(shape, mid) == (4 * n + g, 13 * n + g)
     tube_mid = dataclasses.replace(tube, save_midres=True)
-    assert reconstruct.front_device_bytes(shape, tube_mid) == (39 * n, (73 + 3) * n)
+    assert reconstruct.front_device_bytes(shape, tube_mid) == (39 * n + g, (73 + 3) * n + g)
     unfused = dataclasses.replace(exact, fused_frangi=False)
     assert (reconstruct.front_device_bytes(shape, unfused)[1]
-            == reconstruct.UNFUSED_PEAK_BYTES_PER_VOXEL * n)
+            == reconstruct.UNFUSED_PEAK_BYTES_PER_VOXEL * n + g)
+    # a wave of 8 seeds fills one slot
+    assert (reconstruct.front_device_bytes(shape, dataclasses.replace(exact, wave_size=8))[0]
+            == n + reconstruct.STAGE_GRAPH_BYTES)

@@ -11,13 +11,26 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.graph.build import TraceCommitter
 from pnr_tpu_torch.graph.nodes import NodeList
 from pnr_tpu_torch.pipeline import reconstruction_func
 from pnr_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
+from _torch_once import once
 from test_pipeline import tube_phantom
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CFG = PNRConfig(
     sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=2.0, step=2, ni=25,
@@ -113,8 +126,8 @@ def test_resume_wrong_seed_count_raises(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def full():
-    return run(tube_phantom())
+def full(tmp_path_factory):
+    return once(tmp_path_factory, "checkpoint_full", lambda: run(tube_phantom()))
 
 
 def test_resume_after_midwave_cap(tmp_path, full):

@@ -10,12 +10,24 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from pnr_tpu_torch import cli
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.io.swc import read_swc
 from pnr_tpu_torch.io.volume import save_volume
 from test_pipeline import tube_phantom
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PARAMS = ["2,3", "0", "10", "0.5", "2", "2", "25", "12", "2", "4", "9"]
 

@@ -16,6 +16,17 @@ from pnr_tpu.ops.gaussian import gaussian_kernel
 from pnr_tpu.ops.pallas_conv import _pallas_conv, _pallas_conv_yx
 from pnr_tpu_torch.ops import conv, gaussian, hessian
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 G1 = (-0.5, 0.0, 0.5)
 G2 = (-0.5 * 9.0, 0.0, 0.5 * 9.0)  # sigma 3's second-difference taps
 

@@ -30,6 +30,17 @@ from pnr_tpu_torch.ops.zncc_exact import (
     smem_bytes,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: the kernel's cluster size limit (csrc/zncc_exact.cu: kMaxCluster)
 MAX_CLUSTER = 8
 

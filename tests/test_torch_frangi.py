@@ -21,6 +21,16 @@ from pnr_tpu_torch.ops.frangi import normalize_to_u8
 from pnr_tpu_torch.ops.frangi_fused import frangi3d_fused
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def reference(case, engine):
     """JAX outputs as numpy: the fused kernel in interpret mode, or XLA."""

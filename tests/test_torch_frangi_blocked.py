@@ -24,6 +24,17 @@ from pnr_tpu_torch.ops import frangi_blocked as pfb
 from pnr_tpu_torch.ops.frangi import frangi3d
 from pnr_tpu_torch.pipeline import reconstruct
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIGMAS = (2.0, 3.0)
 
 

@@ -20,6 +20,17 @@ from pnr_tpu.hostpath import host_reconstruction_func as jax_host
 from pnr_tpu_torch import cli, hostpath
 from pnr_tpu_torch.hostpath import host_reconstruction_func
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PARAMS = ["2,3", "0", "10", "0.5", "2", "2", "20", "16", "2", "4", "9"]
 
 

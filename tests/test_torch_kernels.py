@@ -1284,10 +1284,11 @@ def _trace_counts():
 
 def _drive_waves(tracker, waves, use_graphs):
     """Each (field, n traces) wave as the wave loop runs it: `trace_init`
-    per TRACE_CHUNK slot, then every stage, eagerly (`trace_stage`) or
-    through the tracker's stage-graph runner, with a kill mask that retires
-    every third trace from the third stage on. Returns per wave the packed
-    estimates of every stage and the final carries, on the host."""
+    per TRACE_CHUNK slot, then every stage at STAGE_ITERS iterations,
+    eagerly (`trace_stage`) or through the tracker's stage-graph runner of
+    the field, with a kill mask that retires every third trace from the
+    third stage on. Returns per wave the packed estimates of every stage
+    and the final carries, on the host."""
     from pnr_tpu_torch.hostpath import threefry as tf
     from pnr_tpu_torch.smc.tracker import trace_keys
 
@@ -1303,6 +1304,8 @@ def _drive_waves(tracker, waves, use_graphs):
                   for b in range(0, n, tracker.TRACE_CHUNK)]
         runner = tracker.stage_graphs(field) if use_graphs else None
         assert (runner is not None) == use_graphs
+        if runner is not None:
+            runner.join_warm()
         carries, packs = [], []
         for c, slc in enumerate(slices):
             carry, _ = tracker.trace_init(field, sp[slc], sd[slc], keys[slc])
@@ -1311,16 +1314,16 @@ def _drive_waves(tracker, waves, use_graphs):
                 runner.load(c, carry)
         ni, stage = tracker.cfg.ni, tracker.STAGE_ITERS
         for k, it0 in enumerate(range(1, ni, stage)):
-            n_it = min(stage, ni - it0)
             for c, slc in enumerate(slices):
                 killed = np.zeros(slc.stop - slc.start, bool)
                 if k >= 2:
                     killed[::3] = True
                 if runner is not None:
-                    packs.append(runner.stage(c, keys[slc], it0, n_it, killed).numpy())
+                    packs.append(runner.stage(c, keys[slc], it0, killed).numpy())
                     continue
                 carries[c], packed = tracker.trace_stage(
-                    field, keys[slc], carries[c], it0, n_it, torch.from_numpy(killed).to(field.device))
+                    field, keys[slc], carries[c], it0, stage,
+                    torch.from_numpy(killed).to(field.device))
                 packs.append(packed.cpu().numpy())
         if runner is not None:
             runner.finish()
@@ -1330,14 +1333,24 @@ def _drive_waves(tracker, waves, use_graphs):
     return out
 
 
+def _same_waves(eager, graph):
+    for (pa, ca), (pb, cb) in zip(eager, graph):
+        assert len(pa) == len(pb)
+        for a, b in zip(pa, pb):
+            assert np.array_equal(a, b)
+        for a, b in zip(ca, cb):
+            for x, y in zip(a, b):
+                assert np.array_equal(x, y)
+
+
 @pytest.mark.parametrize("mode", ["exact", "tube"])
 def test_stage_graphs_bitwise_eager_stages(dev, mode):
     """The stage-graph runner against the eager stages: two waves on one
     field (256 traces in two slots, then 90 reusing slot 0 at a new T) and
     a wave on a second field, with a kill mask: bitwise equal packed
     estimates and carries, equal launch counts, and the routes of
-    `StagePlan` (one capture per key that runs twice; the new field
-    captures anew)."""
+    `StagePlan` (a key captured at its first stage, replayed after; the
+    second field has a runner of its own, which captures anew)."""
     from pnr_tpu_torch.smc import graphs
     from pnr_tpu_torch.smc.tracker import BatchedTracker
 
@@ -1354,33 +1367,70 @@ def test_stage_graphs_bitwise_eager_stages(dev, mode):
         runs[use] = (result, [a - b for a, b in zip(_trace_counts(), before)],
                      graphs.CAPTURES - caps, graphs.REPLAYS - reps)
         if use:
-            # the second field's routes, one slot of T=128: the full stages'
-            # key runs eagerly, is captured, then replays; the last, shorter
-            # stage's key runs once, eagerly
-            full, rest = divmod(cfg.ni - 1, tracker.STAGE_ITERS)
-            assert rest and full >= 3
-            assert tracker._stage_graphs.routes == {"eager": 2, "capture": 1,
-                                                     "replay": full - 2}
+            # the second field's runner, one slot of T=128: captured at its
+            # first stage, replayed at every later one
+            stages = -(-(cfg.ni - 1) // tracker.STAGE_ITERS)
+            assert stages >= 3
+            assert tracker.stage_graphs(fields[1]).routes == {"capture": 1,
+                                                               "replay": stages - 1}
+            assert tracker.stage_graphs(fields[0]).routes["capture"] == 3
     (eager, n_eager, c0, r0), (graph, n_graph, caps, reps) = runs[False], runs[True]
     assert (c0, r0) == (0, 0)
     # keys (slot, T, n_it) captured: (0, 128, S), (1, 128, S), (0, 90, S), then (0, 128, S)
-    # again on the second field
+    # on the second field
     assert caps == 4 and reps > caps
     assert n_graph == n_eager and n_eager[1 if mode == "tube" else 0] > 0
-    for (pa, ca), (pb, cb) in zip(eager, graph):
-        assert len(pa) == len(pb)
-        for a, b in zip(pa, pb):
-            assert np.array_equal(a, b)
-        for a, b in zip(ca, cb):
-            for x, y in zip(a, b):
-                assert np.array_equal(x, y)
+    _same_waves(eager, graph)
 
 
 @pytest.mark.parametrize("mode", ["exact", "tube"])
-def test_main_path_graphs_bitwise_eager(dev, mode):
-    """reconstruction_func on the card with stage graphs (the default)
-    against `BatchedTracker(..., graphs=False)`: bitwise the same tree, n0
-    and trace count, the same launches, and graph replays in the run."""
+def test_warm_thread_graphs_replay_bitwise_eager_stages(dev, mode):
+    """`warm_async` captures the two slots of a full wave on its thread
+    (positions ones, keys fold_in(key(0), i)); a wave of 256 traces then
+    replays those graphs at every stage, capturing none on the tracing
+    thread, and gives bitwise the eager stages' estimates and carries. The
+    warm thread's `trace_init` launches are real and counted: two on the
+    tracer's counter."""
+    from pnr_tpu_torch.smc import graphs
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    cfg = _graph_cfg(mode)
+    vol = torch.from_numpy(small_stack()).to(dev)
+    eager_tracker = BatchedTracker(cfg, dev, graphs=False)
+    before = _trace_counts()
+    eager = _drive_waves(eager_tracker, [(eager_tracker.prepare_field(vol), 256)], False)
+    n_eager = [a - b for a, b in zip(_trace_counts(), before)]
+
+    tracker = BatchedTracker(cfg, dev)
+    field = tracker.prepare_field(vol)
+    before = _trace_counts()
+    caps = graphs.CAPTURES
+    th = tracker.warm_async(field)
+    assert th is not None
+    th.join()
+    runner = tracker.stage_graphs(field)
+    runner.join_warm()
+    assert runner.warm_captures == 2 and graphs.CAPTURES - caps == 2 and runner.warm_s > 0
+    graph = _drive_waves(tracker, [(field, 256)], True)
+    torch.cuda.synchronize()
+    n_graph = [a - b for a, b in zip(_trace_counts(), before)]
+    assert runner.routes == {"capture": 0, "replay": 2 * -(-(cfg.ni - 1) // tracker.STAGE_ITERS)}
+    tracer = 1 if mode == "tube" else 0
+    n_eager[tracer] += 2
+    assert n_graph == n_eager
+    _same_waves(eager, graph)
+    tracker.drop_stage_graphs(field)
+    assert tracker.graph_log[-1]["warm_captures"] == 2
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_main_path_graphs_bitwise_eager(dev, mode, monkeypatch):
+    """reconstruction_func on the card with stage graphs (the default),
+    with the warm thread and without it (PNR_TPU_NO_WARM_ASYNC=1), against
+    `BatchedTracker(..., graphs=False)`: bitwise the same tree, n0 and trace
+    count, graph replays in the graph runs, the same launches but the warm
+    thread's `trace_init` (two on the tracer's counter), and with the warm
+    thread no capture on the tracing thread."""
     from pnr_tpu_torch.pipeline import reconstruction_func
     from pnr_tpu_torch.smc import graphs
     from pnr_tpu_torch.smc.tracker import BatchedTracker
@@ -1389,48 +1439,82 @@ def test_main_path_graphs_bitwise_eager(dev, mode):
     vol = small_stack()
     counters = PATH_COUNTERS[mode]
     runs = []
-    for use in (True, False):
+    for use, warm in ((True, True), (True, False), (False, False)):
+        if warm:
+            monkeypatch.delenv("PNR_TPU_NO_WARM_ASYNC", raising=False)
+        else:
+            monkeypatch.setenv("PNR_TPU_NO_WARM_ASYNC", "1")
         before = [getattr(m, a) for m, a in counters]
         reps = graphs.REPLAYS
-        res = reconstruction_func(vol, cfg, verbose=False, device="cuda",
-                                  _tracker=BatchedTracker(cfg, dev, graphs=use))
+        tracker = BatchedTracker(cfg, dev, graphs=use)
+        res = reconstruction_func(vol, cfg, verbose=False, device="cuda", _tracker=tracker)
         runs.append((res, [getattr(m, a) - b for (m, a), b in zip(counters, before)],
-                     graphs.REPLAYS - reps))
-    (g, n_g, reps_g), (e, n_e, reps_e) = runs
-    assert reps_g > 0 and reps_e == 0
-    assert n_g == n_e
-    assert g.trace_count == e.trace_count > 0
-    for f in ("x", "y", "z", "sig", "corr"):
-        assert np.array_equal(np.asarray(getattr(g.tree, f)), np.asarray(getattr(e.tree, f)))
-        assert np.array_equal(np.asarray(getattr(g.n0, f)), np.asarray(getattr(e.n0, f)))
+                     graphs.REPLAYS - reps, tracker.graph_log[-1] if use else None))
+    (g, n_g, reps_g, log_g), (c, n_c, reps_c, log_c), (e, n_e, reps_e, _) = runs
+    assert reps_g > 0 and reps_c > 0 and reps_e == 0
+    assert log_g["warm_captures"] == 2 and log_g["routes"]["capture"] == 0
+    assert log_c["warm_captures"] == 0 and log_c["routes"]["capture"] > 0
+    tracer = 2 if mode == "tube" else 1
+    assert n_c == n_e
+    assert n_g[tracer] == n_e[tracer] + 2
+    assert n_g[:tracer] + n_g[tracer + 1:] == n_e[:tracer] + n_e[tracer + 1:]
+    for r in (g, c):
+        assert r.trace_count == e.trace_count > 0
+        for f in ("x", "y", "z", "sig", "corr"):
+            assert np.array_equal(np.asarray(getattr(r.tree, f)), np.asarray(getattr(e.tree, f)))
+            assert np.array_equal(np.asarray(getattr(r.n0, f)), np.asarray(getattr(e.n0, f)))
 
 
 @pytest.mark.parametrize("mode", ["exact", "tube"])
 def test_batch_graphs_prefetch_bitwise_eager_one_by_one(dev, mode):
-    """Two stacks through `reconstruction_batch` with prefetch on (stage
-    graphs captured while a worker runs the next front on its own stream;
-    each new field recaptures) against the stacks one by one with eager
-    stages (stack i keyed fold_in(key, i), as the batch keys it): bitwise
-    the same trees and n0, and the same launches."""
+    """Two stacks through `reconstruction_batch` with prefetch on (each
+    stack's graphs captured by its warm thread while a worker runs its
+    front on its own stream, the second while the first replays) against
+    the stacks one by one with eager stages (stack i keyed fold_in(key, i),
+    as the batch keys it): bitwise the same trees and n0, the same
+    launches but the warm threads' `trace_init` (two a stack on the
+    tracer's counter), and no capture on the tracing thread. The caller
+    synchronises the whole device at each result."""
     from pnr_tpu_torch.hostpath import threefry as tf
-    from pnr_tpu_torch.pipeline import reconstruction_batch, reconstruction_func
+    from pnr_tpu_torch.pipeline import reconstruct, reconstruction_batch, reconstruction_func
     from pnr_tpu_torch.smc import graphs
     from pnr_tpu_torch.smc.tracker import BatchedTracker
 
     vols = [small_stack(), small_stack()[:, ::-1].copy()]
     cfg = _graph_cfg(mode)
     counters = PATH_COUNTERS[mode]
-    before = [getattr(m, a) for m, a in counters]
-    caps = graphs.CAPTURES
-    batch = list(reconstruction_batch(vols, cfg, prefetch=True, device="cuda"))
-    n_batch = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
-    assert graphs.CAPTURES - caps >= 2  # at least one key a stack
+    made = []
+    real = reconstruct.BatchedTracker
+
+    def keep(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+
+    reconstruct.BatchedTracker = keep
+    try:
+        before = [getattr(m, a) for m, a in counters]
+        caps = graphs.CAPTURES
+        batch = []
+        for res in reconstruction_batch(vols, cfg, prefetch=True, device="cuda"):
+            # a caller may synchronise the whole device between results: no
+            # warm thread captures meanwhile (graphs.CaptureGate)
+            torch.cuda.synchronize()
+            batch.append(res)
+        n_batch = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    finally:
+        reconstruct.BatchedTracker = real
+    assert graphs.CAPTURES - caps == 4  # two slots a stack, on the warm threads
+    (tracker,) = made
+    assert [log["routes"]["capture"] for log in tracker.graph_log] == [0, 0]
+    assert [log["warm_captures"] for log in tracker.graph_log] == [2, 2]
     before = [getattr(m, a) for m, a in counters]
     key = tf.key_from_seed(cfg.seed)
     eager = [reconstruction_func(v, cfg, verbose=False, key=tf.fold_in(key, i), device="cuda",
                                  _tracker=BatchedTracker(cfg, dev, graphs=False))
              for i, v in enumerate(vols)]
-    assert n_batch == [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    n_eager = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    n_eager[2 if mode == "tube" else 1] += 2 * len(vols)
+    assert n_batch == n_eager
     for a, b in zip(batch, eager):
         assert a.trace_count == b.trace_count > 0
         for f in ("x", "y", "z", "sig", "corr"):

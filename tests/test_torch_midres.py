@@ -8,10 +8,23 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.pipeline import reconstruct_graph, reconstruction_func
+from _torch_once import once
 from test_pipeline import tube_phantom
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CFG = PNRConfig(
     sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=2.0, step=2, ni=25,
@@ -26,8 +39,9 @@ NODE_FIELDS = ("x", "y", "z", "sig", "corr", "type")
 
 
 @pytest.fixture(scope="module")
-def port():
-    return reconstruction_func(tube_phantom(), CFG, verbose=False, device="cpu")
+def port(tmp_path_factory):
+    return once(tmp_path_factory, "midres_port",
+                lambda: reconstruction_func(tube_phantom(), CFG, verbose=False, device="cpu"))
 
 
 def test_save_midres_returns_the_jax_keys(port):

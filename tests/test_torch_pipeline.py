@@ -19,11 +19,23 @@ import pytest
 import torch
 
 import test_phantom_neuron as phantom
+from _torch_once import once
 from pnr_tpu.graph.nodes import NodeList
 from pnr_tpu.io.swc import read_swc, save_nodelist
 from pnr_tpu.utils.swc_compare import compare_swc
 from pnr_tpu_torch import cli
 from pnr_tpu_torch.graph.refine import non_blurring
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dataclasses.replace(phantom.CFG, zncc_mode="exact", ni=40)
@@ -50,12 +62,12 @@ def _both(cfg, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return _both(CFG, tmp_path_factory)
+    return once(tmp_path_factory, "pipeline_exact", lambda: _both(CFG, tmp_path_factory))
 
 
 @pytest.fixture(scope="module")
 def tube_runs(tmp_path_factory):
-    return _both(phantom.CFG, tmp_path_factory)
+    return once(tmp_path_factory, "pipeline_tube", lambda: _both(phantom.CFG, tmp_path_factory))
 
 
 def test_seed_sets_match(runs):
@@ -134,7 +146,9 @@ def _run_cli(tmp_path, vol, mode, params):
     src = tmp_path / "stack.npy"
     np.save(src, vol)
     out, metrics = tmp_path / "out.swc", tmp_path / "m.json"
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one OpenMP thread, as tests/test_torch_multiprocess.py's children: the
+    # suite's workers share the host's cores
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [
             sys.executable, "-m", "pnr_tpu_torch", "-i", str(src), "-p", *params,

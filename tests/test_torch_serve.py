@@ -11,12 +11,23 @@ import time
 import numpy as np
 
 import pytest
+import torch
 
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.io.swc import read_swc
 from pnr_tpu_torch.io.volume import save_volume
 from pnr_tpu_torch.pipeline import reconstruction_batch
 from pnr_tpu_torch.pipeline.serve import watch_and_reconstruct as _watch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def watch_and_reconstruct(*args, **kwargs):

@@ -32,6 +32,17 @@ from pnr_tpu_torch.graph.nodes import SOMA, NodeList
 from pnr_tpu_torch.ops import gaussian, morphology, thresholds
 from pnr_tpu_torch.pipeline import reconstruct
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPES = [(3, 37, 53), (1, 64, 80), (5, 20, 9)]
 CFG = dataclasses.replace(jax_phantom.CFG, zncc_mode="exact", ni=40, somaradius=4)
 

@@ -15,13 +15,26 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_phantoms as phantoms
 import test_phantom_neuron as jax_phantom
+from _torch_once import once
 from pnr_tpu.io.swc import read_swc, save_nodelist
 from pnr_tpu.utils.swc_compare import compare_swc
 from pnr_tpu_torch.graph.nodes import SOMA
 from pnr_tpu_torch.pipeline import reconstruct
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 #: the phantom module's CFG in exact mode; ni 20 (traces of 40 voxels each
 #: way) keeps the file's time on one core under a minute: JAX's exact
@@ -31,6 +44,10 @@ CFG = dataclasses.replace(jax_phantom.CFG, zncc_mode="exact", ni=20, somaradius=
 
 @pytest.fixture(scope="module")
 def soma_runs(tmp_path_factory):
+    return once(tmp_path_factory, "soma_pipeline", lambda: _both(tmp_path_factory))
+
+
+def _both(tmp_path_factory):
     from pnr_tpu.pipeline import reconstruction_func as jax_reconstruction
 
     vol, gold = phantoms.multi_neuron_soma_phantom()

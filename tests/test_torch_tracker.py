@@ -17,6 +17,17 @@ from pnr_tpu.ops.zncc_exact import build_exact_bank
 from pnr_tpu.smc.tracker import BatchedTracker as JaxTracker
 from pnr_tpu_torch.smc.tracker import BatchedTracker, tables_from_numpy, trace_keys
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = PNRConfig(
     sigmas=(2.0, 3.0), znccth=0.3, kappa=3.0, step=2, ni=12, np=20,
     zdist=2.0, nodepervol=4, vol=9, zncc_mode="exact",

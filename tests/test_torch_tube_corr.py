@@ -22,6 +22,17 @@ from pnr_tpu_torch.ops.zncc import _FLT_MIN
 from pnr_tpu_torch.ops.zncc_fast import TubePatchEngine, build_tube_maps_packed
 from pnr_tpu_torch.ops.zncc_model import TubeZnccModel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STEP, ZDIST = 2.0, 2.0
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 

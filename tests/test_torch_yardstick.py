@@ -14,12 +14,24 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_phantoms as port_phantoms
 import test_phantom_neuron as jax_phantoms
 from pnr_tpu.utils.swc_compare import compare_swc as jax_compare_swc
 from pnr_tpu_torch.io.swc import read_swc
 from pnr_tpu_torch.utils.swc_compare import compare_swc
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,6 +22,16 @@ from pnr_tpu.ops.zncc_model import ZnccTemplates
 from pnr_tpu_torch.ops.zncc_exact import ExactPatchEngine
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_result(vol_name, sigmas, mode):
     vol = ZNCC_VOLUMES[vol_name]()

@@ -27,6 +27,17 @@ from pnr_tpu_torch.ops import zncc_fast as pzf
 from pnr_tpu_torch.ops.tube_corr import hat_sample_field_plain, hat_sample_patch_plain
 from pnr_tpu_torch.smc.tracker import BatchedTracker
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite's xdist workers share the host's cores
+    with each other and with XLA's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STEP, ZDIST = 2.0, 2.0
 
 
