@@ -60,7 +60,12 @@ Phases, each of which exits non-zero on failure:
    calls, the kernels line's `ms`, and alone; and per call inside a
    captured CUDA graph of 20 calls, `graph_ms` and `library_graph_ms`),
    their device time per launch read from torch.profiler, and the plain
-   chain timed;
+   chain timed; then [threefry]: the tracer's draws' kernel (csrc/
+   threefry.cu) bitwise its plain version and the host draws at the main
+   path's shapes (T=128, np 20, 8 and 16 iterations a stage; `trace_init`'s
+   one draw), timed with its plain version beside the host draws
+   (`stage_uniforms`) that the stages made before the draws moved to the
+   card;
 9. bf16 field: a forced bfloat16 field on a (64, 256, 256) noisy tube:
    tube_corr against its plain chain on it at the bars above, and the
    field against the float32 one: corr max error < 8e-3, sigma flips < 3%;
@@ -87,11 +92,16 @@ Phases, each of which exits non-zero on failure:
    and graphs captured by the warm thread while the front runs (the
    default; smc/graphs.py): trees, n0, seeds and trace counts bitwise, two
    keys, no capture on the tracing thread with the warm thread, the
-   tracer's launches two a `trace_init` and 2 x STAGE_ITERS a stage (the
-   eager route's plus the warm thread's `trace_init`); each run's seconds
-   and tracing seconds, stages by route, the warm thread's captures,
-   seconds and overlap with the front, the graphs' memory, then one eager
-   run under the profiler (the warm route's profile is the phase above);
+   tracer's launches two a `trace_init` and 2 x STAGE_ITERS a stage and
+   the draws' one a `trace_init` and one a stage (the eager route's plus
+   the warm thread's `trace_init`); each run's seconds and tracing
+   seconds, stages by route, the warm thread's captures, seconds and
+   overlap with the front, the graphs' memory, the tracing thread's host
+   milliseconds per stage it dispatched, split into the wave loop's
+   commits (every route; timed around the committer's calls) and, on the
+   graph routes, the staging writes, the replay call and the fetch wait, then
+   one eager run under the profiler (the warm route's profile is the phase
+   above);
 12. the exact and tube paths on a small stack on the card and on the CPU
    (plain versions) must agree; no module of jax or of pnr_tpu was loaded;
 13. [K2 2d], [maps 2d], [tube_corr 2d]: on the 2-D main plane (1, 4096,
@@ -226,8 +236,11 @@ and `launches_multiprocess`, and those of phases 35-37 under
 `launches_trace_wave_tube` and `launches_alt`, and the graph replays of
 the tracer's stages in run 1 of the exact and tube main paths under
 `replays_exact` and `replays_tube`, and the captures of their warm
-threads under `warm_captures_exact` and `warm_captures_tube`); the last
-line is
+threads under `warm_captures_exact` and `warm_captures_tube`; the row
+`threefry` is the tracer's draws, no TPU kernel's counterpart: its
+`replaces` names JAX's `_uniforms`, its times are at the exact stage's
+shape with every shape under `shapes`, and its launches are those of
+every path above); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -292,6 +305,26 @@ HAT_ROW_PLANE_FLOPS = HAT_ROW_FLOPS - 7 - 8 - 4 - 24
 #: arithmetic, a clamp, the gate, a division and a square root (~8 each)
 #: and the running max
 ZNCC_FLOPS = 30
+#: 32-bit integer operations/s outside the tensor cores: 64 INT32 lanes an
+#: SM (half its 128 float32 lanes), 132 SMs, at the clock of the float32
+#: peak (PEAK_F32_FLOP_S = 132 x 128 x 2 FLOPs x 1.98 GHz)
+PEAK_INT32_OP_S = 132 * 64 * 1.98e9
+#: 32-bit integer operations of one Threefry-2x32 hash: 20 rounds of an
+#: add, a rotate by a constant (one funnel shift) and a xor; six key
+#: injections of two adds each (`x1 += k + c` is one three-input add); the
+#: third key (one three-input xor)
+THREEFRY_HASH_OPS = 20 * 3 + 6 * 2 + 1
+
+
+def threefry_ops(n_it, t, npart):
+    """(32-bit integer operations, float32 operations) the tracer's draws
+    need for n_it iterations of t traces at npart draws each: a fold_in
+    hash per (trace, step), two steps an iteration; a counter hash per
+    draw, npart + 1 an iteration; per draw the halves' xor and the
+    mantissa bits (a shift and an or), then a subtraction and a clamp."""
+    draws = n_it * t * (npart + 1)
+    hashes = n_it * t * 2 + draws
+    return hashes * THREEFRY_HASH_OPS + draws * 3, draws * 2
 
 
 def check(cond, msg):
@@ -402,12 +435,12 @@ def graph_turns_ms(torch, fns, calls=20, reps=21):
     return [statistics.median(t) for t in times]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, int_ops=0):
     """The least time (ms) the card could take: the larger of the bytes
-    over the memory rate and the FLOPs over the float32 rate, and which of
-    the two sets it."""
+    over the memory rate and the operations over their rates (float32
+    FLOPs and 32-bit integer operations), and which of the two sets it."""
     by_bytes = nbytes / PEAK_BYTES_S * 1e3
-    by_ops = flops / PEAK_F32_FLOP_S * 1e3
+    by_ops = (flops / PEAK_F32_FLOP_S + int_ops / PEAK_INT32_OP_S) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -1161,6 +1194,89 @@ def phase_tube_corr(torch, card, field):
     return k5, {"max_abs_err": worst6, **k6}
 
 
+def host_ms(fn, reps=21):
+    """Median host milliseconds of fn() over `reps` calls after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+#: the draws' shapes on the main path: (label, iterations, draws a trace)
+THREEFRY_SHAPES = (("exact stage", 8, 20), ("tube stage", 16, 20), ("trace_init", 1, 1))
+
+
+def phase_threefry(torch, card):
+    """[threefry]: the tracer's draws' kernel (csrc/threefry.cu) against its
+    plain version on the same card tensors at the main path's shapes (a
+    chunk of T = 128 traces at np 20: 8 iterations a stage in exact mode,
+    16 in tube mode; `trace_init`'s one iteration of one draw), at it0 1 and
+    2**30 + 3 (steps past 2**31): bitwise, and bitwise the host draws at
+    it0 1. Each shape timed: the kernel in turns with the plain version
+    (CUDA events, per call in runs of 20 back to back, and alone), beside
+    the host draws a stage made before (`stage_uniforms` on the host, and
+    with the copies of its two arrays to the card) and the bound."""
+    from pnr_tpu_torch.hostpath import threefry as tf
+    from pnr_tpu_torch.ops import threefry
+    from pnr_tpu_torch.smc.tracker import trace_keys
+
+    dev = torch.device(DEVICE)
+    t = 128
+    raw = trace_keys(tf.key_from_seed(0), np.arange(t))
+    keys = threefry.key_tensor(raw, dev)
+    out = {}
+    for label, n_it, npart in THREEFRY_SHAPES:
+        err = 0.0
+        for it0 in ((0,) if n_it == 1 else (1, 2**30 + 3)):
+            it = torch.tensor(it0, dtype=torch.int32, device=dev)
+            u1, ru = threefry.stage_draws(keys, it, n_it, npart)
+            pu1, pru = threefry.stage_draws_plain(keys, it, n_it, npart)
+            err = max(err, float((u1 - pu1).abs().max()), float((ru - pru).abs().max()))
+            check(torch.equal(u1, pu1) and torch.equal(ru, pru),
+                  f"[threefry] {label} at it0 {it0}: bitwise the plain version")
+            if it0 < 2:
+                hu1, hru = tf.stage_uniforms(raw, it0, n_it, npart)
+                check(np.array_equal(u1.cpu().numpy(), hu1) and np.array_equal(ru.cpu().numpy(), hru),
+                      f"[threefry] {label}: bitwise the host draws")
+        it = torch.tensor(0 if n_it == 1 else 1, dtype=torch.int32, device=dev)
+        it0 = int(it)
+
+        def kern():
+            threefry.stage_draws(keys, it, n_it, npart)
+
+        def plain():
+            threefry.stage_draws_plain(keys, it, n_it, npart)
+
+        ms, plain_ms = time_turns_ms(torch, [kern, plain], calls=20)
+        alone_ms, plain_alone_ms = time_turns_ms(torch, [kern, plain])
+
+        def host_copy():
+            for a in tf.stage_uniforms(raw, it0, n_it, npart):
+                torch.from_numpy(a).to(dev)
+            torch.cuda.synchronize()
+
+        host = host_ms(lambda: tf.stage_uniforms(raw, it0, n_it, npart))
+        host_to_card = host_ms(host_copy)
+        draws = n_it * t * (npart + 1)
+        int_ops, flops = threefry_ops(n_it, t, npart)
+        row = {"max_abs_err": err, "ms": ms, "alone_ms": alone_ms, "plain_ms": plain_ms,
+               "plain_alone_ms": plain_alone_ms, "host_draw_ms": host,
+               "host_draw_and_copy_ms": host_to_card,
+               **bound(t * 8 + 4 + 4 * draws, flops, int_ops),
+               "library_ms": None, "shape": {"T": t, "n_it": n_it, "np": npart}}
+        print(f"[threefry] {label} (T={t}, {n_it} iterations, {npart} draws a trace): bitwise the "
+              f"plain version (max|d| {err}); kernel {ms:.4f} ms back to back, {alone_ms:.4f} "
+              f"alone; plain {plain_ms:.4f}, {plain_alone_ms:.4f}; the host draws "
+              f"(`stage_uniforms`) {host:.4f} ms, with the copies to the card "
+              f"{host_to_card:.4f}; bound {row['bound_ms']:.6f} ms ({row['bound_by']}); no "
+              f"library call draws jax.random's Threefry [{card}]", flush=True)
+        out[label] = row
+    return out
+
+
 def phase_bf16(torch):
     """A forced bfloat16 field: tube_corr against its plain chain on it,
     and the field against the float32 one through the tracer's engine."""
@@ -1202,7 +1318,8 @@ def cli_argv(src, workdir, tag, mode, params=MAIN_PARAMS):
 
 def counters():
     """Every kernel launch counter of the port, by name."""
-    from pnr_tpu_torch.ops import conv, cuda, frangi_fused, gaussian, tube_corr, zncc_exact
+    from pnr_tpu_torch.ops import conv, cuda, frangi_fused, gaussian, threefry, tube_corr
+    from pnr_tpu_torch.ops import zncc_exact
     from pnr_tpu_torch.smc import graphs
 
     return {
@@ -1214,6 +1331,8 @@ def counters():
         "tube_corr_trace": (tube_corr, "TRACE_LAUNCHES"),
         "tube_corr_score": (tube_corr, "SCORE_LAUNCHES"),
         "self_check": (cuda, "PROBE_LAUNCHES"),
+        # the tracer's draws: one a stage and one a trace_init
+        "threefry": (threefry, "LAUNCHES"),
         # the tracer's stage graphs (smc/graphs.py): each replay has added
         # its stage's K2 or tube_corr launches to their counters above
         "graph_replays": (graphs, "REPLAYS"),
@@ -1234,14 +1353,16 @@ def read_counters():
 
 #: the kernels each path must launch
 PATH_KERNELS = {
-    "exact": ("frangi3d_fused", "exact_sums"),
-    "tube": ("frangi3d_fused", "conv1d_along_axis", "tube_corr_trace", "tube_corr_score"),
-    "unfused": ("conv1d_axis", "conv_yx", "exact_sums"),
+    "exact": ("frangi3d_fused", "exact_sums", "threefry"),
+    "tube": ("frangi3d_fused", "conv1d_along_axis", "tube_corr_trace", "tube_corr_score",
+             "threefry"),
+    "unfused": ("conv1d_axis", "conv_yx", "exact_sums", "threefry"),
     # the soma stage's xy Gaussian on K3, then the exact path
-    "soma": ("conv1d_axis", "frangi3d_fused", "exact_sums"),
+    "soma": ("conv1d_axis", "frangi3d_fused", "exact_sums", "threefry"),
     # the 2-D filter's Gaussians on K3; the 2-D map build on K3
-    "2d exact": ("conv1d_axis", "exact_sums"),
-    "2d tube": ("conv1d_axis", "conv1d_along_axis", "tube_corr_trace", "tube_corr_score"),
+    "2d exact": ("conv1d_axis", "exact_sums", "threefry"),
+    "2d tube": ("conv1d_axis", "conv1d_along_axis", "tube_corr_trace", "tube_corr_score",
+                "threefry"),
 }
 
 
@@ -1309,6 +1430,32 @@ def counting_stages():
         BatchedTracker.trace_stage, graphs.StageGraphs.stage = real
 
     return counts, undo
+
+
+def timing_commits():
+    """Time the wave loop's commits (`TraceCommitter.commit_steps` and
+    `finish_trace`, which it calls between stages on the tracing thread);
+    returns the seconds and an undo."""
+    from pnr_tpu_torch.graph.build import TraceCommitter
+
+    spent = {"s": 0.0}
+    real = (TraceCommitter.commit_steps, TraceCommitter.finish_trace)
+
+    def timed_call(fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent["s"] += time.perf_counter() - t0
+        return wrapped
+
+    TraceCommitter.commit_steps, TraceCommitter.finish_trace = (timed_call(f) for f in real)
+
+    def undo():
+        TraceCommitter.commit_steps, TraceCommitter.finish_trace = real
+
+    return spent, undo
 
 
 def phase_main(torch, card, src, workdir, mode, label=None, shape=MAIN_SHAPE,
@@ -1585,6 +1732,7 @@ def phase_graphs(torch, card, main_np, mode):
         stages, undo_stages = counting_stages()
         inits, undo_inits = counting_inits()
         scoring, undo_scoring = counting_seed_scoring()
+        commits, undo_commits = timing_commits()
         reset_counters()
         try:
             res, wall = timed(torch, lambda: reconstruction_func(
@@ -1594,6 +1742,7 @@ def phase_graphs(torch, card, main_np, mode):
             undo_stages()
             undo_inits()
             undo_scoring()
+            undo_commits()
         n = read_counters()
         # the run's runner (none on the eager route; on the CPU none at all)
         log = tracker.graph_log[-1] if tracker.graph_log else None
@@ -1603,6 +1752,13 @@ def phase_graphs(torch, card, main_np, mode):
                 f"{log['warm_s'] - log['warm_wait_s']:.4f} s of them overlapping the front "
                 f"(the tracing thread waited {log['warm_wait_s']:.4f} s); captures took "
                 f"{log['capture_s']:.4f} s") if log else ""
+        # the tracing thread's host ms per stage it dispatched: the wave
+        # loop's commits, and on a runner its staging, replay and fetch
+        host_s = {"commits": commits["s"], **(log["host_s"] if log else {})}
+        info["host_ms_per_stage"] = {k: 1e3 * v / max(1, stages["stages"])
+                                     for k, v in host_s.items()}
+        warm += "; host ms per stage " + json.dumps(
+            {k: round(v, 4) for k, v in info["host_ms_per_stage"].items()})
         print(f"[{tag}] {route}: {wall:.3f} s, tracing {info['tracing_s']:.4f} s, "
               f"{res.trace_count} traces, {len(res.tree) - 1} SWC nodes; {stages['stages']} stages"
               f" on the tracing thread" + (f", by route {json.dumps(log['routes'])}, "
@@ -1618,9 +1774,13 @@ def phase_graphs(torch, card, main_np, mode):
         check(traced == want, f"[{tag}] {route}: the tracer launched {tracer} {traced} times, "
                               f"2 x {inits['inits']} inits + 2 x {tracker.STAGE_ITERS} x "
                               f"{stages['stages']} stages = {want}")
-        extra = 2 * log["warm_inits"] if log else 0
+        check(n["threefry"] == inits["inits"] + stages["stages"],
+              f"[{tag}] {route}: the draws' kernel launched {n['threefry']} times, one a "
+              f"trace_init ({inits['inits']}) and one a stage ({stages['stages']})")
+        warm_inits = log["warm_inits"] if log else 0
+        extra = {tracer: 2 * warm_inits, "threefry": warm_inits}
         kernels = {k: v for k, v in n.items() if not k.startswith(("graph_", "warm_"))}
-        want_k = {k: v + (extra if k == tracer else 0) for k, v in ref[1].items()
+        want_k = {k: v + extra.get(k, 0) for k, v in ref[1].items()
                   if not k.startswith(("graph_", "warm_"))}
         check(kernels == want_k, f"[{tag}] {route}: the eager run's kernel launches, plus the warm "
                                  f"thread's trace_init ({extra})")
@@ -1647,6 +1807,11 @@ def phase_graphs(torch, card, main_np, mode):
         print(f"[{tag}] {key} (in turns) " + ", ".join(
             f"{route} {[round(r[key], 4) for r in rs]}" for route, rs in runs.items())
             + f" [{card}]", flush=True)
+    for route in runs:
+        print(f"[{tag}] {route}: the tracing thread's host ms per stage (the wave loop's "
+              f"commits; replayed: staging writes, replay call, fetch wait), per run: " + json.dumps(
+                  [{k: round(v, 4) for k, v in r["host_ms_per_stage"].items()}
+                   for r in runs[route]]) + f" [{card}]", flush=True)
     eager_s = statistics.median(r["s"] for r in runs["eager"])
     profile = phase_profile(
         torch, card, mode,
@@ -2009,7 +2174,7 @@ FRONT_STAGES = ("soma extraction", "frangi", "seed extraction", "seed selection 
 #: the serving path's kernels, as read from the launch counters
 BATCH_KERNELS = {"K1": ("frangi3d_fused",), "K2": ("exact_sums",),
                  "K3": ("conv1d_axis", "conv1d_along_axis"),
-                 "tube_corr": ("tube_corr_trace", "tube_corr_score")}
+                 "tube_corr": ("tube_corr_trace", "tube_corr_score"), "threefry": ("threefry",)}
 
 
 def kernel_launches(counts):
@@ -2332,9 +2497,9 @@ SHARDED_CK_SHAPE = (32, 256, 256)
 #: K3 on every shard's halo slab, then K2 or tube_corr (and the map build
 #: on K3)
 SHARDED_KERNELS = {
-    "exact": ("conv_yx", "conv1d_axis", "exact_sums"),
+    "exact": ("conv_yx", "conv1d_axis", "exact_sums", "threefry"),
     "tube": ("conv_yx", "conv1d_axis", "conv1d_along_axis", "tube_corr_trace",
-             "tube_corr_score"),
+             "tube_corr_score", "threefry"),
 }
 
 
@@ -2631,13 +2796,13 @@ def phase_sharded(torch, card, main_np, main_rows):
 #: the kernels each batch-over-a-mesh path must launch: the batch's unfused
 #: filter (K4 and K3; `frangi2d` on K3 for a plane), then K2 or tube_corr
 MESH_PATH_KERNELS = {
-    "batch dp exact": ("conv_yx", "conv1d_axis", "exact_sums"),
+    "batch dp exact": ("conv_yx", "conv1d_axis", "exact_sums", "threefry"),
     "batch dp tube": ("conv_yx", "conv1d_axis", "conv1d_along_axis", "tube_corr_trace",
-                      "tube_corr_score"),
-    "batch dp 2d": ("conv1d_axis", "exact_sums"),
-    "batch sharded": ("conv_yx", "conv1d_axis", "exact_sums"),
-    "serve sharded": ("conv_yx", "conv1d_axis", "exact_sums"),
-    "multiprocess": ("conv_yx", "conv1d_axis", "exact_sums"),
+                      "tube_corr_score", "threefry"),
+    "batch dp 2d": ("conv1d_axis", "exact_sums", "threefry"),
+    "batch sharded": ("conv_yx", "conv1d_axis", "exact_sums", "threefry"),
+    "serve sharded": ("conv_yx", "conv1d_axis", "exact_sums", "threefry"),
+    "multiprocess": ("conv_yx", "conv1d_axis", "exact_sums", "threefry"),
 }
 #: [multiprocess]: two processes, each with this many shards on the card
 MP_SHARDS_PER_PROCESS = 2
@@ -3042,7 +3207,7 @@ def phase_no_native(torch, card, main_np, flood_mask):
     check(np.array_equal(masks[0], flood_mask), "[no-native] the seeds are [flood]'s mask")
     check(res.n_raw_seeds == int(flood_mask.sum()) and len(res.tree) > 10,
           "[no-native] the run took those seeds and traced")
-    check(all(n[k] > 0 for k in PATH_KERNELS["exact"]), "[no-native] launched K1 and K2")
+    check(all(n[k] > 0 for k in PATH_KERNELS["exact"]), "[no-native] launched K1, K2 and threefry")
     return {"s": wall, "stages": res.timings, "launches": n}
 
 
@@ -3123,12 +3288,13 @@ def phase_sharded_step(torch, card, main_np, sharded_j8):
         check(all(np.array_equal(getattr(ref, f), getattr(unstaged, f))
                   for f in ("pos", "dir", "sig", "corr", "valid")),
               f"[trace_wave {mode}] staged bitwise unstaged")
-        want = (("conv_yx", "conv1d_axis", "exact_sums") if mode == "exact" else
-                ("conv_yx", "conv1d_axis", "tube_corr_trace"))
+        want = (("conv_yx", "conv1d_axis", "exact_sums", "threefry") if mode == "exact" else
+                ("conv_yx", "conv1d_axis", "tube_corr_trace", "threefry"))
         check(all(launches[k] > 0 for k in want) and launches["frangi3d_fused"] == 0,
               f"[{tag}] launched {', '.join(want)} and no K1")
         wave_k = "exact_sums" if mode == "exact" else "tube_corr_trace"
-        check(wave_launches[wave_k] > 0, f"[trace_wave {mode}] launched {wave_k}")
+        check(wave_launches[wave_k] > 0 and wave_launches["threefry"] > 0,
+              f"[trace_wave {mode}] launched {wave_k} and threefry")
         out[mode] = {"s": wall, "traces": len(ids), "handed_off": handed, "launches": launches,
                      "trace_wave": {"staged_s": wave_s, "unstaged_s": unstaged_s,
                                     "launches": wave_launches}}
@@ -3260,6 +3426,7 @@ def main() -> int:
     k2 = phase_k2(torch, card, main_vol)
     field, maps = phase_maps(torch, card, main_vol)
     k5, k6 = phase_tube_corr(torch, card, field)
+    draws = phase_threefry(torch, card)
     del main_vol, field
     phase_bf16(torch)
     torch.cuda.empty_cache()
@@ -3403,6 +3570,21 @@ def main() -> int:
          "source": "pnr_tpu_torch/csrc/conv.cu",
          "replaces": "pnr_tpu/ops/pallas_conv.py:227",
          "launches": launches["unfused"]["conv_yx"], **k4},
+        # not a TPU kernel: it replaces jax.random's Threefry inside JAX's
+        # jitted stage; times at the exact stage's shape, the others under
+        # "shapes"
+        {"name": "threefry", "route": "cuda",
+         "source": "pnr_tpu_torch/csrc/threefry.cu",
+         "replaces": "pnr_tpu/smc/tracker.py:327",
+         "launches": launches["exact"]["threefry"], "launches_tube": launches["tube"]["threefry"],
+         "launches_soma": launches["soma"]["threefry"],
+         "launches_2d": {m: launches[f"2d {m}"]["threefry"] for m in ("exact", "tube")},
+         "launches_unfused": launches["unfused"]["threefry"],
+         "launches_batch_exact": serving["batch exact"]["launches"]["threefry"],
+         "launches_batch_tube": serving["batch tube"]["launches"]["threefry"],
+         **{k: draws["exact stage"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")},
+         "max_abs_err": max(r["max_abs_err"] for r in draws.values()), "shapes": draws},
         # K7 is on no main path (the pipeline routes by device and never
         # probes): its launches are those of the build phase
         {"name": "self_check", "route": "cuda",
@@ -3415,7 +3597,7 @@ def main() -> int:
                        "tube_corr (tracer)": "tube_corr_trace",
                        "tube_corr (seed scoring)": "tube_corr_score",
                        "conv1d_axis": "conv1d_axis", "conv_yx": "conv_yx",
-                       "self_check": "self_check"}
+                       "self_check": "self_check", "threefry": "threefry"}
     for row in kernels:
         for mode in ("exact", "tube"):
             row[f"launches_sharded_{mode}"] = sharded[mode]["launches"][sharded_counter[row["name"]]]

@@ -128,3 +128,15 @@ def uniforms_per_trace(keys: np.ndarray, step: int, n: int) -> np.ndarray:
     return np.maximum(
         np.float32(0.0), float_bits.view(np.float32) - np.float32(1.0)
     )
+
+
+def stage_uniforms(keys: np.ndarray, it0: int, n_it: int, npart: int):
+    """A tracer stage's draws on the host: for iterations it0 .. it0+n_it-1
+    of the (T, 2) uint32 keys, the transition uniforms (n_it, T, npart) at
+    step 2i and the resampling offsets (n_it, T) at step 2i+1, bitwise the
+    JAX tracer's. The reference of the device draws (ops/threefry.py)."""
+    keys = np.asarray(keys).astype(np.uint32)
+    steps = range(it0, it0 + n_it)
+    u1 = np.stack([uniforms_per_trace(keys, 2 * i, npart) for i in steps])
+    ru = np.stack([uniforms_per_trace(keys, 2 * i + 1, 1)[:, 0] for i in steps])
+    return u1, ru

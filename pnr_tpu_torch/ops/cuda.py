@@ -61,6 +61,7 @@ _SIGNATURES = {
     "pnr_conv_yx": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P),
     "pnr_conv_yx_plan": (_I, _I, _I, _I, _I, _I, _P),
     "pnr_probe": (_P, _P, _I, _P),
+    "pnr_threefry_uniforms": (_P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 #: held while a wrapper adds to its module's launch counter, so that

@@ -52,6 +52,7 @@ from pnr_tpu_torch.pipeline.reconstruct import (
     _stack_front,
     reconstruct_graph,
 )
+from pnr_tpu_torch.ops.threefry import key_tensor
 from pnr_tpu_torch.smc.tracker import BatchedTracker, trace_keys
 from pnr_tpu_torch.utils.runtime import require_cuda
 
@@ -103,7 +104,8 @@ class _StackWave:
         ids = np.empty(t_real, np.int64)
         ids[0::2] = 2 * sel
         ids[1::2] = 2 * sel + 1
-        self.keys = trace_keys(stack_key, ids)
+        # on the stack's device once; each stage draws from them there
+        self.keys = key_tensor(trace_keys(stack_key, ids), field.device)
         with on(field.device):
             self.carry, self._est0 = tracker.trace_init(field, sp, sd, self.keys)
         self.est = np.zeros((t_real, cfg.ni, 9), np.float32)

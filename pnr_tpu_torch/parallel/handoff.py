@@ -24,7 +24,8 @@ the volume's coordinates: the tracer reads its slab through a
 `SlabFrame` (ops/slab.py), so a trace whose windows stay inside the slab
 computes bitwise what it computes on the whole volume, and a handed-off
 trace is bitwise the single-device trace, given the trace's keys (by
-global trace id) and its draws (by absolute iteration, `stage_uniforms`).
+global trace id) and its draws (by absolute iteration, drawn on the
+shard's device from its lanes' keys there).
 The slabs are aligned windows (`halo_exchange_z_aligned`) rather than
 JAX's edge-replicated ones, so the field is the whole volume's wherever a
 slab meets a volume border too. A trace stops where its centroid leaves
@@ -72,6 +73,7 @@ import torch
 
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.ops.slab import SlabFrame
+from pnr_tpu_torch.ops.threefry import key_tensor
 from pnr_tpu_torch.parallel.halo import halo_exchange_z_aligned
 from pnr_tpu_torch.parallel.multihost import exchange
 from pnr_tpu_torch.parallel.sharded import Mesh, on, shard_len
@@ -136,9 +138,11 @@ def build_fields(trackers: Trackers, mesh: Mesh, vs, halo: int, extent: int, is2
 class HandoffState:
     """The lanes of every shard: the tracker carries on the devices (None
     for another process's shard); keys, trace ids and live flags on the
-    host; `last` per shard the (2, T) [the centroid's migrating coordinate,
-    alive] of its last estimates, a device tensor, or a host array on a
-    multi-process mesh (None when the shard traced nothing)."""
+    host, and each local shard's keys on its device (`dkeys`, (T, 2)
+    int32, None for another process's shard); `last` per shard the (2, T)
+    [the centroid's migrating coordinate, alive] of its last estimates, a
+    device tensor, or a host array on a multi-process mesh (None when the
+    shard traced nothing)."""
 
     zl: int  # planes (rows) per shard
     carry: list
@@ -146,6 +150,7 @@ class HandoffState:
     ids: List[np.ndarray]
     live: List[np.ndarray]
     last: list
+    dkeys: list
 
 
 def _empty_carry(lanes: int, npart: int, device) -> tuple:
@@ -247,7 +252,7 @@ def build_handoff_tracer(
         tids = np.asarray(trace_ids, np.int64)
         valid = np.asarray(valid, bool)
         sd = np.asarray(seed_dir, np.float32)
-        state = HandoffState(shard_len(vs), [], [], [], [], [])
+        state = HandoffState(shard_len(vs), [], [], [], [], [], [])
         est0 = []
         for s, dev in enumerate(mesh.devices):
             sl = slice(s * t_lanes, (s + 1) * t_lanes)
@@ -258,21 +263,24 @@ def build_handoff_tracer(
             if not mesh.is_local(s):  # another process's shard
                 state.carry.append(None)
                 state.last.append(None)
+                state.dkeys.append(None)
                 est0.append(None)
                 continue
             f, frame = field[s]
             # only the valid lanes are traced; the pad lanes stay free
             lanes = np.nonzero(valid[sl])[0]
             with on(dev):
+                dkeys = key_tensor(keys, dev)
+                state.dkeys.append(dkeys)
                 if len(lanes) == t_lanes:
-                    carry, e0 = trackers[dev].trace_init(f, sp[sl], sd[sl], keys, frame)
+                    carry, e0 = trackers[dev].trace_init(f, sp[sl], sd[sl], dkeys, frame)
                 else:
                     carry = _empty_carry(t_lanes, cfg.np, dev)
                     e0 = torch.zeros((t_lanes, 9), dtype=torch.float32, device=dev)
                     if len(lanes):
                         idx = torch.from_numpy(lanes).to(dev)
                         sub, e_sub = trackers[dev].trace_init(
-                            f, sp[sl][lanes], sd[sl][lanes], keys[lanes], frame)
+                            f, sp[sl][lanes], sd[sl][lanes], dkeys.index_select(0, idx), frame)
                         _put_rows(carry, idx, sub)
                         e0.index_copy_(0, idx, e_sub)
                 state.last.append(torch.stack([e0[:, ci], carry[5].to(torch.float32)]))
@@ -365,6 +373,8 @@ def build_handoff_tracer(
             if local:
                 with on(dev):
                     carry[5] = carry[5] & torch.from_numpy(live[s]).to(dev)
+                    if arrivals[s]:  # the seated lanes' keys, on the device too
+                        state.dkeys[s] = key_tensor(keys, dev)
                 state.carry[s] = tuple(carry)
 
         # ---- advance the live lanes of every shard ----
@@ -384,12 +394,13 @@ def build_handoff_tracer(
                 none_dead = torch.zeros(len(lanes), dtype=torch.bool, device=dev)
                 if len(lanes) == t_lanes:
                     state.carry[s], pk = tracker.trace_stage(
-                        f, state.keys[s], state.carry[s], it0, n_it, none_dead, frame)
+                        f, state.dkeys[s], state.carry[s], it0, n_it, none_dead, frame)
                 else:
                     idx = torch.from_numpy(lanes).to(dev)
                     sub = tuple(a.index_select(0, idx) for a in state.carry[s])
                     sub, pk_sub = tracker.trace_stage(
-                        f, state.keys[s][lanes], sub, it0, n_it, none_dead, frame)
+                        f, state.dkeys[s].index_select(0, idx), sub, it0, n_it, none_dead,
+                        frame)
                     _put_rows(state.carry[s], idx, sub)
                     pk = torch.zeros((t_lanes, n_it, 9), dtype=torch.float32, device=dev)
                     pk.index_copy_(0, idx, pk_sub)

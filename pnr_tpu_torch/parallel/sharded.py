@@ -379,6 +379,7 @@ def build_local_trace_step(cfg, mesh: Mesh, seeds_per_shard: int,
 
     Returns step(vs, seed_pos (n*k, 3), seed_dir, base_key) -> host (n*k,
     ni, 9) estimates; lane i is keyed fold_in(base_key, i)."""
+    from pnr_tpu_torch.ops.threefry import key_tensor
     from pnr_tpu_torch.parallel.handoff import Trackers, build_fields
     from pnr_tpu_torch.smc.tracker import trace_keys
 
@@ -400,8 +401,9 @@ def build_local_trace_step(cfg, mesh: Mesh, seeds_per_shard: int,
             sl = slice(s * k, (s + 1) * k)
             tracker = trackers[dev]
             with on(dev):
-                carry, e0 = tracker.trace_init(f, sp[sl], sd[sl], keys[sl], frame)
-                _, packed = tracker.trace_stage(f, keys[sl], carry, 1, cfg.ni - 1,
+                kd = key_tensor(keys[sl], dev)
+                carry, e0 = tracker.trace_init(f, sp[sl], sd[sl], kd, frame)
+                _, packed = tracker.trace_stage(f, kd, carry, 1, cfg.ni - 1,
                                                 torch.zeros(k, dtype=torch.bool, device=dev), frame)
                 mine[s] = torch.cat([e0[:, None, :], packed], dim=1).cpu().numpy()
         return np.concatenate(_gather_shards(mesh, mine))

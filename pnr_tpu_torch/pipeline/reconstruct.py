@@ -76,6 +76,7 @@ from pnr_tpu_torch.ops.morphology import imerode_xy
 from pnr_tpu_torch.ops.thresholds import histogram256, maxentropy_th
 from pnr_tpu_torch.seeds.extract import decode_directions_device, seed_mask
 from pnr_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
+from pnr_tpu_torch.ops.threefry import key_tensor
 from pnr_tpu_torch.smc.tracker import TRACE_CHUNK, BatchedTracker, trace_keys
 from pnr_tpu_torch.utils.runtime import require_cuda
 
@@ -413,7 +414,8 @@ def _trace_and_commit_wave(
     sp = np.concatenate([sp, np.repeat(sp[:1], padn, axis=0)])
     sd = np.concatenate([sd, np.repeat(sd[:1], padn, axis=0)])
     ids = np.concatenate([ids, np.zeros(padn, np.int64)])
-    keys = trace_keys(base_key, ids)
+    # on the field's device once a wave; each stage draws from them there
+    keys = key_tensor(trace_keys(base_key, ids), field.device)
     slices = [slice(b, b + chunk) for b in range(0, tpad, chunk)]
     cursors = [committer.begin_trace() for _ in range(t_real)]
     killed = np.zeros(tpad, bool)
@@ -433,7 +435,7 @@ def _trace_and_commit_wave(
         if graphs is None:
             carries.append(carry)
         else:
-            graphs.load(c, carry)
+            graphs.load(c, carry, keys[slc])
         init_pend.append((slc, est0))
     for slc, est0 in init_pend:
         est[slc, 0] = est0.cpu().numpy()
@@ -481,7 +483,7 @@ def _trace_and_commit_wave(
             if killed[slc].all():
                 continue  # whole chunk retired: no device work left
             if graphs is not None:
-                pend.append((slc, graphs.stage(c, keys[slc], it0, killed[slc]).numpy))
+                pend.append((slc, graphs.stage(c, it0, killed[slc]).numpy))
                 continue
             kill = torch.from_numpy(killed[slc].copy()).to(field.device)
             carries[c], packed = tracker.trace_stage(

@@ -4,9 +4,10 @@ The counterpart of JAX's jitted stage (`pnr_tpu/smc/tracker.py:172-173`,
 `jax.jit(stage_fn)`, the body at `:385`) and of its `warm_async`
 (`:180-221`): JAX compiles a stage once into one executable, Threefry
 draws included, and builds it on a worker thread while the front of the
-stack runs. The port's stage is `BatchedTracker._stage_body`, whose
-iterations issue ~90-280 torch ops and kernel launches each from Python;
-on a card `pipeline.reconstruct._trace_and_commit_wave` hands each stage
+stack runs. The port's stage is `BatchedTracker._stage_body`, which
+draws its uniforms on the device (one launch of ops/threefry's kernel)
+and whose iterations issue ~90-280 torch ops and kernel launches each
+from Python; on a card `pipeline.reconstruct._trace_and_commit_wave` hands each stage
 of a wave to `StageGraphs`, which captures the body once per key and
 replays it. The module has no JAX counterpart module.
 
@@ -16,24 +17,27 @@ replays it. The module has no JAX counterpart module.
   keys (0, 128, S) and (1, 128, S), and every later wave of the field
   reuses them. A runner belongs to one field (`tracker.stage_graphs`);
   the tracker drops it when that stack's tracing ends.
-* Static buffers, per (slot, T): the six carry tensors, the uniforms `u1`
-  (n_it, T, np) and `ru` (n_it, T) and the kill mask (T,). A graph reads
-  them and ends by copying the new carry back into the carry buffers, so
-  replays chain. `load` copies `trace_init`'s carry in once a wave.
-* Copies: the uniforms are drawn on the host (`stage_uniforms`, bitwise
-  JAX's) and go in, with the kill mask, through one of two pinned staging
-  sets per slot (a stage is dispatched before the previous one is
-  collected), with `non_blocking=True`; the stage's `packed` goes out to
-  one of two pinned host buffers per slot, read after an event. No copy
-  synchronises a stream: a pageable copy would, and the wave loop's
-  "dispatch stage k+1 before collecting k" would then wait for stage k.
+* Static buffers, per (slot, T): the six carry tensors, the trace keys
+  (T, 2) int32, the stage's first iteration `it0` (an int32 scalar) and
+  the kill mask (T,). A graph reads them and ends by copying the new
+  carry back into the carry buffers, so replays chain. `load` copies
+  `trace_init`'s carry and the chunk's keys in once a wave. The draws'
+  kernel reads `it0` and the keys from these buffers at each replay (an
+  `it0` passed by value would be frozen into the graph at capture).
+* Copies: no uniform crosses from the host; the stage's kill mask and
+  `it0` go in through one of two pinned staging sets per slot (a stage is
+  dispatched before the previous one is collected), with
+  `non_blocking=True`; the stage's `packed` goes out to one of two pinned
+  host buffers per slot, read after an event. No copy synchronises a
+  stream: a pageable copy would, and the wave loop's "dispatch stage k+1
+  before collecting k" would then wait for stage k.
 * Routes (`StagePlan`): a key is captured the first time it runs and
   replayed at once, and every later stage replays. Before each capture
   `BatchedTracker.prepare_graphs` sets up, on the capturing thread and the
-  runner's stream, the lazy state a capture must not create: cuBLAS's
-  workspace (one matmul of the stage's shapes), K2's shared-memory
-  attribute and cluster check for the field's plans, and the tube
-  engine's window table and kernel constants.
+  runner's stream, the lazy state a capture must not create: the kernel
+  library and its entry points, cuBLAS's workspace (one matmul of the
+  stage's shapes), K2's shared-memory attribute and cluster check for the
+  field's plans, and the tube engine's window table and kernel constants.
 * Warm thread (`warm`, started by `BatchedTracker.warm_async`): while the
   front of the stack runs, it runs `trace_init` on JAX's dummy seeds,
   loads that carry into each slot a full wave fills and captures each
@@ -49,11 +53,15 @@ replays it. The module has no JAX counterpart module.
   meanwhile, and the tracing thread replays another field's graphs while
   a warm thread captures.
 * Launch counts: capturing runs the wrappers, which count launches that
-  do not happen. The tracer tallies its own kernel calls while its thread
-  captures (`tally_launch`; another thread's launches meanwhile are real
-  and stay counted), `_take_back` subtracts the tally, and every replay
-  adds it (`_count_replay`), under `ops.cuda.COUNT_LOCK`: a run's counts
-  equal the eager route's, plus the warm thread's real `trace_init`.
+  do not happen. The tracer tallies its own kernel calls (the likelihood
+  and the draws) while its thread captures (`tally_launch`; another
+  thread's launches meanwhile are real and stay counted), `_take_back`
+  subtracts the tally, and every replay adds it (`_count_replay`), under
+  `ops.cuda.COUNT_LOCK`: a run's counts equal the eager route's, plus the
+  warm thread's real `trace_init`.
+* Host time: `host_s` sums the tracing thread's seconds in the runner's
+  own calls for the stages it dispatched, split into the staging writes
+  and copies, the replay calls and the waits for each stage's estimates.
 * Errors: a capture or replay that fails raises with its key and CUDA's
   error. Nothing falls back to the eager stage.
 
@@ -202,14 +210,13 @@ class _Graph:
 
 
 class _Staging:
-    """One pinned set of a stage's inputs, and the event after the copies
-    that read it."""
+    """One pinned set of a stage's inputs (the kill mask and `it0`), and
+    the event after the copies that read it."""
 
-    def __init__(self, iters: int, t: int, npart: int):
-        self.u1 = torch.empty((iters, t, npart), dtype=torch.float32, pin_memory=True)
-        self.ru = torch.empty((iters, t), dtype=torch.float32, pin_memory=True)
+    def __init__(self, t: int):
         self.kill = torch.empty((t,), dtype=torch.bool, pin_memory=True)
-        self.u1_np, self.ru_np, self.kill_np = self.u1.numpy(), self.ru.numpy(), self.kill.numpy()
+        self.it0 = torch.empty((), dtype=torch.int32, pin_memory=True)
+        self.kill_np, self.it0_np = self.kill.numpy(), self.it0.numpy()
         self.copied = torch.cuda.Event()
 
 
@@ -217,15 +224,15 @@ class _Slot:
     """The static device buffers of one chunk slot at T traces, its two
     pinned staging sets and its two pinned output buffers."""
 
-    def __init__(self, carry, iters: int, npart: int):
+    def __init__(self, carry, iters: int):
         t = int(carry[0].shape[0])
         dev = carry[0].device
         self.iters = iters
         self.carry = tuple(torch.empty_like(c) for c in carry)
-        self.u1 = torch.empty((iters, t, npart), dtype=torch.float32, device=dev)
-        self.ru = torch.empty((iters, t), dtype=torch.float32, device=dev)
+        self.keys = torch.empty((t, 2), dtype=torch.int32, device=dev)
+        self.it0 = torch.empty((), dtype=torch.int32, device=dev)
         self.kill = torch.empty((t,), dtype=torch.bool, device=dev)
-        self.staging = [_Staging(iters, t, npart) for _ in range(2)]
+        self.staging = [_Staging(t) for _ in range(2)]
         self.outs = [torch.empty((t, iters, 9), dtype=torch.float32, pin_memory=True)
                      for _ in range(2)]
         self.turn = 0
@@ -234,15 +241,18 @@ class _Slot:
 class PendingStage:
     """A dispatched stage's `packed` on its way to the host."""
 
-    __slots__ = ("out", "done")
+    __slots__ = ("out", "done", "host_s")
 
-    def __init__(self, out: torch.Tensor, done: torch.cuda.Event):
-        self.out, self.done = out, done
+    def __init__(self, out: torch.Tensor, done: torch.cuda.Event, host_s: Dict[str, float]):
+        self.out, self.done, self.host_s = out, done, host_s
 
     def numpy(self) -> np.ndarray:
         """(T, n_it, 9) packed estimates, once the stage has run."""
+        t0 = time.perf_counter()
         self.done.synchronize()
-        return self.out.numpy().copy()
+        packed = self.out.numpy().copy()
+        self.host_s["fetch"] += time.perf_counter() - t0
+        return packed
 
 
 class StageGraphs:
@@ -275,18 +285,22 @@ class StageGraphs:
         #: the caching allocator's reserved bytes added while capturing
         #: (other threads' allocations meanwhile included)
         self.reserved_bytes = 0
+        #: the tracing thread's host seconds in its stages (module docstring)
+        self.host_s = dict.fromkeys(("staging", "replay", "fetch"), 0.0)
         self.warm_started = False
         self._warm_thread: Optional[threading.Thread] = None
         self._warm_error: Optional[BaseException] = None
 
     def stats(self) -> dict:
         """The runner's routes, warm captures and `trace_init` calls, warm
-        seconds, graphs and their memory."""
+        seconds, graphs and their memory, and the tracing thread's host
+        seconds in its stages."""
         return {"routes": dict(self.routes), "warm_captures": self.warm_captures,
                 "warm_inits": self.warm_inits,
                 "warm_s": self.warm_s, "warm_wait_s": self.warm_wait_s,
                 "capture_s": self.capture_s,
-                "graphs": len(self.plan.seen), "reserved_bytes": self.reserved_bytes}
+                "graphs": len(self.plan.seen), "reserved_bytes": self.reserved_bytes,
+                "host_s": dict(self.host_s)}
 
     # -- the warm thread ----------------------------------------------------
     def start_warm(self, ready: torch.cuda.Event, slots: int) -> threading.Thread:
@@ -315,6 +329,7 @@ class StageGraphs:
         ones, directions (1, 0, 0), keys fold_in(key(0), i)), its carry
         loaded into each slot, each slot's key captured."""
         from pnr_tpu_torch.hostpath import threefry as tf
+        from pnr_tpu_torch.ops.threefry import key_tensor
         from pnr_tpu_torch.smc.tracker import trace_keys
 
         tr = self.tracker
@@ -324,11 +339,11 @@ class StageGraphs:
             self.stream.wait_event(ready)
             sp = np.ones((t, 3), np.float32)
             sd = np.tile(np.float32([[1.0, 0.0, 0.0]]), (t, 1))
-            keys = trace_keys(tf.key_from_seed(0), np.arange(t))
+            keys = key_tensor(trace_keys(tf.key_from_seed(0), np.arange(t)), field.device)
             carry, _ = tr.trace_init(field, sp, sd, keys)
             self.warm_inits += 1
             for slot in range(slots):
-                self.load(slot, carry)
+                self.load(slot, carry, keys)
                 key = self._key(slot, t)
                 if self.plan.route(key) == CAPTURE:
                     with tr.capture_gate.capture():
@@ -351,56 +366,57 @@ class StageGraphs:
     def _key(self, slot: int, t: int) -> Key:
         return (slot, t, self.tracker.STAGE_ITERS)
 
-    def load(self, slot: int, carry) -> None:
-        """Copy `trace_init`'s carry of chunk `slot` into the slot's
-        buffers (once a wave)."""
-        tr = self.tracker
+    def load(self, slot: int, carry, keys: torch.Tensor) -> None:
+        """Copy `trace_init`'s carry of chunk `slot` and the chunk's keys
+        (T, 2) int32 on the device into the slot's buffers (once a wave)."""
         key = (slot, int(carry[0].shape[0]))
         s = self.slots.get(key)
         if s is None:
-            s = self.slots[key] = _Slot(carry, tr.STAGE_ITERS, tr.cfg.np)
+            s = self.slots[key] = _Slot(carry, self.tracker.STAGE_ITERS)
         self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
         with torch.cuda.stream(self.stream):
-            for dst, src in zip(s.carry, carry):
+            for dst, src in zip(s.carry + (s.keys,), carry + (keys,)):
                 dst.copy_(src)
-        for src in carry:
+        for src in carry + (keys,):
             src.record_stream(self.stream)
 
     def finish(self) -> None:
         """Order the caller's stream after every stage dispatched so far."""
         torch.cuda.current_stream(self.stream.device).wait_stream(self.stream)
 
-    def stage(self, slot: int, keys: np.ndarray, it0: int, kill: np.ndarray) -> PendingStage:
+    def stage(self, slot: int, it0: int, kill: np.ndarray) -> PendingStage:
         """Iterations it0 .. it0+STAGE_ITERS-1 of chunk `slot` (its carry
-        `load`ed this wave) with the kill mask `kill` (T,) bool: captured
-        and replayed, or replayed, as `plan` routes its key."""
+        and keys `load`ed this wave) with the kill mask `kill` (T,) bool:
+        captured and replayed, or replayed, as `plan` routes its key."""
+        t0 = time.perf_counter()
         field = self._field()
         t = len(kill)
         s = self.slots[(slot, t)]
-        n_it = s.iters
         key = self._key(slot, t)
         route = self.plan.route(key)
         self.routes[route] += 1
-        u1, ru = self.tracker.stage_uniforms(keys, it0, n_it)
         st = s.staging[s.turn]
         out = s.outs[s.turn]
         s.turn ^= 1
         st.copied.synchronize()  # the copies that last read this set have run
-        st.u1_np[:] = u1
-        st.ru_np[:] = ru
         st.kill_np[:] = kill
+        st.it0_np[()] = it0
         with torch.cuda.stream(self.stream):
-            s.u1.copy_(st.u1, non_blocking=True)
-            s.ru.copy_(st.ru, non_blocking=True)
             s.kill.copy_(st.kill, non_blocking=True)
+            s.it0.copy_(st.it0, non_blocking=True)
             st.copied.record()
-            if route == CAPTURE:
+            tc = time.perf_counter()
+            if route == CAPTURE:  # its seconds go to `capture_s`
                 self.graphs[key] = self._capture(key, field, s)
+            t1 = time.perf_counter()
             packed = self._replay(key)
+            t2 = time.perf_counter()
             out.copy_(packed, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-        return PendingStage(out, done)
+        self.host_s["replay"] += t2 - t1
+        self.host_s["staging"] += time.perf_counter() - t2 + tc - t0
+        return PendingStage(out, done, self.host_s)
 
     def close(self) -> None:
         """Drop the graphs once nothing replays into their memory; then
@@ -413,7 +429,7 @@ class StageGraphs:
             self.slots.clear()
 
     def _run(self, field, s: _Slot) -> torch.Tensor:
-        carry, packed = self.tracker._stage_body(field, s.carry, s.u1, s.ru, s.kill, s.iters)
+        carry, packed = self.tracker._stage_body(field, s.carry, s.keys, s.it0, s.kill, s.iters)
         for dst, src in zip(s.carry, carry):
             dst.copy_(src)
         return packed

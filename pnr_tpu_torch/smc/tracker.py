@@ -15,13 +15,16 @@ advances in lockstep, P particles each. Per iteration and particle:
 * stop: the centroid rounds out of bounds or its corr < znccth;
 * systematic resampling when Neff/np < neff_ratio.
 
-Random numbers are the JAX package's, bit for bit: each trace holds its
-key as a (2,) uint32 row of a (T, 2) numpy array, and each stage's
-uniforms are drawn on the host with the Threefry port
-(hostpath/threefry.py, a copy of the JAX package's) and copied to the device once per stage.
+Random numbers are the JAX package's, bit for bit: each trace's key is
+a row of a (T, 2) int32 tensor on the device holding its uint32 bits
+(`trace_keys` derives them on the host once a wave; `ops/threefry.
+key_tensor`), and each stage draws its uniforms on the device, inside the
+stage, as JAX's jitted stage does: one launch of the Threefry kernel
+(ops/threefry.py) for the stage's iterations, keyed on a device `it0`.
 
-A stage is `trace_stage`: the host draws, then `_stage_body`, which takes
-device tensors only. On a card the single-stack wave loop
+A stage is `trace_stage`: `it0` as a device scalar, then `_stage_body`,
+which takes device tensors only and draws its own uniforms before its
+iterations (`_stage_iters`). On a card the single-stack wave loop
 (pipeline/reconstruct.py) captures that body as a CUDA graph per (chunk
 slot, T, n_it) and replays it (smc/graphs.py), the port's counterpart of
 JAX's jitted stage, and `warm_async` captures those graphs on a thread
@@ -61,7 +64,7 @@ import torch
 
 from pnr_tpu_torch.config import PNRConfig
 from pnr_tpu_torch.hostpath import threefry as tf
-from pnr_tpu_torch.ops import tube_corr, zncc_exact
+from pnr_tpu_torch.ops import cuda, threefry, tube_corr, zncc_exact
 from pnr_tpu_torch.ops.zncc_model import TubeZnccModel, ZnccTemplates
 from pnr_tpu_torch.smc.graphs import CaptureGate, StageGraphs, tally_launch
 from pnr_tpu_torch.smc.priors import PriorTables, build_prior_tables
@@ -133,6 +136,9 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
 
 Carry = Tuple[torch.Tensor, ...]  # (pos, dirs, wgt, resampled, res_idx, alive)
 
+#: the launch counter of the tracer's draws
+_DRAW_COUNTER = (threefry, "LAUNCHES")
+
 #: traces per chunk, JAX's default
 TRACE_CHUNK = 128
 
@@ -185,6 +191,8 @@ class BatchedTracker:
         self._w_flat = self.tables.w.reshape(-1)
         # the launch counter each likelihood evaluation adds to
         self._counter = (tube_corr, "TRACE_LAUNCHES") if self.tube else (zncc_exact, "LAUNCHES")
+        # `trace_init`'s first iteration, for its draws
+        self._it0_zero = torch.zeros((), dtype=torch.int32, device=self.device)
         self.graphs = bool(graphs)
         # id(field) -> (weak reference to the field, its runner); the batch
         # driver's prefetch worker warms the next stack's runner while the
@@ -248,9 +256,11 @@ class BatchedTracker:
 
     def prepare_graphs(self, field: torch.Tensor, stream: torch.cuda.Stream) -> None:
         """Set up, on the calling thread and `stream`, the lazy state a
-        CUDA graph capture of `_stage_body` must find in place: cuBLAS's
-        workspace for this thread's handle on `stream` (one matmul of the
-        stage's codebook shapes) and the engine's (`prepare`)."""
+        CUDA graph capture of `_stage_body` must find in place: the kernel
+        library loaded with its entry points (the draws' included),
+        cuBLAS's workspace for this thread's handle on `stream` (one matmul
+        of the stage's codebook shapes) and the engine's (`prepare`)."""
+        cuda.library()
         with torch.cuda.stream(stream):
             dirs = torch.zeros((self.TRACE_CHUNK * self.cfg.np, 3), dtype=torch.float32,
                                device=field.device)
@@ -290,17 +300,13 @@ class BatchedTracker:
         return tuple(int(d) for d in field.shape)
 
     # -- helpers ---------------------------------------------------------
-    def _uniforms(self, keys: np.ndarray, step: int, n: int) -> torch.Tensor:
-        return torch.from_numpy(tf.uniforms_per_trace(keys, step, n)).to(self.device)
-
-    def stage_uniforms(self, keys: np.ndarray, it0: int, n_it: int):
-        """The uniforms of iterations it0 .. it0+n_it-1, drawn on the host:
-        transition draws (n_it, T, np) at step 2i and resampling offsets
-        (n_it, T) at step 2i+1, bitwise the JAX tracer's."""
-        steps = range(it0, it0 + n_it)
-        u1 = np.stack([tf.uniforms_per_trace(keys, 2 * i, self.cfg.np) for i in steps])
-        ru = np.stack([tf.uniforms_per_trace(keys, 2 * i + 1, 1)[:, 0] for i in steps])
-        return u1, ru
+    def _draw(self, keys: torch.Tensor, it0: torch.Tensor, n_it: int, n: int):
+        """The uniforms of iterations it0 .. it0+n_it-1 on the device:
+        (n_it, T, n) at step 2i and (n_it, T) at step 2i+1, bitwise the JAX
+        tracer's; one kernel launch, tallied while this thread captures a
+        stage."""
+        tally_launch(_DRAW_COUNTER)
+        return threefry.stage_draws(keys, it0, n_it, n)
 
     def _in_bounds(self, cpos, shape_zyx):
         l, h, w = shape_zyx
@@ -366,18 +372,21 @@ class BatchedTracker:
         )
 
     # -- wave API ----------------------------------------------------------
-    def trace_init(self, field: torch.Tensor, seed_pos, seed_dir, keys: np.ndarray, frame=None):
+    def trace_init(self, field: torch.Tensor, seed_pos, seed_dir, keys, frame=None):
         """Iteration 0 (iter0New, tracker.cpp:1001-1094) for seeds (T, 3)
-        xyz with directions (T, 3) and keys (T, 2) uint32. Returns
-        (carry, est0 (T, 9)): [pos, dir, sig, corr, valid]. `frame`: the
-        field is that slab of the volume (ops/slab.SlabFrame)."""
+        xyz with directions (T, 3) and keys (T, 2): an int32 tensor on the
+        tracer's device (`ops/threefry.key_tensor`) or a uint32 NumPy array,
+        copied there. Its two draws (steps 0 and 1) are one launch of the
+        stage's draw at it0 = 0. Returns (carry, est0 (T, 9)): [pos, dir,
+        sig, corr, valid]. `frame`: the field is that slab of the volume
+        (ops/slab.SlabFrame)."""
         cfg, tb, dev = self.cfg, self.tables, self.device
         npart = cfg.np
         sp = torch.as_tensor(np.asarray(seed_pos, np.float32), device=dev)
         sd = torch.as_tensor(np.asarray(seed_dir, np.float32), device=dev)
         t = sp.shape[0]
-        u0 = self._uniforms(keys, 0, 1)[:, 0]
-        res_u = self._uniforms(keys, 1, 1)[:, 0]
+        u, r = self._draw(threefry.key_tensor(keys, dev), self._it0_zero, 1, 1)
+        u0, res_u = u[0, :, 0], r[0]
         ar = torch.arange(npart, dtype=torch.float32, device=dev)
         ui = (ar[None, :] + u0[:, None]) / npart
         # systematic sampling by rank count (== searchsorted left)
@@ -397,30 +406,40 @@ class BatchedTracker:
         return carry, self._pack(cpos, cdir, csig, ccorr, ok0)
 
     def trace_stage(
-        self, field: torch.Tensor, keys: np.ndarray, carry: Carry, it0: int, n_it: int,
+        self, field: torch.Tensor, keys, carry: Carry, it0: int, n_it: int,
         kill: torch.Tensor, frame=None,
     ):
         """Iterations it0 .. it0+n_it-1 (iterINew, tracker.cpp:1096-1198).
 
         The random streams key on the ABSOLUTE iteration, so staging never
-        changes results. `kill` (T,) bool retires traces whose committed
-        prefix already stopped. `frame`: as in `trace_init`. Returns
-        (carry, packed (T, n_it, 9)). Draws the stage's uniforms on the
-        host (`stage_uniforms`), copies them to the device and runs
-        `_stage_body`."""
-        u1, ru = (torch.from_numpy(a).to(self.device)
-                  for a in self.stage_uniforms(keys, it0, n_it))
-        return self._stage_body(field, carry, u1, ru, kill, n_it, frame)
+        changes results. `keys` as in `trace_init`; `kill` (T,) bool
+        retires traces whose committed prefix already stopped. `frame`: as
+        in `trace_init`. Returns (carry, packed (T, n_it, 9)). Puts `it0` on
+        the device (a fill, no copy) and runs `_stage_body`."""
+        it0_t = torch.full((), it0, dtype=torch.int32, device=self.device)
+        return self._stage_body(field, carry, threefry.key_tensor(keys, self.device), it0_t,
+                                kill, n_it, frame)
 
     def _stage_body(
+        self, field: torch.Tensor, carry: Carry, keys: torch.Tensor, it0: torch.Tensor,
+        kill: torch.Tensor, n_it: int, frame=None,
+    ):
+        """`trace_stage` on device tensors only: `keys` (T, 2) int32, `it0`
+        an int32 scalar, `kill` (T,) bool. It draws the stage's uniforms on
+        the device (one launch that reads `it0` and the keys from device
+        memory) and runs its iterations (`_stage_iters`). It does no host
+        work and copies nothing from the host, so on a card it can be
+        captured in a CUDA graph (smc/graphs.py) whose replays draw the
+        iteration `it0` then holds. Returns (carry, packed (T, n_it, 9))."""
+        u1, ru = self._draw(keys, it0, n_it, self.cfg.np)
+        return self._stage_iters(field, carry, u1, ru, kill, n_it, frame)
+
+    def _stage_iters(
         self, field: torch.Tensor, carry: Carry, u1: torch.Tensor, ru: torch.Tensor,
         kill: torch.Tensor, n_it: int, frame=None,
     ):
-        """`trace_stage`'s iterations on device tensors only: `u1` (n_it, T,
-        np) and `ru` (n_it, T) are the stage's uniforms, `kill` (T,) bool.
-        It does no host work and copies nothing from the host, so on a card
-        it can be captured in a CUDA graph (smc/graphs.py). Returns (carry,
-        packed (T, n_it, 9))."""
+        """The stage's iterations on the uniforms `u1` (n_it, T, np) and
+        `ru` (n_it, T). Returns (carry, packed (T, n_it, 9))."""
         cfg, tb, dev = self.cfg, self.tables, self.device
         npart = cfg.np
         pos, dirs, wgt, resampled, res_idx, alive = carry
@@ -492,7 +511,8 @@ class BatchedTracker:
         outs = []
         for beg in range(0, t, self.TRACE_CHUNK):
             end = min(beg + self.TRACE_CHUNK, t)
-            keys = trace_keys(base_key, np.asarray(trace_ids[beg:end]))
+            keys = threefry.key_tensor(trace_keys(base_key, np.asarray(trace_ids[beg:end])),
+                                       self.device)
             carry, est0 = self.trace_init(img, np.asarray(seed_pos[beg:end], np.float32),
                                           np.asarray(seed_dir[beg:end], np.float32), keys)
             blocks = [est0.cpu().numpy()[:, None, :]]

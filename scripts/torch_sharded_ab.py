@@ -6,7 +6,7 @@ one card, for comparing two checkouts.
 
 Runs `reconstruction_func_sharded` from the checkout at ROOT over
 `Mesh((cuda:0,) * 4)` on chip_smoke.py's 52.4-Mvox (128, 640, 640) stack
-(make_volume's recipe, seed 0) with its parameters, four times in exact
+(`make_volume`, seed 0) with its CLI parameters, four times in exact
 mode and four in tube mode (the runs after the first are the warm ones),
 and prints one line: LABEL and a JSON object with each mode's seconds a
 run, its tracing stage, its SWC nodes and handoffs. It needs a CUDA
@@ -15,12 +15,13 @@ parent with `git archive` and run the two in turns (parent, change,
 change, parent), each in a fresh process, in one session.
 """
 
+import dataclasses
 import json
 import os
 import sys
 import time
 
-import numpy as np
+from torch_ab_common import load_smoke
 
 
 def main(root: str, label: str) -> None:
@@ -37,17 +38,12 @@ def main(root: str, label: str) -> None:
     if here != root:
         raise SystemExit(f"loaded pnr_tpu_torch from {here}, not from {root}")
     cuda.self_check()
-    shape = (128, 640, 640)
-    rng = np.random.default_rng(0)
-    z, y, x = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
-    d2 = (y - shape[1] / 2) ** 2 + ((z - shape[0] / 2) * 2.0) ** 2
-    vol = np.clip(200.0 * np.exp(-d2 / 18.0) * (0.7 + 0.3 * np.sin(x / 4.0))
-                  + rng.normal(0, 5, shape), 0, 255).astype(np.uint8)
+    smoke = load_smoke()
+    vol = smoke.make_volume(smoke.MAIN_SHAPE)
     mesh = Mesh((torch.device("cuda", 0),) * 4)
     out = {}
     for mode in ("exact", "tube"):
-        cfg = PNRConfig(sigmas=(2.0, 4.0, 6.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2,
-                        ni=100, np=20, zdist=2.0, nodepervol=4, vol=9, zncc_mode=mode)
+        cfg = dataclasses.replace(PNRConfig.from_cli_params(smoke.MAIN_PARAMS), zncc_mode=mode)
         secs, tracing = [], []
         for _ in range(4):
             torch.cuda.synchronize()

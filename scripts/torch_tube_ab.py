@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import importlib.util
 import json
 import os
 import shutil
@@ -38,12 +37,13 @@ import tempfile
 import time
 
 import numpy as np
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+from torch_ab_common import ROOT, load_smoke
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=HERE, help="checkout whose pnr_tpu_torch runs")
+    ap.add_argument("--root", default=ROOT, help="checkout whose pnr_tpu_torch runs")
     ap.add_argument("--mode", default="tube", choices=("tube", "exact", "unfused"),
                     help="--zncc-mode, or unfused (exact with fused_frangi=False)")
     ap.add_argument("--runs", type=int, default=2, help="unprofiled runs (the first is cold)")
@@ -56,9 +56,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_tube_ab: no CUDA device", file=sys.stderr)
         return 1
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = load_smoke()
     sys.path.insert(0, root)
     from pnr_tpu_torch import cli
     from pnr_tpu_torch.ops import tube_corr, zncc_exact

@@ -21,26 +21,18 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import importlib.util
 import json
 import os
-import subprocess
 import sys
 import time
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, HERE)
+from torch_ab_common import ROOT, card as card_line, load_smoke, turn_order
+
+sys.path.insert(0, ROOT)
 
 #: (warm thread, prefetch) of each route
 ROUTES = {"warm": (True, True), "no_warm": (False, True),
           "warm_one_by_one": (True, False), "no_warm_one_by_one": (False, False)}
-
-
-def _smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def run(torch, smoke, vols, cfg, route):
@@ -91,9 +83,8 @@ def main(argv=None) -> int:
         return 1
     from pnr_tpu_torch import PNRConfig, native
 
-    smoke = _smoke()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    smoke = load_smoke()
+    card = card_line()
     print(card, flush=True)
     if not native.have_native():  # builds the native host library, or says it could not
         print("the native host library did not build", file=sys.stderr)
@@ -105,27 +96,27 @@ def main(argv=None) -> int:
         run(torch, smoke, vols[:1], cfg, "warm")  # warm-up: the kernels' first launches
         ref = None
         rows = []
-        for turn in range(args.turns):
-            for route in (list(ROUTES) if turn % 2 == 0 else list(ROUTES)[::-1]):
-                total, secs, results, logs = run(torch, smoke, vols, cfg, route)
-                if ref is None:
-                    ref = results
-                same = all(smoke.same_tree(a, b) for a, b in zip(results, ref))
-                row = {"route": route, "s": total, "per_stack_s": secs, "bitwise": same,
-                       "captures_on_tracing_thread": [lg["routes"]["capture"] for lg in logs],
-                       "warm_s": [lg["warm_s"] for lg in logs],
-                       "warm_wait_s": [lg["warm_wait_s"] for lg in logs]}
-                rows.append(row)
-                print(f"[warm ab {mode}] {route}: {total:.4f} s for {len(vols)} stacks, per stack "
-                      f"{[round(x, 4) for x in secs]}; captures on the tracing thread "
-                      f"{row['captures_on_tracing_thread']}, warm s "
-                      f"{[round(x, 4) for x in row['warm_s']]}, waited "
-                      f"{[round(x, 4) for x in row['warm_wait_s']]}; bitwise {same} [{card}]",
-                      flush=True)
-                if not same:
-                    print(f"[warm ab {mode}] {route}: trees differ from the first batch's",
-                          file=sys.stderr)
-                    return 1
+        for r in turn_order(len(ROUTES), args.turns):
+            route = list(ROUTES)[r]
+            total, secs, results, logs = run(torch, smoke, vols, cfg, route)
+            if ref is None:
+                ref = results
+            same = all(smoke.same_tree(a, b) for a, b in zip(results, ref))
+            row = {"route": route, "s": total, "per_stack_s": secs, "bitwise": same,
+                   "captures_on_tracing_thread": [lg["routes"]["capture"] for lg in logs],
+                   "warm_s": [lg["warm_s"] for lg in logs],
+                   "warm_wait_s": [lg["warm_wait_s"] for lg in logs]}
+            rows.append(row)
+            print(f"[warm ab {mode}] {route}: {total:.4f} s for {len(vols)} stacks, per stack "
+                  f"{[round(x, 4) for x in secs]}; captures on the tracing thread "
+                  f"{row['captures_on_tracing_thread']}, warm s "
+                  f"{[round(x, 4) for x in row['warm_s']]}, waited "
+                  f"{[round(x, 4) for x in row['warm_wait_s']]}; bitwise {same} [{card}]",
+                  flush=True)
+            if not same:
+                print(f"[warm ab {mode}] {route}: trees differ from the first batch's",
+                      file=sys.stderr)
+                return 1
         out[mode] = rows
         for route in ROUTES:
             got = [r["s"] / len(vols) for r in rows if r["route"] == route]

@@ -53,6 +53,7 @@ PORT_MODULES = (
     "pnr_tpu_torch.ops.zncc_model",
     "pnr_tpu_torch.ops.zncc_exact",
     "pnr_tpu_torch.ops.tube_corr",
+    "pnr_tpu_torch.ops.threefry",
     "pnr_tpu_torch.ops.zncc_fast",
     "pnr_tpu_torch.ops.slab",
     "pnr_tpu_torch.parallel",

@@ -46,7 +46,8 @@ from _torch_cases import (
     tube_queries,
 )
 from pnr_tpu_torch import PNRConfig
-from pnr_tpu_torch.ops import conv, cuda, frangi_blocked, frangi_fused, gaussian, tube_corr
+from pnr_tpu_torch.ops import conv, cuda, frangi_blocked, frangi_fused, gaussian, threefry
+from pnr_tpu_torch.ops import tube_corr
 from pnr_tpu_torch.ops import zncc_exact
 from pnr_tpu_torch.ops.frangi import frangi3d
 from pnr_tpu_torch.ops.frangi import frangi3d_plain as plain_frangi3d
@@ -1270,6 +1271,73 @@ def test_seeds_sharded_on_a_virtual_mesh(dev):
         assert got[3][s] == len(zz)
 
 
+# -- the tracer's Threefry draws (csrc/threefry.cu) --------------------------
+
+
+def _draw_keys(t, dev):
+    from pnr_tpu_torch.hostpath import threefry as tf
+    from pnr_tpu_torch.smc.tracker import trace_keys
+
+    # ids up to past 2**31, as a wave's 2 * seed index + 1 may be
+    return threefry.key_tensor(trace_keys(tf.key_from_seed(11), np.arange(t) * 977 + 2**31 - 40),
+                               dev)
+
+
+@pytest.mark.parametrize("t,n_it", [(128, 8), (128, 16), (1, 8)])
+def test_threefry_kernel_bitwise_plain(dev, t, n_it):
+    """The draws' kernel against its plain version on the same card
+    tensors at the tracer stage's shapes (T = 128 at 8 and 16 iterations,
+    np 20) and at T = 1, at it0 1, 97 and 2**30 + 3 (steps past 2**31):
+    bitwise, one launch a call; and `trace_init`'s draw (it0 0, one
+    iteration, one draw: steps 0 and 1)."""
+    keys = _draw_keys(t, dev)
+    for it0, n, npart in ((1, n_it, 20), (97, n_it, 20), (2**30 + 3, n_it, 20), (0, 1, 1)):
+        it = torch.tensor(it0, dtype=torch.int32, device=dev)
+        n0 = threefry.LAUNCHES
+        u1, ru = threefry.stage_draws(keys, it, n, npart)
+        assert threefry.LAUNCHES == n0 + 1
+        pu1, pru = threefry.stage_draws_plain(keys, it, n, npart)
+        assert u1.shape == (n, t, npart) and ru.shape == (n, t)
+        assert torch.equal(u1, pu1) and torch.equal(ru, pru), it0
+        assert float(u1.min()) >= 0.0 and float(u1.max()) < 1.0
+
+
+def test_threefry_kernel_refuses_what_it_cannot_draw(dev):
+    """A CUDA tensor reaches the kernel or raises: int64 keys, (T, 3) keys
+    or an it0 on another device are refused, with no launch."""
+    keys = _draw_keys(4, dev)
+    it = torch.ones((), dtype=torch.int32, device=dev)
+    n0 = threefry.LAUNCHES
+    for bad_keys, bad_it in ((keys.to(torch.int64), it), (torch.zeros((4, 3), dtype=torch.int32,
+                                                                      device=dev), it),
+                             (keys, it.cpu())):
+        with pytest.raises((TypeError, ValueError)):
+            threefry.stage_draws(bad_keys, bad_it, 2, 3)
+    assert threefry.LAUNCHES == n0
+
+
+def test_threefry_in_a_captured_graph_draws_each_replays_it0(dev):
+    """The capture trap: a CUDA graph of one stage's draws (T = 128, 16
+    iterations, np 20), replayed with its static `it0` set to 17, 33 and 1,
+    gives at each replay the plain draws of that it0 (the kernel reads
+    `it0` from device memory; by value it would repeat the captured one)."""
+    keys = _draw_keys(128, dev)
+    it0 = torch.ones((), dtype=torch.int32, device=dev)
+    threefry.stage_draws(keys, it0, 16, 20)  # the library loaded before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        u1, ru = threefry.stage_draws(keys, it0, 16, 20)
+    seen = []
+    for v in (17, 33, 1):
+        it0.fill_(v)
+        graph.replay()
+        pu1, pru = threefry.stage_draws_plain(keys, it0, 16, 20)
+        assert torch.equal(u1, pu1) and torch.equal(ru, pru), v
+        seen.append(u1.clone())
+    assert not torch.equal(seen[0], seen[1])
+
+
 # -- the tracer's stage graphs (smc/graphs.py) -----------------------------
 
 
@@ -1279,7 +1347,8 @@ def _graph_cfg(mode):
 
 
 def _trace_counts():
-    return zncc_exact.LAUNCHES, tube_corr.TRACE_LAUNCHES, tube_corr.SCORE_LAUNCHES
+    return (zncc_exact.LAUNCHES, tube_corr.TRACE_LAUNCHES, tube_corr.SCORE_LAUNCHES,
+            threefry.LAUNCHES)
 
 
 def _drive_waves(tracker, waves, use_graphs):
@@ -1287,8 +1356,8 @@ def _drive_waves(tracker, waves, use_graphs):
     per TRACE_CHUNK slot, then every stage at STAGE_ITERS iterations,
     eagerly (`trace_stage`) or through the tracker's stage-graph runner of
     the field, with a kill mask that retires every third trace from the
-    third stage on. Returns per wave the packed estimates of every stage
-    and the final carries, on the host."""
+    third stage on; the keys on the card. Returns per wave the packed
+    estimates of every stage and the final carries, on the host."""
     from pnr_tpu_torch.hostpath import threefry as tf
     from pnr_tpu_torch.smc.tracker import trace_keys
 
@@ -1299,7 +1368,8 @@ def _drive_waves(tracker, waves, use_graphs):
                       -1).astype(np.float32)
         sd = np.tile(np.float32([[1.0, 0.0, 0.0]]), (n, 1))
         sd[::2, 0] = -1.0
-        keys = trace_keys(tf.key_from_seed(5), np.arange(n) + 1000 * w)
+        keys = threefry.key_tensor(trace_keys(tf.key_from_seed(5), np.arange(n) + 1000 * w),
+                                   field.device)
         slices = [slice(b, min(b + tracker.TRACE_CHUNK, n))
                   for b in range(0, n, tracker.TRACE_CHUNK)]
         runner = tracker.stage_graphs(field) if use_graphs else None
@@ -1311,7 +1381,7 @@ def _drive_waves(tracker, waves, use_graphs):
             carry, _ = tracker.trace_init(field, sp[slc], sd[slc], keys[slc])
             carries.append(carry)
             if runner is not None:
-                runner.load(c, carry)
+                runner.load(c, carry, keys[slc])
         ni, stage = tracker.cfg.ni, tracker.STAGE_ITERS
         for k, it0 in enumerate(range(1, ni, stage)):
             for c, slc in enumerate(slices):
@@ -1319,7 +1389,7 @@ def _drive_waves(tracker, waves, use_graphs):
                 if k >= 2:
                     killed[::3] = True
                 if runner is not None:
-                    packs.append(runner.stage(c, keys[slc], it0, killed).numpy())
+                    packs.append(runner.stage(c, it0, killed).numpy())
                     continue
                 carries[c], packed = tracker.trace_stage(
                     field, keys[slc], carries[c], it0, stage,
@@ -1390,7 +1460,7 @@ def test_warm_thread_graphs_replay_bitwise_eager_stages(dev, mode):
     replays those graphs at every stage, capturing none on the tracing
     thread, and gives bitwise the eager stages' estimates and carries. The
     warm thread's `trace_init` launches are real and counted: two on the
-    tracer's counter."""
+    tracer's counter and one draw."""
     from pnr_tpu_torch.smc import graphs
     from pnr_tpu_torch.smc.tracker import BatchedTracker
 
@@ -1417,6 +1487,7 @@ def test_warm_thread_graphs_replay_bitwise_eager_stages(dev, mode):
     assert runner.routes == {"capture": 0, "replay": 2 * -(-(cfg.ni - 1) // tracker.STAGE_ITERS)}
     tracer = 1 if mode == "tube" else 0
     n_eager[tracer] += 2
+    n_eager[3] += 1
     assert n_graph == n_eager
     _same_waves(eager, graph)
     tracker.drop_stage_graphs(field)
@@ -1428,16 +1499,17 @@ def test_main_path_graphs_bitwise_eager(dev, mode, monkeypatch):
     """reconstruction_func on the card with stage graphs (the default),
     with the warm thread and without it (PNR_TPU_NO_WARM_ASYNC=1), against
     `BatchedTracker(..., graphs=False)`: bitwise the same tree, n0 and trace
-    count, graph replays in the graph runs, the same launches but the warm
-    thread's `trace_init` (two on the tracer's counter), and with the warm
-    thread no capture on the tracing thread."""
+    count, graph replays in the graph runs, the same launches (the draws'
+    included) but the warm thread's `trace_init` (two on the tracer's
+    counter, one draw), and with the warm thread no capture on the tracing
+    thread."""
     from pnr_tpu_torch.pipeline import reconstruction_func
     from pnr_tpu_torch.smc import graphs
     from pnr_tpu_torch.smc.tracker import BatchedTracker
 
     cfg = _graph_cfg(mode)
     vol = small_stack()
-    counters = PATH_COUNTERS[mode]
+    counters = PATH_COUNTERS[mode] + ((threefry, "LAUNCHES"),)
     runs = []
     for use, warm in ((True, True), (True, False), (False, False)):
         if warm:
@@ -1455,9 +1527,11 @@ def test_main_path_graphs_bitwise_eager(dev, mode, monkeypatch):
     assert log_g["warm_captures"] == 2 and log_g["routes"]["capture"] == 0
     assert log_c["warm_captures"] == 0 and log_c["routes"]["capture"] > 0
     tracer = 2 if mode == "tube" else 1
-    assert n_c == n_e
-    assert n_g[tracer] == n_e[tracer] + 2
-    assert n_g[:tracer] + n_g[tracer + 1:] == n_e[:tracer] + n_e[tracer + 1:]
+    assert n_c == n_e and n_e[-1] > 0
+    want = list(n_e)
+    want[tracer] += 2
+    want[-1] += 1
+    assert n_g == want
     for r in (g, c):
         assert r.trace_count == e.trace_count > 0
         for f in ("x", "y", "z", "sig", "corr"):
@@ -1473,8 +1547,8 @@ def test_batch_graphs_prefetch_bitwise_eager_one_by_one(dev, mode):
     the stacks one by one with eager stages (stack i keyed fold_in(key, i),
     as the batch keys it): bitwise the same trees and n0, the same
     launches but the warm threads' `trace_init` (two a stack on the
-    tracer's counter), and no capture on the tracing thread. The caller
-    synchronises the whole device at each result."""
+    tracer's counter, one draw), and no capture on the tracing thread. The
+    caller synchronises the whole device at each result."""
     from pnr_tpu_torch.hostpath import threefry as tf
     from pnr_tpu_torch.pipeline import reconstruct, reconstruction_batch, reconstruction_func
     from pnr_tpu_torch.smc import graphs
@@ -1482,7 +1556,7 @@ def test_batch_graphs_prefetch_bitwise_eager_one_by_one(dev, mode):
 
     vols = [small_stack(), small_stack()[:, ::-1].copy()]
     cfg = _graph_cfg(mode)
-    counters = PATH_COUNTERS[mode]
+    counters = PATH_COUNTERS[mode] + ((threefry, "LAUNCHES"),)
     made = []
     real = reconstruct.BatchedTracker
 
@@ -1514,6 +1588,7 @@ def test_batch_graphs_prefetch_bitwise_eager_one_by_one(dev, mode):
              for i, v in enumerate(vols)]
     n_eager = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
     n_eager[2 if mode == "tube" else 1] += 2 * len(vols)
+    n_eager[-1] += len(vols)
     assert n_batch == n_eager
     for a, b in zip(batch, eager):
         assert a.trace_count == b.trace_count > 0

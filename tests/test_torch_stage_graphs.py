@@ -1,7 +1,8 @@
 """The single-stack tracer's stage split and the host side of its stage-graph
-runner (pnr_tpu_torch/smc/graphs.py), on the CPU: `_stage_body` fed
-`stage_uniforms` is bitwise `trace_stage` (itself held to the JAX tracer
-in tests/test_torch_tracker.py); the wave loop's JAX shapes (chunks padded
+runner (pnr_tpu_torch/smc/graphs.py), on the CPU: the stage's iterations
+(`_stage_iters`) fed the host draws of `stage_uniforms` are bitwise
+`trace_stage`, which draws on the device route (itself held to the JAX
+tracer in tests/test_torch_tracker.py); the wave loop's JAX shapes (chunks padded
 to TRACE_CHUNK, every stage STAGE_ITERS iterations) give bitwise the
 unpadded wave's real-lane estimates and track `pnr_tpu`'s wave;
 `StagePlan`'s routes over the main stack's two waves; the wave loop
@@ -25,6 +26,7 @@ from pnr_tpu_torch.hostpath import threefry as tf
 from pnr_tpu_torch.ops import tube_corr, zncc_exact
 from pnr_tpu_torch.pipeline import reconstruct
 from pnr_tpu_torch.smc import graphs
+from pnr_tpu_torch.ops import threefry
 from pnr_tpu_torch.smc.tracker import BatchedTracker, trace_keys
 
 # one sigma and few particles keep the exact engine's plain sums cheap
@@ -70,9 +72,10 @@ def tracker_and_field(mode, ni=CFG.ni, **kw):
                                          ("tube", 128, 3), ("tube", 37, None)])
 def test_stage_body_fed_stage_uniforms_is_trace_stage(mode, t, n_it):
     """Two stages after `trace_init`, the second with a kill mask that
-    retires every third trace: `_stage_body` on the uniforms of
-    `stage_uniforms` gives `trace_stage`'s carry and packed estimates bit
-    for bit (n_it None: the tracker's STAGE_ITERS)."""
+    retires every third trace: the stage's iterations (`_stage_iters`) on
+    the host draws of `stage_uniforms` give `trace_stage`'s carry and
+    packed estimates (drawn on the device route) bit for bit (n_it None:
+    the tracker's STAGE_ITERS)."""
     tracker, field = tracker_and_field(mode)
     n_it = n_it or tracker.STAGE_ITERS
     sp, sd = seeds_on_the_axis(t)
@@ -85,8 +88,9 @@ def test_stage_body_fed_stage_uniforms_is_trace_stage(mode, t, n_it):
         for k, kill in enumerate(kills):
             it0 = 1 + k * n_it
             if body:
-                u1, ru = (torch.from_numpy(a) for a in tracker.stage_uniforms(keys, it0, n_it))
-                carry, packed = tracker._stage_body(field, carry, u1, ru, kill, n_it)
+                u1, ru = (torch.from_numpy(a)
+                          for a in tf.stage_uniforms(keys, it0, n_it, tracker.cfg.np))
+                carry, packed = tracker._stage_iters(field, carry, u1, ru, kill, n_it)
             else:
                 carry, packed = tracker.trace_stage(field, keys, carry, it0, n_it, kill)
             packs.append(packed)
@@ -254,20 +258,22 @@ class RecordingRunner:
     def __init__(self, tracker, field):
         self.tracker, self.field = tracker, field
         self.plan = graphs.StagePlan()
-        self.carries, self.log, self.finished, self.joined = {}, [], 0, 0
+        self.carries, self.keys, self.log, self.finished, self.joined = {}, {}, [], 0, 0
 
     def join_warm(self):
         self.joined += 1
 
-    def load(self, slot, carry):
+    def load(self, slot, carry, keys):
         self.carries[slot] = carry
+        self.keys[slot] = keys
 
-    def stage(self, slot, keys, it0, kill):
+    def stage(self, slot, it0, kill):
         n_it = self.tracker.STAGE_ITERS
         key = (slot, len(kill), n_it)
         self.log.append((key, self.plan.route(key)))
         self.carries[slot], packed = self.tracker.trace_stage(
-            self.field, keys, self.carries[slot], it0, n_it, torch.from_numpy(kill.copy()))
+            self.field, self.keys[slot], self.carries[slot], it0, n_it,
+            torch.from_numpy(kill.copy()))
         return types.SimpleNamespace(numpy=packed.numpy)
 
     def finish(self):
@@ -383,19 +389,20 @@ def test_a_stage_tallies_two_launches_an_iteration_on_its_counter(mode):
     """While a thread captures, the tracer tallies each likelihood
     evaluation on its kernel's counter: two an iteration (the particles
     and the centroid), K2's in exact mode and tube_corr's tracer counter
-    in tube mode. Another thread's evaluations are not tallied."""
+    in tube mode; and the stage's draws, one on the Threefry kernel's.
+    Another thread's evaluations are not tallied."""
     tracker, field = tracker_and_field(mode)
     t, n_it = 6, 3
     sp, sd = seeds_on_the_axis(t)
-    keys = trace_keys(tf.key_from_seed(3), np.arange(t))
+    keys = threefry.key_tensor(trace_keys(tf.key_from_seed(3), np.arange(t)), "cpu")
     carry, _ = tracker.trace_init(field, sp, sd, keys)
-    u1, ru = (torch.from_numpy(a) for a in tracker.stage_uniforms(keys, 1, n_it))
+    it0 = torch.ones((), dtype=torch.int32)
     kill = torch.zeros(t, dtype=torch.bool)
 
     other = {}
 
     def elsewhere():
-        tracker._stage_body(field, carry, u1, ru, kill, 1)
+        tracker._stage_body(field, carry, keys, it0, kill, 1)
         other["tally"] = graphs._TALLY.counts
 
     graphs._TALLY.counts = tally = {}
@@ -403,12 +410,12 @@ def test_a_stage_tallies_two_launches_an_iteration_on_its_counter(mode):
         worker = threading.Thread(target=elsewhere)
         worker.start()
         worker.join(timeout=60)
-        tracker._stage_body(field, carry, u1, ru, kill, n_it)
+        tracker._stage_body(field, carry, keys, it0, kill, n_it)
     finally:
         graphs._TALLY.counts = None
     assert not worker.is_alive() and other["tally"] is None
     counter = (tube_corr, "TRACE_LAUNCHES") if mode == "tube" else (zncc_exact, "LAUNCHES")
-    assert tally == {counter: 2 * n_it}
+    assert tally == {counter: 2 * n_it, (threefry, "LAUNCHES"): 1}
 
 
 def test_graphs_are_asked_for_only_on_a_card():

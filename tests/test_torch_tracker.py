@@ -15,6 +15,7 @@ from pnr_tpu.config import PNRConfig
 from pnr_tpu.hostpath import threefry as tf
 from pnr_tpu.ops.zncc_exact import build_exact_bank
 from pnr_tpu.smc.tracker import BatchedTracker as JaxTracker
+from pnr_tpu_torch.ops import threefry
 from pnr_tpu_torch.smc.tracker import BatchedTracker, tables_from_numpy, trace_keys
 
 
@@ -88,8 +89,9 @@ def test_keys_and_stage_uniforms_equal_jax_bitwise():
         ks = jax.vmap(lambda k: jax.random.fold_in(k, step))(keys_j)
         return np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape))(ks))
 
-    tracker = BatchedTracker(CFG, "cpu")
-    u1, ru = tracker.stage_uniforms(keys, 3, 4)
+    # the port's stage draw (ops/threefry.py), on the CPU its plain version
+    u1, ru = (a.numpy() for a in threefry.stage_draws(
+        threefry.key_tensor(keys, "cpu"), torch.tensor(3, dtype=torch.int32), 4, CFG.np))
     for j, i in enumerate(range(3, 7)):
         assert np.array_equal(u1[j], jax_uniforms(2 * i, (CFG.np,)))
         assert np.array_equal(ru[j], jax_uniforms(2 * i + 1, ()))
