@@ -154,12 +154,19 @@ Phases, each of which exits non-zero on failure:
    (2, 4, 6): J, Jmin, Jmax, Vx, Vy, Vz bitwise the monolithic unfused
    filter on the card; K4's and K3's launches and the milliseconds;
 24. [sharded exact], [sharded tube]: `reconstruction_func_sharded` on the
-   main stack over that mesh, twice: each stage's seconds, SWC nodes,
-   handoffs, kept-local, lost and re-queued traces, run 1's launches of K2
-   (or tube_corr), K3 and K4 (each above 0, K1 none), the peak device
-   bytes within 4 x `plan_sharded`'s per-shard estimate, SWC F1 >= 0.85
-   against the single-device CLI run of [main exact]/[main tube] (same
-   key), handoffs > 0 and no trace lost, run 2 bitwise run 1;
+   main stack over that mesh, three times, on the tracer's two routes in
+   turns (graphs, eager, graphs: each shard's stages replayed as CUDA
+   graphs under its slab's frame, or `BatchedTracker(..., graphs=False)`),
+   the last two under the profiler: every run bitwise run 1, the two
+   routes' kernel launches equal, stage graphs captured and replayed on
+   the graph route only; each run's seconds, tracing seconds, captures and
+   replays, run 1's stages, SWC nodes, handoffs, kept-local, lost and
+   re-queued traces, launches of K2 (or tube_corr), K3 and K4 (each above
+   0, K1 none), the peak device bytes within 4 x `plan_sharded`'s
+   per-shard estimate, SWC F1 >= 0.85 against the single-device CLI run
+   of [main exact]/[main tube] (same key), handoffs > 0 and no trace
+   lost; each route's host launch calls a tracer step and the card's busy
+   milliseconds a stage;
 25. [sharded 2d]: a (1, 2048, 2048) plane of make_volume's recipe over
    four Y shards, exact: J8 the single-device run's, F1 >= 0.85;
 26. [sharded checkpoint]: a (32, 256, 256) stack over the mesh cut by the
@@ -174,7 +181,10 @@ Phases, each of which exits non-zero on failure:
    the main stack's four-shard halo slabs on the monolithic filter;
 29. [batch dp exact], [batch dp tube]: the four stacks of [batch] through
    `reconstruction_batch_dp` on a virtual mesh of four shards on cuda:0
-   (one stack a shard), then `reconstruction_batch` with
+   (one stack a shard), three times on the tracer's two routes in turns
+   as in phase 24 (each stack's lockstep stages replayed as CUDA graphs,
+   or eager; every run bitwise run 1, equal launches, captures and
+   replays, host calls a tracer step), then `reconstruction_batch` with
    `fused_frangi=False`, prefetch on and off: each stack at JAX's bar
    against the one-by-one run (J8 bitwise, equal node, tree and trace
    counts and node types, positions within 1e-4; whether the trees are
@@ -182,10 +192,12 @@ Phases, each of which exits non-zero on failure:
    K2 or tube_corr (no K1); exact also prints, as information, the J8
    differences from the default config's (K1) batch of [batch exact];
 30. [batch dp 2d]: two (1, 4096, 4096) planes the same way (frangi2d on
-   K3, K2);
-31. [batch sharded]: three stacks through `reconstruction_batch_sharded`,
+   K3, K2), batch DP once, on the graph route;
+31. [batch sharded]: two stacks through `reconstruction_batch_sharded`,
    two groups of two shards of a four-shard virtual mesh, each group on
-   its own host thread and stream: each at JAX's bar against
+   its own host thread and stream, on the tracer's two routes in turns as
+   in phase 24 (on the graph route the group threads capture their
+   shards' stage graphs at once): each at JAX's bar against
    `reconstruction_func_sharded` on a two-shard mesh, seconds per stack;
 32. [serve sharded]: two stacks served through the CLI's `--watch --mesh
    2` (the CLI's `make_mesh` given a two-shard virtual mesh, the card
@@ -236,7 +248,12 @@ and `launches_multiprocess`, and those of phases 35-37 under
 `launches_trace_wave_tube` and `launches_alt`, and the graph replays of
 the tracer's stages in run 1 of the exact and tube main paths under
 `replays_exact` and `replays_tube`, and the captures of their warm
-threads under `warm_captures_exact` and `warm_captures_tube`; the row
+threads under `warm_captures_exact` and `warm_captures_tube`, and the
+stage graphs replayed on the mesh paths (phases 24 and 29-33, their
+graph route's run) under `replays_sharded_exact`, `replays_sharded_tube`,
+`replays_batch_dp_exact`, `replays_batch_dp_tube`, `replays_batch_dp_2d`,
+`replays_batch_sharded`, `replays_serve_sharded` and
+`replays_multiprocess`; the row
 `threefry` is the tracer's draws, no TPU kernel's counterpart: its
 `replaces` names JAX's `_uniforms`, its times are at the exact stage's
 shape with every shape under `shapes`, and its launches are those of
@@ -246,7 +263,9 @@ every path above); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -1367,26 +1386,29 @@ PATH_KERNELS = {
 
 
 def counting_seed_scoring():
-    """Wrap the pipeline's seed scoring so that it counts the K2 and
-    tube_corr launches made inside it, on its own thread (the warm thread
-    launches the tracer's kernels meanwhile); returns the counts and an
-    undo."""
+    """Wrap the pipelines' seed scoring (the single stack's and the sharded
+    one's) so that it counts the K2 and tube_corr launches made inside it,
+    on its own thread (the warm thread launches the tracer's kernels
+    meanwhile); returns the counts and an undo."""
     from pnr_tpu_torch.ops import tube_corr, zncc_exact
-    from pnr_tpu_torch.pipeline import reconstruct
+    from pnr_tpu_torch.pipeline import reconstruct, sharded_reconstruct
 
     score = reconstruct._score_seeds
+    score_sharded = sharded_reconstruct.score_seeds_sharded
     kernels = {"exact_sums": (zncc_exact, "_exact_sums_cuda"),
                "tube_corr": (tube_corr, "_tube_corr_cuda")}
     real = {k: getattr(mod, name) for k, (mod, name) in kernels.items()}
     counts = {k: 0 for k in kernels}
     scoring = threading.local()
 
-    def counted(*a, **k):
-        scoring.on = True
-        try:
-            return score(*a, **k)
-        finally:
-            scoring.on = False
+    def scored(fn):
+        def counted(*a, **k):
+            scoring.on = True
+            try:
+                return fn(*a, **k)
+            finally:
+                scoring.on = False
+        return counted
 
     def launch(name):
         def wrapped(*a, **k):
@@ -1396,12 +1418,14 @@ def counting_seed_scoring():
             return out
         return wrapped
 
-    reconstruct._score_seeds = counted
+    reconstruct._score_seeds = scored(score)
+    sharded_reconstruct.score_seeds_sharded = scored(score_sharded)
     for k, (mod, name) in kernels.items():
         setattr(mod, name, launch(k))
 
     def undo():
         reconstruct._score_seeds = score
+        sharded_reconstruct.score_seeds_sharded = score_sharded
         for k, (mod, name) in kernels.items():
             setattr(mod, name, real[k])
 
@@ -1578,14 +1602,15 @@ PROFILE_KERNELS = {
 }
 
 
-def phase_profile(torch, card, mode, run, unprofiled_s, label=None):
+def phase_profile(torch, card, mode, run, unprofiled_s, label=None, want=None):
     """One more run of a path (`run()`) under torch.profiler: the card's
     busy time (union of its kernel and copy spans), idle share, per-kernel
     device time, the host's launch calls (kernel launches and CUDA graph
     launches) per tracer step (one iteration of one chunk: two K2 or
     tube_corr launches), the stream synchronisations per tracer stage, and
     in tube mode the device time per tube_corr launch. `label` names the
-    run (default: the mode)."""
+    run (default: the mode); `want` the kernels the profiler must see
+    (default: the mode's). Prints the top device ops by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1606,33 +1631,35 @@ def phase_profile(torch, card, mode, run, unprofiled_s, label=None):
         undo_stages()
         undo_scoring()
     n = read_counters()
-    events = prof.events()
-    span = next(e.time_range for e in events
-                if e.name == "chip_smoke run" and e.device_type == DeviceType.CPU)
+    # the profiler's raw events (name, device, ns): building its
+    # FunctionEvent list takes ~70 us an event, ~20 s for a mesh run's
+    events = [(e.name(), e.device_type(), e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events() if not e.is_hidden_event()]
+    span = next((a, b) for name, d, a, b in events
+                if name == "chip_smoke run" and d == DeviceType.CPU)
     # the range's own device annotation spans the whole run: not device work
-    dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.name.startswith("Activity Buffer") and "spin_kernel" not in e.name
-           and e.name != "chip_smoke run"]
+    dev = [e for e in events if e[1] == DeviceType.CUDA and not e[0].startswith("Activity Buffer")
+           and "spin_kernel" not in e[0] and e[0] != "chip_smoke run"]
     check(dev, f"the profiler recorded device work in the {label} path")
-    busy_us, end = 0.0, -1.0
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+    busy_ns, end = 0, -1
+    for _, _, a, b in sorted(dev, key=lambda e: (e[2], e[3])):
         if b > end:
-            busy_us += b - max(a, end)
+            busy_ns += b - max(a, end)
             end = b
-    busy_s = busy_us / 1e6
+    busy_s = busy_ns / 1e9
     per = {}
     for name, names in PROFILE_KERNELS.items():
-        hit = [e for e in dev if any(nm in e.name for nm in names)]
-        per[name] = (sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit))
+        hit = [e for e in dev if any(nm in e[0] for nm in names)]
+        per[name] = (sum(b - a for _, _, a, b in hit) / 1e6, len(hit))
 
     def host_calls(*prefixes):
-        return [e for e in events if e.device_type == DeviceType.CPU
-                and e.name.startswith(prefixes) and span.start <= e.time_range.start <= span.end]
+        return [e for e in events if e[1] == DeviceType.CPU and e[0].startswith(prefixes)
+                and span[0] <= e[2] <= span[1]]
 
     host_launch = host_calls("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
     graph_launch = host_calls("cudaGraphLaunch")
     syncs = host_calls("cudaStreamSynchronize")
-    launch_ms = sum(e.time_range.elapsed_us() for e in host_launch) / 1e3
+    launch_ms = sum(b - a for _, _, a, b in host_launch) / 1e6
     idle = 1 - busy_s / wall
     print(f"[profile {label}] run 3 under torch.profiler: {wall:.3f} s; card busy "
           f"{busy_s * 1e3:.3f} ms, idle {idle:.4f} of the profiled run and "
@@ -1644,7 +1671,7 @@ def phase_profile(torch, card, mode, run, unprofiled_s, label=None):
     tracer = (n["tube_corr_trace"] if mode.endswith("tube")
               else n["exact_sums"] - scoring["exact_sums"])
     steps = max(tracer // 2, 1)
-    out = {"busy_ms": busy_s * 1e3, "kernels": per, "wall_s": wall, "idle": idle,
+    out = {"busy_ms": busy_s * 1e3, "kernels": per, "wall_s": wall, "idle": idle, "launches": n,
            "host_launch_calls": len(host_launch), "graph_launches": len(graph_launch),
            "steps": steps, "stages": stages["stages"], "graph_replays": n["graph_replays"],
            "stream_syncs": len(syncs),
@@ -1661,12 +1688,17 @@ def phase_profile(torch, card, mode, run, unprofiled_s, label=None):
               f"launch [{card}]", flush=True)
     k1 = "K1 (frangi_fused, decode_stats)"
     k3 = "K3 (and the map build's)"
-    want = {"exact": (k1, "K2"), "tube": (k1, k3, "tube_corr (K5, K6)"),
-            "unfused": (k3, "K4", "K2"), "2d exact": (k3, "K2"),
-            "2d tube": (k3, "tube_corr (K5, K6)")}[mode]
+    want = want or {"exact": (k1, "K2"), "tube": (k1, k3, "tube_corr (K5, K6)"),
+                    "unfused": (k3, "K4", "K2"), "2d exact": (k3, "K2"),
+                    "2d tube": (k3, "tube_corr (K5, K6)")}[mode]
     check(all(per[k][1] > 0 for k in want), f"the profiler saw {', '.join(want)} on the {label} path")
-    top = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
-    print(f"[profile {label}] top device ops:\n" + top, flush=True)
+    by_name = {}
+    for name, _, a, b in dev:
+        ns, c = by_name.get(name, (0, 0))
+        by_name[name] = (ns + b - a, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    print(f"[profile {label}] top device ops (ms in launches): " + "; ".join(
+        f"{name[:80]} {ns / 1e6:.3f} in {c}" for name, (ns, c) in top), flush=True)
     return out
 
 
@@ -2569,11 +2601,13 @@ def phase_sharded_filter(torch, card, main_np):
 
 def phase_sharded_main(torch, card, main_np, mode, single_rows):
     """[sharded exact] / [sharded tube]: reconstruction_func_sharded on the
-    main stack over the virtual mesh, twice: each stage's seconds, the SWC,
-    the handoffs, kept-local and lost traces; run 1's kernel launches (set
-    to 0 just before it); the peak device bytes against plan_sharded's
-    per-shard estimate; SWC F1 against the single-device CLI run of
-    [main exact]/[main tube] (same key) >= 0.85."""
+    main stack over the virtual mesh, on the tracer's two routes in turns
+    (`mesh_turns`: each shard's stages replayed as stage graphs, and eager):
+    each run bitwise run 1; run 1's stages' seconds, the SWC, the handoffs,
+    kept-local and lost traces, kernel launches (set to 0 just before it),
+    the peak device bytes against plan_sharded's per-shard estimate, and
+    SWC F1 against the single-device CLI run of [main exact]/[main tube]
+    (same key) >= 0.85; each route's host calls a tracer step."""
     from pnr_tpu_torch import PNRConfig
     from pnr_tpu_torch.parallel import card_memory_bytes, plan_sharded
     from pnr_tpu_torch.pipeline import reconstruction_func_sharded
@@ -2583,47 +2617,33 @@ def phase_sharded_main(torch, card, main_np, mode, single_rows):
     mesh = virtual_mesh(torch)
     plan = plan_sharded(MAIN_SHAPE, cfg, MESH_SHARDS, card_memory_bytes(DEVICE))
     out = {"plan_per_shard_bytes": plan.peak_bytes, "plan_peak_stage": plan.peak_stage}
-    results = []
-    for run in (1, 2):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        if run == 1:
-            reset_counters()
-        t0 = time.perf_counter()
-        res = reconstruction_func_sharded(main_np, cfg, mesh, verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() - base
-        if run == 1:
-            n = read_counters()
-            out["launches"] = n
-        score = swc_f1(res.tree, single_rows)
-        print(f"[{tag}] run {run}: {wall:.3f} s, {len(res.tree) - 1} SWC nodes, seeds "
-              f"{res.n_raw_seeds} raw / {len(res.seeds_pos)} selected, {res.trace_count} traces, "
-              f"{res.n_handoffs} handoffs, {res.n_kept_local} kept local, {res.n_lost} lost, "
-              f"{res.n_requeued} re-queued; F1 against the single-device run {score.f1:.4f} "
-              f"(recall {score.recall:.4f}, precision {score.precision:.4f}); peak "
-              f"{peak} B, {MESH_SHARDS} x the plan's {plan.peak_bytes} B a shard ({plan.peak_stage}) "
-              f"= {MESH_SHARDS * plan.peak_bytes} [{card}]", flush=True)
-        print(f"[{tag}] run {run} stages (s): "
-              f"{json.dumps({k: round(v, 4) for k, v in res.timings.items()})}", flush=True)
-        check(score.f1 >= 0.85, f"[{tag}] SWC F1 against the single-device run >= 0.85")
-        check(res.n_handoffs > 0 and res.n_lost == 0 and res.n_requeued == 0,
-              f"[{tag}] traces handed off, none lost or re-queued")
-        check(MESH_SHARDS * plan.peak_bytes >= peak,
-              f"[{tag}] {MESH_SHARDS} x the plan's per-shard peak covers the measured peak")
-        out[f"run{run}"] = {"s": wall, "stages": res.timings, "nodes": len(res.tree) - 1,
-                            "traces": res.trace_count, "handoffs": res.n_handoffs,
-                            "kept_local": res.n_kept_local, "f1": score.f1, "peak_bytes": peak}
-        results.append(res)
+    turns, res = mesh_turns(torch, card, tag, mode,
+                            lambda: reconstruction_func_sharded(main_np, cfg, mesh, verbose=False),
+                            "tracing (sharded, staged handoff)")
+    score = swc_f1(res.tree, single_rows)
+    print(f"[{tag}] run 1: {turns['s']:.3f} s, {len(res.tree) - 1} SWC nodes, seeds "
+          f"{res.n_raw_seeds} raw / {len(res.seeds_pos)} selected, {res.trace_count} traces, "
+          f"{res.n_handoffs} handoffs, {res.n_kept_local} kept local, {res.n_lost} lost, "
+          f"{res.n_requeued} re-queued; F1 against the single-device run {score.f1:.4f} (recall "
+          f"{score.recall:.4f}, precision {score.precision:.4f}); peak {turns['peak_bytes']} B, "
+          f"{MESH_SHARDS} x the plan's {plan.peak_bytes} B a shard ({plan.peak_stage}) = "
+          f"{MESH_SHARDS * plan.peak_bytes} [{card}]", flush=True)
+    print(f"[{tag}] stages of run 1 (s): "
+          f"{json.dumps({k: round(v, 4) for k, v in res.timings.items()})}", flush=True)
+    check(score.f1 >= 0.85, f"[{tag}] SWC F1 against the single-device run >= 0.85")
+    check(res.n_handoffs > 0 and res.n_lost == 0 and res.n_requeued == 0,
+          f"[{tag}] traces handed off, none lost or re-queued")
+    check(MESH_SHARDS * plan.peak_bytes >= turns["peak_bytes"],
+          f"[{tag}] {MESH_SHARDS} x the plan's per-shard peak covers the measured peak")
+    out.update({"s": turns["s"], "tracing_s": turns["tracing_s"], "nodes": len(res.tree) - 1,
+                "traces": res.trace_count, "handoffs": res.n_handoffs,
+                "kept_local": res.n_kept_local, "f1": score.f1, "peak_bytes": turns["peak_bytes"],
+                "launches": turns["launches"], "profile": turns["profile"]})
     print(f"[{tag}] kernel launches during run 1: {json.dumps(out['launches'])}", flush=True)
     check(all(out["launches"][k] > 0 for k in SHARDED_KERNELS[mode]),
           f"[{tag}] launched {', '.join(SHARDED_KERNELS[mode])}")
     check(out["launches"]["frangi3d_fused"] == 0, f"[{tag}] no K1 (the sharded filter is unfused)")
-    check(same_tree(*results), f"[{tag}] run 2 bitwise run 1")
-    return out, results[0]
+    return out, res
 
 
 def phase_sharded_2d(torch, card):
@@ -2804,6 +2824,8 @@ MESH_PATH_KERNELS = {
     "serve sharded": ("conv_yx", "conv1d_axis", "exact_sums", "threefry"),
     "multiprocess": ("conv_yx", "conv1d_axis", "exact_sums", "threefry"),
 }
+#: [batch sharded]'s stacks (three before its runs came in two routes)
+BATCH_SHARDED_STACKS = 2
 #: [multiprocess]: two processes, each with this many shards on the card
 MP_SHARDS_PER_PROCESS = 2
 MP_TIMEOUT_S = 300
@@ -2837,14 +2859,106 @@ def mesh_launches(tag, n):
     check(n["frangi3d_fused"] == 0, f"[{tag}] no K1 (the path's filter is unfused)")
 
 
+#: the mesh tracers' routes in turns ([batch dp exact], [batch dp tube],
+#: [sharded exact], [sharded tube], [batch sharded]): stage graphs (the
+#: default) and eager stages; run 1 timed, runs 2 and 3 under the profiler
+MESH_ROUTES = ("graphs", "eager", "graphs")
+
+
+@contextlib.contextmanager
+def mesh_route(route):
+    """The mesh tracers' trackers (batch DP's, the handoff tracer's) on
+    `route`: "graphs" (the default: each stack's or shard's stages replayed
+    as CUDA graphs) or "eager" (`BatchedTracker(..., graphs=False)`, the
+    A/B switch)."""
+    from pnr_tpu_torch.parallel import batch_dp, handoff
+
+    real = (batch_dp.BatchedTracker, handoff.BatchedTracker)
+    if route == "eager":
+        batch_dp.BatchedTracker = handoff.BatchedTracker = functools.partial(real[0],
+                                                                              graphs=False)
+    try:
+        yield
+    finally:
+        batch_dp.BatchedTracker, handoff.BatchedTracker = real
+
+
+def as_list(res):
+    return res if isinstance(res, list) else [res]
+
+
+def mesh_turns(torch, card, tag, mode, run, tracing):
+    """`run()` on the routes of MESH_ROUTES in turns: run 1 (graphs) timed,
+    with the device's peak bytes over its start; runs 2 (eager) and 3
+    (graphs) under the profiler (host launch calls a tracer step, the
+    card's busy time a stage). Each run's kernel launches: counts set to 0
+    just before it, read just after. Checks: every run's trees, node
+    graphs, seeds and trace counts bitwise run 1's; the kernel launches of
+    the two routes equal; graph captures and replays on the graph route
+    only. Prints each run's seconds, its `tracing` stage (the first
+    stack's), captures and replays, and each route's host calls a tracer
+    step and busy milliseconds a stage. Returns ({"s", "tracing_s",
+    "peak_bytes", "launches", "profile": {route: phase_profile's}}, run
+    1's result)."""
+    want = ("K4", "tube_corr (K5, K6)" if mode == "tube" else "K2")
+    out = {"profile": {}}
+    first = None
+    for i, route in enumerate(MESH_ROUTES):
+        got = []
+        with mesh_route(route):
+            if i == 0:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counters()
+                res, wall = timed(torch, run)
+                out.update(s=wall, tracing_s=as_list(res)[0].timings[tracing],
+                           launches=read_counters(),
+                           peak_bytes=torch.cuda.max_memory_allocated() - base)
+                n = out["launches"]
+            else:
+                prof = out["profile"][route] = phase_profile(
+                    torch, card, mode, lambda: got.append(run()), out["s"],
+                    label=f"{tag} {route}", want=want)
+                res, wall, n = got[0], prof["wall_s"], prof["launches"]
+        print(f"[{tag}] run {i + 1}, {route}{' (profiled)' if i else ''}: {wall:.3f} s, "
+              f"{tracing} {as_list(res)[0].timings[tracing]:.4f} s (stack 1); "
+              f"{n['graph_captures']} stage graphs captured, {n['graph_replays']} replayed "
+              f"[{card}]", flush=True)
+        if first is None:
+            first = res
+        check(all(same_tree(a, b) for a, b in zip(as_list(res), as_list(first)))
+              and len(as_list(res)) == len(as_list(first)),
+              f"[{tag}] run {i + 1} ({route}): trees, node graphs, seeds and trace counts bitwise "
+              f"run 1's")
+    g, e = out["launches"], out["profile"]["eager"]["launches"]
+    kernels = [k for k in g if not k.startswith(("graph_", "warm_"))]
+    check(all(g[k] == e[k] for k in kernels),
+          f"[{tag}] the graph route's kernel launches are the eager route's")
+    check(g["graph_captures"] > 0 and g["graph_replays"] > 0 and e["graph_captures"] == 0
+          and e["graph_replays"] == 0 and g["warm_captures"] == 0,
+          f"[{tag}] stage graphs captured and replayed on the graph route only, none warm")
+    pe, pg = out["profile"]["eager"], out["profile"]["graphs"]
+    print(f"[{tag}] eager / graphs, profiled: host launch calls a tracer step "
+          f"{pe['host_calls_per_step']:.1f} / {pg['host_calls_per_step']:.1f}; the card busy "
+          f"{pe['busy_ms'] / pe['stages']:.3f} / {pg['busy_ms'] / pg['stages']:.3f} ms a stage "
+          f"({pe['stages']} / {pg['stages']} stages), idle {pe['idle']:.4f} / {pg['idle']:.4f}"
+          f" [{card}]", flush=True)
+    return out, first
+
+
 def phase_batch_dp(torch, card, vols, mode, k1_results=None):
     """[batch dp exact] / [batch dp tube] / [batch dp 2d]: the stacks through
     `reconstruction_batch_dp` on a virtual mesh of one shard a stack on the
-    card (launch counts set to 0 just before, read just after), then through
-    `reconstruction_batch` with `fused_frangi=False`, prefetch on and off:
-    each stack at JAX's bar against the one-by-one run (and whether the trees
-    are bitwise too); seconds per stack of the three. With `k1_results` (the
-    default config's batch, K1), the J8 differences from it, as information."""
+    card, then through `reconstruction_batch` with `fused_frangi=False`,
+    prefetch on and off: each stack at JAX's bar against the one-by-one run
+    (and whether the trees are bitwise too); seconds per stack of the
+    three. Exact and tube run batch DP on the tracer's two routes in turns
+    (`mesh_turns`: each stack's lockstep stages replayed as stage graphs,
+    and eager), the 2-D planes once on the graph route (launch counts set to
+    0 just before, read just after). With `k1_results` (the default
+    config's batch, K1), the J8 differences from it, as information."""
     from pnr_tpu_torch import PNRConfig
     from pnr_tpu_torch.parallel import reconstruction_batch_dp
     from pnr_tpu_torch.pipeline import reconstruction_batch
@@ -2855,9 +2969,17 @@ def phase_batch_dp(torch, card, vols, mode, k1_results=None):
                               zncc_mode="exact" if plane else mode, fused_frangi=False)
     mesh = virtual_mesh(torch, len(vols))
     n = len(vols)
-    reset_counters()
-    dp, dp_s = timed(torch, lambda: reconstruction_batch_dp(vols, cfg, mesh, device=DEVICE))
-    launches = read_counters()
+    out = {}
+    if plane:
+        reset_counters()
+        dp, dp_s = timed(torch, lambda: reconstruction_batch_dp(vols, cfg, mesh, device=DEVICE))
+        launches = read_counters()
+    else:
+        turns, dp = mesh_turns(torch, card, tag, mode,
+                               lambda: reconstruction_batch_dp(vols, cfg, mesh, device=DEVICE),
+                               "tracing (batch, lockstep waves)")
+        launches, dp_s = turns["launches"], turns["s"]
+        out.update(tracing_s=turns["tracing_s"], profile=turns["profile"])
     on, on_s = timed(torch, lambda: list(reconstruction_batch(vols, cfg, prefetch=True,
                                                               device=DEVICE)))
     off, off_s = timed(torch, lambda: list(reconstruction_batch(vols, cfg, prefetch=False,
@@ -2868,15 +2990,17 @@ def phase_batch_dp(torch, card, vols, mode, k1_results=None):
           f"{dp_s:.3f} s ({dp_s / n:.4f} s a stack); reconstruction_batch (fused_frangi=False) "
           f"prefetch on {on_s:.3f} s ({on_s / n:.4f}), off {off_s:.3f} s ({off_s / n:.4f}); "
           f"each stack at JAX's bar against the one-by-one run {same}, trees bitwise {bitwise}; "
-          f"traces {[r.trace_count for r in dp]}, SWC nodes {[len(r.tree) - 1 for r in dp]} "
-          f"[{card}]", flush=True)
+          f"traces {[r.trace_count for r in dp]}, SWC nodes {[len(r.tree) - 1 for r in dp]}; "
+          f"{launches['graph_captures']} stage graphs captured, {launches['graph_replays']} "
+          f"replayed [{card}]", flush=True)
     print(f"[{tag}] stages of stack 1 (s): "
           f"{json.dumps({k: round(v, 4) for k, v in dp[0].timings.items()})}", flush=True)
     check(all(same) and len(dp) == n, f"[{tag}] every stack at JAX's bar against the one-by-one run")
     mesh_launches(tag, launches)
-    out = {"s_per_stack": dp_s / n, "batch_prefetch_s_per_stack": on_s / n,
-           "batch_one_by_one_s_per_stack": off_s / n, "bitwise": all(bitwise),
-           "launches": launches}
+    check(launches["graph_replays"] > 0, f"[{tag}] the lockstep stages replayed as stage graphs")
+    out.update({"s_per_stack": dp_s / n, "batch_prefetch_s_per_stack": on_s / n,
+                "batch_one_by_one_s_per_stack": off_s / n, "bitwise": all(bitwise),
+                "launches": launches})
     if k1_results is not None:
         diff = [int((a.j8 != b.j8).sum()) for a, b in zip(dp, k1_results)]
         dmax = [int(np.abs(a.j8.astype(np.int16) - b.j8.astype(np.int16)).max())
@@ -2889,18 +3013,22 @@ def phase_batch_dp(torch, card, vols, mode, k1_results=None):
 
 
 def phase_batch_sharded(torch, card, vols):
-    """[batch sharded]: three stacks through `reconstruction_batch_sharded`,
-    two groups of two shards of a virtual mesh of four, exact: each stack at
-    JAX's bar against `reconstruction_func_sharded` on a two-shard mesh."""
+    """[batch sharded]: the stacks through `reconstruction_batch_sharded`,
+    two groups of two shards of a virtual mesh of four, exact, on the
+    tracer's two routes in turns (`mesh_turns`; on the graph route the two
+    group threads capture their shards' stage graphs on the card at once):
+    each stack at JAX's bar against `reconstruction_func_sharded` on a
+    two-shard mesh."""
     from pnr_tpu_torch import PNRConfig
     from pnr_tpu_torch.parallel import reconstruction_batch_sharded
     from pnr_tpu_torch.pipeline import reconstruction_func_sharded
 
     cfg = PNRConfig.from_cli_params(MAIN_PARAMS)
     mesh, sub = virtual_mesh(torch, 4), virtual_mesh(torch, 2)
-    reset_counters()
-    got, s = timed(torch, lambda: reconstruction_batch_sharded(vols, cfg, mesh, groups=2))
-    launches = read_counters()
+    turns, got = mesh_turns(torch, card, "batch sharded", "exact",
+                            lambda: reconstruction_batch_sharded(vols, cfg, mesh, groups=2),
+                            "tracing (sharded, staged handoff)")
+    launches, s = turns["launches"], turns["s"]
     refs, ref_s = timed(torch, lambda: [reconstruction_func_sharded(v, cfg, sub, verbose=False)
                                         for v in vols])
     same = [same_run(a, b) for a, b in zip(got, refs)]
@@ -2913,7 +3041,7 @@ def phase_batch_sharded(torch, card, vols):
     check(all(same), "[batch sharded] every stack at JAX's bar against the two-shard run")
     mesh_launches("batch sharded", launches)
     return {"s_per_stack": s / n, "one_by_one_s_per_stack": ref_s / n, "bitwise": all(bitwise),
-            "launches": launches}
+            "launches": launches, "tracing_s": turns["tracing_s"], "profile": turns["profile"]}
 
 
 def phase_serve_sharded(torch, card, vols, workdir):
@@ -3078,7 +3206,7 @@ def phase_mesh(torch, card, vols, k1_exact, virtual_exact, single_s, main_np):
     out["batch dp 2d"] = phase_batch_dp(torch, card, planes, "2d")
     del planes
     torch.cuda.empty_cache()
-    out["batch sharded"] = phase_batch_sharded(torch, card, vols[:3])
+    out["batch sharded"] = phase_batch_sharded(torch, card, vols[:BATCH_SHARDED_STACKS])
     workdir = tempfile.mkdtemp(prefix=".chip_smoke_mesh_", dir=HERE)
     try:
         out["serve sharded"] = phase_serve_sharded(torch, card, vols[:2], workdir)
@@ -3493,7 +3621,7 @@ def main() -> int:
     serving, vols, k1_exact = phase_serving(torch, card, main_np)
     sharded, virtual = phase_sharded(torch, card, main_np, main_rows)
     mesh = phase_mesh(torch, card, vols, k1_exact, virtual["exact"],
-                      [sharded["exact"][f"run{r}"]["s"] for r in (1, 2)], main_np)
+                      [sharded["exact"]["s"]], main_np)
     rest = phase_rest(torch, card, main_np, virtual["exact"].j8)
     del vols, k1_exact, virtual
     k2_ms, k2_seen = profiles["exact"]["kernels"]["K2"]
@@ -3592,7 +3720,7 @@ def main() -> int:
          "replaces": "pnr_tpu/ops/pallas_conv.py:155",
          "launches": probe_launches, **k7},
     ]
-    # each kernel's launches in run 1 of the sharded paths
+    # each kernel's launches in run 1 (the graph route) of the sharded paths
     sharded_counter = {"frangi3d_fused": "frangi3d_fused", "exact_sums": "exact_sums",
                        "tube_corr (tracer)": "tube_corr_trace",
                        "tube_corr (seed scoring)": "tube_corr_score",
@@ -3601,12 +3729,16 @@ def main() -> int:
     for row in kernels:
         for mode in ("exact", "tube"):
             row[f"launches_sharded_{mode}"] = sharded[mode]["launches"][sharded_counter[row["name"]]]
+            # the stage graphs replayed there (each replayed one shard's
+            # stage: its K2 or tube_corr launches and one draw)
+            row[f"replays_sharded_{mode}"] = sharded[mode]["launches"]["graph_replays"]
     kernels[4]["launches_sharded_tube_map_build"] = sharded["tube"]["launches"]["conv1d_along_axis"]
     # each kernel's launches on the batch-over-a-mesh and multi-process paths
     for row in kernels:
         for path, entry in mesh.items():
-            key = "launches_" + path.replace(" ", "_")
-            row[key] = entry["launches"][sharded_counter[row["name"]]]
+            key = path.replace(" ", "_")
+            row["launches_" + key] = entry["launches"][sharded_counter[row["name"]]]
+            row["replays_" + key] = entry["launches"]["graph_replays"]
     kernels[4]["launches_batch_dp_tube_map_build"] = mesh["batch dp tube"]["launches"][
         "conv1d_along_axis"]
     # each kernel's launches on the paths of the rest of the port

@@ -277,20 +277,23 @@ def extract(vol: torch.Tensor, corner: torch.Tensor, patch_shape) -> torch.Tenso
 
 def sample_coords(q, tv, tu, tw):
     """The clamped patch-frame coordinates (rz, ry, rx), each (..., K), of
-    the template rows (tv, tu, tw) (K,) for query columns `q` (..., 16, 1)."""
+    the template rows (tv, tu, tw) (K,) for query columns `q` (..., 16, 1).
+    The floor at 0 is K2's `fmaxf`: a NaN coordinate (the query of a dead
+    lane whose carry has none) samples the patch's first element, where
+    a clamp would pass the NaN on to an index."""
 
     def col(i):
         return q[..., i, :]
 
-    rz = torch.minimum(
-        torch.clamp(col(_Q_RZ) + tv * col(_Q_NDZ) + tw * col(_Q_WZ), min=0.0), col(_Q_ZHI)
-    )
+    zero = q.new_zeros(())
+    rz = torch.minimum(torch.fmax(col(_Q_RZ) + tv * col(_Q_NDZ) + tw * col(_Q_WZ), zero),
+                       col(_Q_ZHI))
     ry = torch.minimum(
-        torch.clamp(col(_Q_RY) + tv * col(_Q_NDY) + tu * col(_Q_UY) + tw * col(_Q_WY), min=0.0),
+        torch.fmax(col(_Q_RY) + tv * col(_Q_NDY) + tu * col(_Q_UY) + tw * col(_Q_WY), zero),
         col(_Q_YHI),
     )
     rx = torch.minimum(
-        torch.clamp(col(_Q_RX) + tv * col(_Q_NDX) + tu * col(_Q_UX) + tw * col(_Q_WX), min=0.0),
+        torch.fmax(col(_Q_RX) + tv * col(_Q_NDX) + tu * col(_Q_UX) + tw * col(_Q_WX), zero),
         col(_Q_XHI),
     )
     return rz, ry, rx
@@ -466,12 +469,12 @@ class ExactPatchEngine:
         corner = self.corners(vol.shape, pos.mean(dim=1), frame)
         return self.corr(vol, corner, pos, dirs, frame)
 
-    def prepare(self, vol, b: int) -> None:
-        """K2's launch state for this volume's patches at B = b queries a
-        trace and at B = 1 (the tracer's particles and its centroid), set
-        up ahead of a CUDA graph capture (`prepare_launch`); nothing on the
-        CPU."""
+    def prepare(self, vol, b: int, frame=None) -> None:
+        """K2's launch state for this volume's patches (those of the volume
+        `frame` places it in) at B = b queries a trace and at B = 1 (the
+        tracer's particles and its centroid), set up ahead of a CUDA graph
+        capture (`prepare_launch`); nothing on the CPU."""
         if vol.is_cuda:
             s = int(self.tables.tab.shape[0])
             for q in sorted({1, int(b)}):
-                prepare_launch(vol, self.patch_dims(vol), q, s)
+                prepare_launch(vol, self.patch_dims(vol, frame), q, s)

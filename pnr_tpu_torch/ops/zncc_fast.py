@@ -309,12 +309,12 @@ class TubePatchEngine:
                            scoring=scoring, frame=frame)
         return out[0], out[1]
 
-    def prepare(self, maps: torch.Tensor, b: int) -> None:
+    def prepare(self, maps: torch.Tensor, b: int, frame=None) -> None:
         """The tracer's window table and `tube_corr`'s constants for this
-        field, made ahead of a CUDA graph capture (their copies to the card
-        cannot be captured); `b` is unused: the kernel's launch does not
-        depend on it."""
-        self.layout(maps)
+        field (read through `frame`), made ahead of a CUDA graph capture
+        (their copies to the card cannot be captured); `b` is unused: the
+        kernel's launch does not depend on it."""
+        self.layout(maps, frame=frame)
         if maps.is_cuda:
             check_struct()
 

@@ -11,6 +11,16 @@ host. Stack i traces with the key fold_in(key, i) and each trace with
 fold_in(stack key, trace id), the streams of `reconstruction_batch`, so
 the node graphs equal the sequential runs' under the same filter.
 
+A wave has JAX's shapes (`pnr_tpu/parallel/batch_dp.py:230-315`,
+`:357-366`): each stack's 2 * wave_size lanes, the lanes past its wave's
+traces dead from the start (position zero, direction +x, trace id 0) and
+never committed, and every stage STAGE_ITERS iterations, of which the
+rows below ni are kept. So every stage of a stack has one shape, and on a
+card it replays as a CUDA graph (smc/graphs.py): each stack's field has
+its runner, which captures at the stack's first stage, as JAX compiles its
+jitted stage at its first call, and is dropped when its group's tracing
+ends.
+
 JAX's batch filter is the unfused `frangi3d` whatever `cfg.fused_frangi`
 says (`build_batch_filter`); so is the port's (`batch_filter`: K4 and K3,
 or `frangi2d` on K3 for a one-plane stack). A batch larger than the mesh
@@ -88,35 +98,44 @@ def _check_mesh(mesh: Mesh, device) -> torch.device:
 
 
 class _StackWave:
-    """One stack's wave in the lockstep tracer: its lanes [pos_0, neg_0,
-    pos_1, neg_1, ...] on its device, their host estimates, and the
-    in-order commit wavefront (the single-device `_trace_and_commit_wave`'s
-    rule, JAX's `advance`)."""
+    """One stack's wave in the lockstep tracer: its `lanes` lanes [pos_0,
+    neg_0, pos_1, neg_1, ..., dead pad lanes] on its device (in the
+    field's stage-graph runner on a card), the real lanes' host estimates,
+    and the in-order commit wavefront (the single-device
+    `_trace_and_commit_wave`'s rule, JAX's `advance`)."""
 
-    def __init__(self, tracker, field, committer, pos, dirs, sel, stack_key, cfg, trace_count):
+    def __init__(self, tracker, field, committer, pos, dirs, sel, stack_key, cfg, trace_count,
+                 lanes):
         self.tracker, self.field, self.committer, self.cfg = tracker, field, committer, cfg
         self.pos, self.sel, self.trace_count = pos, sel, trace_count
-        t_real = 2 * len(sel)
-        sp = np.repeat(pos[sel], 2, axis=0)
-        sd = np.empty_like(sp)
-        sd[0::2] = dirs[sel]
-        sd[1::2] = -dirs[sel]
-        ids = np.empty(t_real, np.int64)
-        ids[0::2] = 2 * sel
-        ids[1::2] = 2 * sel + 1
+        self.t_real = t_real = 2 * len(sel)
+        sp = np.zeros((lanes, 3), np.float32)
+        sd = np.zeros((lanes, 3), np.float32)
+        sd[:, 0] = 1.0
+        ids = np.zeros(lanes, np.int64)
+        sp[:t_real] = np.repeat(pos[sel], 2, axis=0)
+        sd[0:t_real:2] = dirs[sel]
+        sd[1:t_real:2] = -dirs[sel]
+        ids[0:t_real:2] = 2 * sel
+        ids[1:t_real:2] = 2 * sel + 1
         # on the stack's device once; each stage draws from them there
         self.keys = key_tensor(trace_keys(stack_key, ids), field.device)
+        self.runner = tracker.stage_graphs(field)  # None: eager stages
         with on(field.device):
             self.carry, self._est0 = tracker.trace_init(field, sp, sd, self.keys)
+            if self.runner is not None:
+                self.runner.load(0, self.carry, self.keys)
+                self.carry = None
         self.est = np.zeros((t_real, cfg.ni, 9), np.float32)
         self.cursors = [committer.begin_trace() for _ in range(t_real)]
-        self.killed = np.zeros(t_real, bool)
+        self.killed = np.zeros(lanes, bool)
+        self.killed[t_real:] = True  # pad lanes never commit
         self.started = np.zeros(len(sel), bool)
         self.ptr = 0
         self.capped = False
 
     def collect_init(self):
-        self.est[:, 0] = self._est0.cpu().numpy()
+        self.est[:, 0] = self._est0.cpu().numpy()[:self.t_real]
         self._est0 = None
 
     @property
@@ -148,17 +167,21 @@ class _StackWave:
             else:
                 return
 
-    def launch(self, it0: int, n_it: int):
-        """Iterations [it0, it0 + n_it) of every lane, the killed ones
-        retired; returns the device estimates (None when all are killed)."""
+    def launch(self, it0: int):
+        """Iterations [it0, it0 + STAGE_ITERS) of every lane, the killed ones
+        retired: replayed in the runner on a card, else eager. Returns a
+        fetch of the (lanes, STAGE_ITERS, 9) host estimates (None when all
+        are killed)."""
         if self.killed.all():
             return None
+        if self.runner is not None:
+            return self.runner.stage(0, it0, self.killed).numpy
         dev = self.field.device
         with on(dev):
             kill = torch.from_numpy(self.killed.copy()).to(dev)
             self.carry, packed = self.tracker.trace_stage(
-                self.field, self.keys, self.carry, it0, n_it, kill)
-        return packed
+                self.field, self.keys, self.carry, it0, self.tracker.STAGE_ITERS, kill)
+        return lambda: packed.cpu().numpy()
 
 
 def reconstruction_batch_dp(
@@ -201,13 +224,12 @@ def reconstruction_batch_dp(
     for d in devices:
         if d not in trackers:
             with on(d):
-                # its lockstep waves run eagerly: no stage graphs to warm
-                trackers[d] = BatchedTracker(cfg, d, is2d=is2d, graphs=False)
+                trackers[d] = BatchedTracker(cfg, d, is2d=is2d)
 
     def front(i):
         with on(devices[i]):
             return _stack_front(vols[i], cfg, devices[i], verbose=verbose,
-                                tracker=trackers[devices[i]], frangi=batch_filter)
+                                tracker=trackers[devices[i]], frangi=batch_filter, warm=False)
 
     # the fronts: one host thread per distinct card, a card's stacks in turn
     by_dev: Dict[torch.device, List[int]] = {}
@@ -229,6 +251,7 @@ def reconstruction_batch_dp(
     tm = _StageTimer(verbose, devices)
     tm.start("tracing (batch, lockstep waves)")
     wave = max(1, cfg.wave_size)
+    lanes = 2 * wave
     ni = cfg.ni
     stage_iters = trackers[devices[0]].STAGE_ITERS
     committers = [TraceCommitter(shape, cfg.vol, cfg.nodepervol, f.nodes, f.smap) for f in fronts]
@@ -249,34 +272,38 @@ def reconstruction_batch_dp(
         return np.asarray(sel) if sel else None
 
     active = list(range(nb))
-    while active:
-        waves = {}
-        for i in list(active):
-            sel = next_wave(i)
-            if sel is None:
-                active.remove(i)
-                continue
-            f = fronts[i]
-            waves[i] = _StackWave(f.tracker, f.field, committers[i], f.pos, f.dirs, sel,
-                                  stack_keys[i], cfg, trace_counts[i])
-        for w in waves.values():
-            w.collect_init()
-        it_done = 1
-        while True:
+    try:
+        while active:
+            waves = {}
+            for i in list(active):
+                sel = next_wave(i)
+                if sel is None:
+                    active.remove(i)
+                    continue
+                f = fronts[i]
+                waves[i] = _StackWave(f.tracker, f.field, committers[i], f.pos, f.dirs, sel,
+                                      stack_keys[i], cfg, trace_counts[i], lanes)
             for w in waves.values():
+                w.collect_init()
+            it_done = 1
+            while True:
+                for w in waves.values():
+                    w.advance(it_done)
+                if all(w.done for w in waves.values()) or it_done >= ni:
+                    break
+                n_it = min(stage_iters, ni - it_done)
+                # every stack's stage launched before any is read back
+                pend = [(w, w.launch(it_done)) for w in waves.values() if not w.done]
+                for w, fetch in pend:
+                    if fetch is not None:
+                        w.est[:, it_done:it_done + n_it] = fetch()[:w.t_real, :n_it]
+                it_done += n_it
+            for i, w in waves.items():
                 w.advance(it_done)
-            if all(w.done for w in waves.values()) or it_done >= ni:
-                break
-            n_it = min(stage_iters, ni - it_done)
-            # every stack's stage launched before any is read back
-            pend = [(w, w.launch(it_done, n_it)) for w in waves.values() if not w.done]
-            for w, packed in pend:
-                if packed is not None:
-                    w.est[:, it_done:it_done + n_it] = packed.cpu().numpy()
-            it_done += n_it
-        for i, w in waves.items():
-            w.advance(it_done)
-            trace_counts[i] = w.trace_count
+                trace_counts[i] = w.trace_count
+    finally:
+        for f in fronts:
+            f.tracker.drop_stage_graphs(f.field)  # this group's graphs are done
     tm.stop()
 
     tm.start("reconstruct (batch)")

@@ -32,13 +32,25 @@ slab meets a volume border too. A trace stops where its centroid leaves
 the volume (the original extent, before the mesh padding) or its slab.
 `patch_reuse` is forced to 1, as in JAX.
 
+Each shard traces at JAX's shapes (`pnr_tpu/parallel/handoff.py:155-282`):
+`init` traces all its lanes, the pad lanes too, and every stage traces
+all its lanes with the free ones killed (`kill = ~live`, JAX's `:236`),
+so a shard's stages have one shape. On a card they replay as CUDA graphs
+(smc/graphs.py): each local shard's field has its runner, read through
+the shard's `SlabFrame`, which captures at the first stage, as JAX
+compiles its jitted stage at its first call. The carry and the keys then
+live in the runner's static buffers, and the handshake reads the movers'
+rows from them and seats arrivals into them in place, between replays
+(`StageGraphs.writing`). The caller drops the runners when its tracing
+ends (`drop_graphs`).
+
 On a multi-process mesh (parallel/multihost.py) each process advances its
 own shards' lanes; the handshake is decided from host data every process
-holds alike (each shard's last centroids and alive flags, gathered with
-its estimates after every stage), so every process takes the same
-decisions, and the carries of traces that cross to another process's
-shard travel through one `multihost.exchange`; the keys, trace ids and
-live flags of every shard are host arrays kept on every process.
+holds alike (each shard's last estimates, gathered after every stage), so
+every process takes the same decisions, and the carries of traces that
+cross to another process's shard travel through one `multihost.exchange`;
+the keys, trace ids and live flags of every shard are host arrays kept on
+every process.
 
 `build_handoff_tracer` returns (init, stage, n_stages):
 
@@ -51,19 +63,20 @@ L = n_shards * lanes_per_shard, lanes [s*T, (s+1)*T) on shard s; seed_pos
 are volume (x, y, z), bucketed by shard (the pipeline's `_bucket_by_shard`);
 `valid` masks pad lanes. `field` is the per-shard (field, frame) list of
 `build_fields`, built once and passed to every call. `iter_idx` are the
-absolute iterations the stage runs; `packed` holds each shard's (T, n, 9)
-estimates on its device (None for a shard with no live lane) and
-`lane_estimates` gathers them (another process's shards as host arrays).
-`ids` is -1 on free lanes; est0, ids, live and kept_local are host
-arrays.
+absolute iterations the stage runs, stage_iters of them on a card (the
+runner's shape); `packed` holds each shard's (T, n, 9) estimates on their
+way to the host (None for a shard with no live lane) and `lane_estimates`
+gathers them (another process's shards as host arrays). `ids` is -1 on
+free lanes; est0, ids, live and kept_local are host arrays.
 
 `build_handoff_trace_step` is JAX's one-shot API on top of it (every
-stage, no kill feedback, the blocks stacked), and `stitch_estimates`
-reassembles its blocks into per-trace records.
+stage at stage_iters iterations, no kill feedback, the blocks stacked),
+and `stitch_estimates` reassembles its blocks into per-trace records.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import List, Optional
@@ -134,15 +147,24 @@ def build_fields(trackers: Trackers, mesh: Mesh, vs, halo: int, extent: int, is2
     return out
 
 
+def drop_graphs(trackers: Trackers, mesh: Mesh, fields) -> None:
+    """Drop the stage-graph runners of the local shards' fields (their
+    tracing has ended)."""
+    for dev, got in zip(mesh.devices, fields):
+        if got is not None:
+            trackers[dev].drop_stage_graphs(got[0])
+
+
 @dataclasses.dataclass
 class HandoffState:
-    """The lanes of every shard: the tracker carries on the devices (None
-    for another process's shard); keys, trace ids and live flags on the
-    host, and each local shard's keys on its device (`dkeys`, (T, 2)
-    int32, None for another process's shard); `last` per shard the (2, T)
-    [the centroid's migrating coordinate, alive] of its last estimates, a
-    device tensor, or a host array on a multi-process mesh (None when the
-    shard traced nothing)."""
+    """The lanes of every shard: the tracker carries on the devices (the
+    runner's static buffers on a card; None for another process's shard);
+    keys, trace ids and live flags on the host, and each local shard's
+    keys on its device (`dkeys`, (T, 2) int32, the runner's buffer on a
+    card; None for another process's shard); each local shard's runner
+    (None where stages run eagerly); `last` per shard its last (T, n, 9)
+    estimates (est0 as (T, 1, 9) after `init`), read through `_host`, None
+    when the shard traced nothing."""
 
     zl: int  # planes (rows) per shard
     carry: list
@@ -151,27 +173,29 @@ class HandoffState:
     live: List[np.ndarray]
     last: list
     dkeys: list
+    runners: list
 
 
-def _empty_carry(lanes: int, npart: int, device) -> tuple:
-    """A tracker carry of `lanes` free lanes (what a lane holds before a
-    trace is seated in it)."""
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.zeros((lanes, npart, 3), **f32), torch.zeros((lanes, npart, 3), **f32),
-            torch.zeros((lanes, npart), **f32), torch.zeros(lanes, dtype=torch.bool, device=device),
-            torch.zeros((lanes, npart), dtype=torch.int64, device=device),
-            torch.zeros(lanes, dtype=torch.bool, device=device))
+class _Fetch:
+    """A shard's stage estimates (a device tensor, or a runner's
+    `PendingStage`), fetched to the host once."""
 
+    __slots__ = ("src", "host")
 
-def _put_rows(full, idx: torch.Tensor, rows) -> None:
-    """Write `rows` (a carry of len(idx) lanes) into the lanes `idx` of
-    the carry `full`, in place."""
-    for a, r in zip(full, rows):
-        a.index_copy_(0, idx, r.to(a.device))
+    def __init__(self, src):
+        self.src, self.host = src, None
+
+    def numpy(self) -> np.ndarray:
+        if self.host is None:
+            src, self.src = self.src, None
+            self.host = src.cpu().numpy() if torch.is_tensor(src) else src.numpy()
+        return self.host
 
 
 def _host(a):
-    """A device tensor's host copy (a host array or None as it is)."""
+    """A shard's estimates on the host (a host array or None as it is)."""
+    if isinstance(a, _Fetch):
+        return a.numpy()
     return a.cpu().numpy() if torch.is_tensor(a) else a
 
 
@@ -203,20 +227,16 @@ def _cross_process_rows(mesh: Mesh, up_lanes, dn_lanes, up_rows, dn_rows) -> Non
                 rows[d][s] = tuple(torch.from_numpy(a) for a in arrs)
 
 
-def _share(mesh: Mesh, per_shard: list, lasts: list) -> None:
+def _share(mesh: Mesh, per_shard: list) -> None:
     """On a multi-process mesh, fill in the other processes' entries of
-    `per_shard` (their estimates) and `lasts` (their last centroids and
-    alive flags) in place, as host arrays, and turn this process's lasts
-    into host arrays too."""
+    `per_shard` (their estimates) in place, as host arrays, and turn this
+    process's into host arrays too."""
     if not mesh.multiprocess:
         return
-    mine = {s: (_host(per_shard[s]), None if lasts[s] is None else _host(lasts[s]))
-            for s in range(mesh.size) if mesh.is_local(s)}
+    mine = {s: _host(per_shard[s]) for s in range(mesh.size) if mesh.is_local(s)}
     for part in exchange(mine):
-        for s, (e, last) in part.items():
-            if not mesh.is_local(s):
-                per_shard[s] = e
-            lasts[s] = last
+        for s, e in part.items():
+            per_shard[s] = e
 
 
 def build_handoff_tracer(
@@ -242,6 +262,9 @@ def build_handoff_tracer(
         trace_halo = required_trace_halo(cfg, stage_iters)
     if trackers is None:
         trackers = Trackers(cfg, mesh, is2d, stage_iters)
+    if any(t.STAGE_ITERS != stage_iters for t in trackers.by_device.values()):
+        raise ValueError(f"build_handoff_tracer: the trackers' stages are not {stage_iters} "
+                         "iterations long")
     n_stages = -(-(cfg.ni - 1) // stage_iters)
 
     def init(vs, seed_pos, seed_dir, trace_ids, valid, base_key, field=None):
@@ -252,7 +275,7 @@ def build_handoff_tracer(
         tids = np.asarray(trace_ids, np.int64)
         valid = np.asarray(valid, bool)
         sd = np.asarray(seed_dir, np.float32)
-        state = HandoffState(shard_len(vs), [], [], [], [], [], [])
+        state = HandoffState(shard_len(vs), [], [], [], [], [], [], [])
         est0 = []
         for s, dev in enumerate(mesh.devices):
             sl = slice(s * t_lanes, (s + 1) * t_lanes)
@@ -262,33 +285,29 @@ def build_handoff_tracer(
             state.live.append(valid[sl].copy())
             if not mesh.is_local(s):  # another process's shard
                 state.carry.append(None)
-                state.last.append(None)
                 state.dkeys.append(None)
+                state.runners.append(None)
                 est0.append(None)
                 continue
             f, frame = field[s]
-            # only the valid lanes are traced; the pad lanes stay free
-            lanes = np.nonzero(valid[sl])[0]
+            tracker = trackers[dev]
             with on(dev):
                 dkeys = key_tensor(keys, dev)
-                state.dkeys.append(dkeys)
-                if len(lanes) == t_lanes:
-                    carry, e0 = trackers[dev].trace_init(f, sp[sl], sd[sl], dkeys, frame)
-                else:
-                    carry = _empty_carry(t_lanes, cfg.np, dev)
-                    e0 = torch.zeros((t_lanes, 9), dtype=torch.float32, device=dev)
-                    if len(lanes):
-                        idx = torch.from_numpy(lanes).to(dev)
-                        sub, e_sub = trackers[dev].trace_init(
-                            f, sp[sl][lanes], sd[sl][lanes], dkeys.index_select(0, idx), frame)
-                        _put_rows(carry, idx, sub)
-                        e0.index_copy_(0, idx, e_sub)
-                state.last.append(torch.stack([e0[:, ci], carry[5].to(torch.float32)]))
+                # every lane, the pad lanes too (JAX's init); they stay free
+                carry, e0 = tracker.trace_init(f, sp[sl], sd[sl], dkeys, frame)
+                e0[:, 8] *= torch.from_numpy(valid[sl]).to(dev)
+                runner = tracker.stage_graphs(f, frame)  # None: eager stages
+                if runner is not None:
+                    runner.load(0, carry, dkeys)
+                    carry, dkeys = runner.buffers(0, t_lanes)
             state.carry.append(carry)
+            state.dkeys.append(dkeys)
+            state.runners.append(runner)
             est0.append(e0)
-        _share(mesh, est0, state.last)
-        est0 = np.concatenate([_host(e) for e in est0])
-        return state, est0, _ids(state), field
+        _share(mesh, est0)
+        est0 = [None if e is None else _host(e) for e in est0]
+        state.last = [None if e is None else e[:, None] for e in est0]
+        return state, np.concatenate(est0), _ids(state), field
 
     def _ids(state):
         return np.concatenate([np.where(lv, i, -1) for i, lv in zip(state.ids, state.live)])
@@ -304,9 +323,9 @@ def build_handoff_tracer(
                 m = np.zeros(t_lanes, bool)
                 owner = np.full(t_lanes, s)
             else:
-                lastc, alive = _host(state.last[s])
-                owner = np.clip(np.floor(lastc / zl).astype(np.int64), 0, n - 1)
-                m = live[s] & (alive > 0.5) & (owner != s)
+                last = _host(state.last[s])[:, -1]  # JAX's last_cz, and alive
+                owner = np.clip(np.floor(last[:, ci] / zl).astype(np.int64), 0, n - 1)
+                m = live[s] & (last[:, 8] > 0.5) & (owner != s)
             moving.append(m)
             go_up.append(m & (owner > s))
             go_dn.append(m & (owner < s))
@@ -324,10 +343,48 @@ def build_handoff_tracer(
             go_up[s] &= (np.cumsum(go_up[s]) - 1) < up_grant
             go_dn[s] &= (np.cumsum(go_dn[s]) - 1) < dn_grant
             kept[s] = int(moving[s].sum()) - int(go_up[s].sum()) - int(go_dn[s].sum())
-
-        # ---- what leaves each shard, read before anything is seated ----
         up_lanes = [np.nonzero(m)[0] for m in go_up]
         dn_lanes = [np.nonzero(m)[0] for m in go_dn]
+
+        # the carries and keys are read and written on the caller's streams,
+        # after the runners' last stages and before their next
+        with contextlib.ExitStack() as between:
+            for r in state.runners:
+                if r is not None:
+                    between.enter_context(r.writing())
+            _move(state, live, up_lanes, dn_lanes)
+
+        # ---- advance every lane of every shard, the free ones killed ----
+        packed = []
+        for s, dev in enumerate(mesh.devices):
+            if not mesh.is_local(s):
+                packed.append(None)  # `_share` brings its estimates
+                continue
+            if not live[s].any():
+                packed.append(None)
+                continue
+            f, frame = field[s]
+            runner = state.runners[s]
+            with on(dev):
+                if runner is not None:
+                    if n_it != runner.tracker.STAGE_ITERS:
+                        raise ValueError(f"a replayed handoff stage runs "
+                                         f"{runner.tracker.STAGE_ITERS} iterations, not {n_it}")
+                    pk = runner.stage(0, it0, ~live[s])
+                else:
+                    state.carry[s], pk = trackers[dev].trace_stage(
+                        f, state.dkeys[s], state.carry[s], it0, n_it,
+                        torch.from_numpy(~live[s]).to(dev), frame)
+            packed.append(_Fetch(pk))
+        _share(mesh, packed)
+        state.last = list(packed)
+        state.live = live
+        return state, packed, _ids(state), np.concatenate(live), kept
+
+    def _move(state, live, up_lanes, dn_lanes):
+        """Hand the granted movers to their neighbours: read their rows,
+        free their lanes and seat them in each receiver's lowest free lanes
+        (up-arrivals first), carries and keys written in place."""
 
         def rows_of(s, lanes):
             if not len(lanes) or not mesh.is_local(s):
@@ -351,64 +408,24 @@ def build_handoff_tracer(
                 arrivals[s - 1].append(
                     (dn_rows[s], state.keys[s][dn_lanes[s]], state.ids[s][dn_lanes[s]]))
         for s in range(n):
-            live[s] &= ~(go_up[s] | go_dn[s])
-
-        # ---- seat them in each receiver's lowest free lanes ----
+            live[s][up_lanes[s]] = False
+            live[s][dn_lanes[s]] = False
         for s, dev in enumerate(mesh.devices):
             local = mesh.is_local(s)
-            carry = list(state.carry[s]) if local else None
-            keys, ids = state.keys[s], state.ids[s]
             for rows, k_in, i_in in arrivals[s]:
                 dest = np.nonzero(~live[s])[0][:len(i_in)]
                 if len(dest) < len(i_in):
                     raise AssertionError("handoff: the capacity handshake seated more traces "
                                          "than the receiver has free lanes")
                 if local:
-                    didx = torch.from_numpy(dest).to(dev)
-                    for a, r in zip(carry, rows):
-                        a.index_copy_(0, didx, r.to(dev))
-                keys[dest] = k_in
-                ids[dest] = i_in
+                    with on(dev):
+                        didx = torch.from_numpy(dest).to(dev)
+                        for a, r in zip(state.carry[s], rows):
+                            a.index_copy_(0, didx, r.to(dev))
+                        state.dkeys[s].index_copy_(0, didx, key_tensor(k_in, dev))
+                state.keys[s][dest] = k_in
+                state.ids[s][dest] = i_in
                 live[s][dest] = True
-            if local:
-                with on(dev):
-                    carry[5] = carry[5] & torch.from_numpy(live[s]).to(dev)
-                    if arrivals[s]:  # the seated lanes' keys, on the device too
-                        state.dkeys[s] = key_tensor(keys, dev)
-                state.carry[s] = tuple(carry)
-
-        # ---- advance the live lanes of every shard ----
-        packed = []
-        for s, dev in enumerate(mesh.devices):
-            lanes = np.nonzero(live[s])[0]
-            if not mesh.is_local(s):
-                packed.append(None)  # `_share` brings its estimates
-                continue
-            if not len(lanes):
-                packed.append(None)
-                state.last[s] = None
-                continue
-            f, frame = field[s]
-            tracker = trackers[dev]
-            with on(dev):
-                none_dead = torch.zeros(len(lanes), dtype=torch.bool, device=dev)
-                if len(lanes) == t_lanes:
-                    state.carry[s], pk = tracker.trace_stage(
-                        f, state.dkeys[s], state.carry[s], it0, n_it, none_dead, frame)
-                else:
-                    idx = torch.from_numpy(lanes).to(dev)
-                    sub = tuple(a.index_select(0, idx) for a in state.carry[s])
-                    sub, pk_sub = tracker.trace_stage(
-                        f, state.dkeys[s].index_select(0, idx), sub, it0, n_it, none_dead,
-                        frame)
-                    _put_rows(state.carry[s], idx, sub)
-                    pk = torch.zeros((t_lanes, n_it, 9), dtype=torch.float32, device=dev)
-                    pk.index_copy_(0, idx, pk_sub)
-                state.last[s] = torch.stack([pk[:, -1, ci], state.carry[s][5].to(torch.float32)])
-            packed.append(pk)
-        _share(mesh, packed, state.last)
-        state.live = live
-        return state, packed, _ids(state), np.concatenate(live), kept
 
     return init, stage, n_stages
 
@@ -426,12 +443,14 @@ def build_handoff_trace_step(
     Returns (step, n_stages, stage_iters); step(vs, seed_pos, seed_dir,
     trace_ids, valid, base_key) -> (packed (S+1, L, stage_iters, 9), ids
     (S+1, L), live (S+1, L), lost (n_shards,)), host arrays. Block 0 holds
-    iteration 0 in its first row; a last stage shorter than stage_iters is
-    zero-padded. `lost` is always zero (the capacity handshake keeps
+    iteration 0 in its first row; every stage runs stage_iters iterations,
+    and those of the last stage past ni are invalid (valid column 0, as in
+    JAX). `lost` is always zero (the capacity handshake keeps
     overflow traces on their shard instead of dropping them) and is kept
     for JAX's API."""
+    trackers = Trackers(cfg, mesh, stage_iters=stage_iters)
     init, stage, n_stages = build_handoff_tracer(cfg, mesh, lanes_per_shard, stage_iters,
-                                                 trace_halo)
+                                                 trace_halo, trackers=trackers)
 
     def step(vs, seed_pos, seed_dir, trace_ids, valid, base_key):
         state, est0, ids0, field = init(vs, seed_pos, seed_dir, trace_ids, valid, base_key)
@@ -440,14 +459,19 @@ def build_handoff_trace_step(
         ids_all, live_all = [ids0], [np.concatenate(state.live)]
         no_kill = np.zeros(lanes, bool)
         it = 1
-        for _ in range(n_stages):
-            n_it = min(stage_iters, cfg.ni - it)
-            state, packed, ids, live, _kept = stage(field, state, range(it, it + n_it), no_kill)
-            packs.append(np.pad(lane_estimates(packed, lanes_per_shard, n_it),
-                                ((0, 0), (0, stage_iters - n_it), (0, 0))))
-            ids_all.append(ids)
-            live_all.append(live)
-            it += n_it
+        try:
+            for _ in range(n_stages):
+                state, packed, ids, live, _kept = stage(field, state,
+                                                        range(it, it + stage_iters), no_kill)
+                blk = lane_estimates(packed, lanes_per_shard, stage_iters)
+                n_it = min(stage_iters, cfg.ni - it)
+                blk[:, n_it:, 8] = 0.0  # the rows past ni (JAX's)
+                packs.append(blk)
+                ids_all.append(ids)
+                live_all.append(live)
+                it += n_it
+        finally:
+            drop_graphs(trackers, mesh, field)
         return (np.stack(packs), np.stack(ids_all), np.stack(live_all),
                 np.zeros(mesh.size, np.int32))
 

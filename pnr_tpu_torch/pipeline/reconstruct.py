@@ -543,11 +543,14 @@ class _StackFront:
 
 def _stack_front(
     vol: np.ndarray, cfg: PNRConfig, device: torch.device, verbose: bool = True,
-    tracker: Optional[BatchedTracker] = None, frangi=None,
+    tracker: Optional[BatchedTracker] = None, frangi=None, warm: bool = True,
 ) -> _StackFront:
     """Soma -> Frangi -> seed extraction -> seed selection/sorting.
     `frangi(img, cfg)` replaces the filter's routing (`_frangi`): the batch
-    over a mesh runs the unfused filter (parallel/batch_dp.py)."""
+    over a mesh runs the unfused filter (parallel/batch_dp.py). `warm`
+    starts the tracker's warm thread for the single stack's wave shapes;
+    the batch over a mesh, whose waves have other shapes, captures at its
+    first stage instead."""
     vol = as_u8_volume(vol)
     is2d = vol.shape[0] == 1
     tm = _StageTimer(verbose, device)
@@ -563,7 +566,7 @@ def _stack_front(
     img = torch.from_numpy(vol).to(device)
     if tracker is None:
         tracker = BatchedTracker(cfg, device, is2d=is2d)
-    if not tracker.tube:
+    if warm and not tracker.tube:
         # the field is the volume: its stage graphs are captured while the
         # filter and the seed flood run (BatchedTracker.warm_async)
         tracker.warm_async(img)
@@ -593,7 +596,7 @@ def _stack_front(
     # tube mode: the map field replaces the volume (exact mode: the same
     # tensor), so the volume is dropped before scoring and tracing
     img = None
-    if tracker.tube:
+    if warm and tracker.tube:
         tracker.warm_async(field)  # JAX's place (pnr_tpu/pipeline/reconstruct.py:597-600)
     if len(pos) and smap is not None:
         # drop the seeds inside a soma (smap > 0)

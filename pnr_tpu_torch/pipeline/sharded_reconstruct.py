@@ -74,6 +74,7 @@ from pnr_tpu_torch.parallel.handoff import (
     Trackers,
     build_fields,
     build_handoff_tracer,
+    drop_graphs,
     lane_estimates,
     required_trace_halo,
 )
@@ -497,59 +498,62 @@ def reconstruction_func_sharded(
         if verbose:
             print(f"resumed at seed {idx}, {trace_count} traces, |n0|={len(nodes)}")
 
-    while (pending or idx < nseeds) and trace_count <= cfg.max_trace_count:
-        batch: List[int] = []
-        while pending and len(batch) < wave:
-            si = pending.pop(0)
-            if committer.seed_allowed(pos[si]):
-                batch.append(si)
-        while idx < nseeds and len(batch) < wave:
-            if committer.seed_allowed(pos[idx]):
-                batch.append(idx)
-            idx += 1
-        if not batch:
-            break
-        sel = np.asarray(batch)
-        sp = np.repeat(pos[sel], 2, axis=0)
-        sd = np.empty_like(sp)
-        sd[0::2] = dirs[sel]
-        sd[1::2] = -dirs[sel]
-        tids = np.empty(2 * len(sel), np.int64)
-        tids[0::2] = 2 * sel
-        tids[1::2] = 2 * sel + 1
-        bp, bd, bi, bv, dropped = _bucket_by_shard(sp, sd, tids, rep.shape[0], n_dev, lanes, ci)
-        if dropped:
-            # re-queue whole seeds whose traces did not fit this wave's
-            # lanes (commit-order divergence, never loss)
-            requeue = sorted({int(t) // 2 for t in dropped})
-            bv = bv & ~np.isin(bi // 2, np.asarray(requeue))
-            sel = sel[~np.isin(sel, np.asarray(requeue))]
-            pending.extend(requeue)
-            totals["requeued"] += len(requeue)
-            if verbose:
-                print(f"wave lane overflow: re-queued {len(requeue)} seeds")
-        if not len(sel):
-            continue
+    try:
+        while (pending or idx < nseeds) and trace_count <= cfg.max_trace_count:
+            batch: List[int] = []
+            while pending and len(batch) < wave:
+                si = pending.pop(0)
+                if committer.seed_allowed(pos[si]):
+                    batch.append(si)
+            while idx < nseeds and len(batch) < wave:
+                if committer.seed_allowed(pos[idx]):
+                    batch.append(idx)
+                idx += 1
+            if not batch:
+                break
+            sel = np.asarray(batch)
+            sp = np.repeat(pos[sel], 2, axis=0)
+            sd = np.empty_like(sp)
+            sd[0::2] = dirs[sel]
+            sd[1::2] = -dirs[sel]
+            tids = np.empty(2 * len(sel), np.int64)
+            tids[0::2] = 2 * sel
+            tids[1::2] = 2 * sel + 1
+            bp, bd, bi, bv, dropped = _bucket_by_shard(sp, sd, tids, rep.shape[0], n_dev, lanes, ci)
+            if dropped:
+                # re-queue whole seeds whose traces did not fit this wave's
+                # lanes (commit-order divergence, never loss)
+                requeue = sorted({int(t) // 2 for t in dropped})
+                bv = bv & ~np.isin(bi // 2, np.asarray(requeue))
+                sel = sel[~np.isin(sel, np.asarray(requeue))]
+                pending.extend(requeue)
+                totals["requeued"] += len(requeue)
+                if verbose:
+                    print(f"wave lane overflow: re-queued {len(requeue)} seeds")
+            if not len(sel):
+                continue
 
-        trace_count, unstarted, counts = _trace_and_commit_wave_sharded(
-            committer, init, stage, vs, fields, bp, bd, bi, bv, key, cfg, pos, sel, trace_count,
-            stage_iters, lanes,
-            # capacity structurally cannot bind when every trace of the
-            # wave fits one shard's lanes (lanes = 2*wave >= 2*len(sel)):
-            # the stale-by-one kill of the pipeline is then economy-only
-            # and results are bitwise the serial loop's
-            pipelined=(_lanes_override is None and lanes >= 2 * len(sel)),
-        )
-        for k, v in counts.items():
-            totals[k] += v
-        # cap-cut wave tail goes BEFORE earlier lane-overflow re-queues:
-        # in an uninterrupted run those overflow seeds trace in the wave
-        # AFTER this one
-        pending = unstarted + pending
-        waves_done += 1
-        if (checkpoint_path and waves_done % max(1, checkpoint_every_waves) == 0
-                and mesh.rank == 0):  # one writer: the state is the same everywhere
-            save_checkpoint(checkpoint_path, committer, idx, trace_count, pending, nseeds)
+            trace_count, unstarted, counts = _trace_and_commit_wave_sharded(
+                committer, init, stage, vs, fields, bp, bd, bi, bv, key, cfg, pos, sel, trace_count,
+                stage_iters, lanes,
+                # capacity structurally cannot bind when every trace of the
+                # wave fits one shard's lanes (lanes = 2*wave >= 2*len(sel)):
+                # the stale-by-one kill of the pipeline is then economy-only
+                # and results are bitwise the serial loop's
+                pipelined=(_lanes_override is None and lanes >= 2 * len(sel)),
+            )
+            for k, v in counts.items():
+                totals[k] += v
+            # cap-cut wave tail goes BEFORE earlier lane-overflow re-queues:
+            # in an uninterrupted run those overflow seeds trace in the wave
+            # AFTER this one
+            pending = unstarted + pending
+            waves_done += 1
+            if (checkpoint_path and waves_done % max(1, checkpoint_every_waves) == 0
+                    and mesh.rank == 0):  # one writer: the state is the same everywhere
+                save_checkpoint(checkpoint_path, committer, idx, trace_count, pending, nseeds)
+    finally:
+        drop_graphs(trackers, mesh, fields)  # this stack's graphs are done
     fields = vs = None
     tm.stop()
     if verbose:
@@ -621,6 +625,10 @@ def _trace_and_commit_wave_sharded(committer, init, stage, vs, fields, bp, bd, b
     `_trace_and_commit_wave`: estimates commit in seed order between
     stages, and traces whose committed prefix stopped are killed so they
     cost no further device work and free their lanes for migration.
+
+    Every stage runs stage_iters iterations (JAX's shape,
+    `pnr_tpu/pipeline/sharded_reconstruct.py:835-837`); the rows at or past
+    ni are dropped where the estimates are stitched (`fill_est`).
 
     With `pipelined`, stage k+1 is launched before stage k's estimates are
     committed, so the host commit overlaps the devices' next stage; its
@@ -716,10 +724,14 @@ def _trace_and_commit_wave_sharded(committer, init, stage, vs, fields, bp, bd, b
                     got[t] = it0 + n_it
 
     def launch(it0):
-        """The stage's iteration count and its kill mask, in the lane layout
-        of the last launched stage."""
+        """Iterations [it0, it0 + stage_iters) of every lane (JAX's stage
+        shape, past ni too), killed in the lane layout of the last launched
+        stage: (the stage's outputs, how many of its rows lie below ni)."""
         killed = np.fromiter(killed_ids, np.int64, len(killed_ids))
-        return min(stage_iters, ni - it0), np.isin(ids_now[0], killed)
+        out = stage(field, state, range(it0, it0 + stage_iters), np.isin(ids_now[0], killed))
+        counts["kept_local"] += int(out[4].sum())
+        ids_now[0] = out[2]
+        return out, min(stage_iters, ni - it0)
 
     ids_now = [ids_cur]  # the lane ids of the last launched stage
     if not pipelined:
@@ -728,13 +740,9 @@ def _trace_and_commit_wave_sharded(committer, init, stage, vs, fields, bp, bd, b
             if commit_ptr >= len(commit_order) or it_done >= ni or capped:
                 break
             # the kill mask in the CURRENT lane layout
-            n_it, kill = launch(it_done)
-            state, packed, ids_cur, _, kept = stage(
-                field, state, range(it_done, it_done + n_it), kill)
-            counts["kept_local"] += int(kept.sum())
-            ids_now[0] = ids_cur
+            (state, packed, ids_cur, _, _), n_it = launch(it_done)
             note_ids(ids_cur)
-            fill_est(lane_estimates(packed, lanes_per_shard, n_it), ids_cur, it_done, n_it)
+            fill_est(lane_estimates(packed, lanes_per_shard, stage_iters), ids_cur, it_done, n_it)
             it_done += n_it
         advance(it_done)
         return trace_count, _unstarted(), counts
@@ -747,19 +755,15 @@ def _trace_and_commit_wave_sharded(committer, init, stage, vs, fields, bp, bd, b
         if commit_ptr >= len(commit_order) or capped:
             break  # in-flight work (if any) is dead — drop it
         if it_launch < ni:
-            n_it, kill = launch(it_launch)
-            state, packed, ids_j, _, kept = stage(
-                field, state, range(it_launch, it_launch + n_it), kill)
-            counts["kept_local"] += int(kept.sum())
+            (state, packed, ids_j, _, _), n_it = launch(it_launch)
             newflight = (packed, ids_j, it_launch, n_it)
-            ids_now[0] = ids_j
             it_launch += n_it
         else:
             newflight = None
         if inflight is not None:
             packed_p, ids_np, it0, n_p = inflight
             note_ids(ids_np)
-            fill_est(lane_estimates(packed_p, lanes_per_shard, n_p), ids_np, it0, n_p)
+            fill_est(lane_estimates(packed_p, lanes_per_shard, stage_iters), ids_np, it0, n_p)
             it_done = it0 + n_p
         elif newflight is None:
             break

@@ -1,4 +1,4 @@
-"""CUDA graphs of the single-stack tracer's stages.
+"""CUDA graphs of the tracers' stages.
 
 The counterpart of JAX's jitted stage (`pnr_tpu/smc/tracker.py:172-173`,
 `jax.jit(stage_fn)`, the body at `:385`) and of its `warm_async`
@@ -7,16 +7,24 @@ draws included, and builds it on a worker thread while the front of the
 stack runs. The port's stage is `BatchedTracker._stage_body`, which
 draws its uniforms on the device (one launch of ops/threefry's kernel)
 and whose iterations issue ~90-280 torch ops and kernel launches each
-from Python; on a card `pipeline.reconstruct._trace_and_commit_wave` hands each stage
-of a wave to `StageGraphs`, which captures the body once per key and
-replays it. The module has no JAX counterpart module.
+from Python; on a card the tracers hand each stage to `StageGraphs`,
+which captures the body once per key and replays it: the single-stack
+wave loop (`pipeline.reconstruct._trace_and_commit_wave`), batch DP's
+lockstep waves (`parallel/batch_dp.py`, JAX's jitted `build_batch_tracer`
+stage) and each local shard of the handoff tracer (`parallel/handoff.py`,
+JAX's jitted `build_handoff_tracer` stage). The module has no JAX
+counterpart module.
 
-* Keys: one graph per (chunk slot, T, n_it) within one field. The wave
-  loop runs JAX's shapes: every chunk padded to TRACE_CHUNK traces and
-  every stage at STAGE_ITERS iterations, so a wave of 256 traces uses the
-  keys (0, 128, S) and (1, 128, S), and every later wave of the field
-  reuses them. A runner belongs to one field (`tracker.stage_graphs`);
-  the tracker drops it when that stack's tracing ends.
+* Keys: one graph per (chunk slot, T, n_it) within one field. The
+  tracers run JAX's shapes, every stage at STAGE_ITERS iterations: the
+  single stack pads every chunk to TRACE_CHUNK traces, so a wave of 256
+  traces uses the keys (0, 128, S) and (1, 128, S); batch DP gives each
+  stack one slot of 2 * wave_size lanes and the handoff tracer each shard
+  one slot of its lanes. Every later wave of the field reuses its keys. A
+  runner belongs to one field (`tracker.stage_graphs`), and to the
+  field's `SlabFrame` where a shard traces its slab: the frame is fixed
+  for the field, so each capture freezes it into the graph. The tracker
+  drops the runner when that stack's tracing ends.
 * Static buffers, per (slot, T): the six carry tensors, the trace keys
   (T, 2) int32, the stage's first iteration `it0` (an int32 scalar) and
   the kill mask (T,). A graph reads them and ends by copying the new
@@ -24,6 +32,9 @@ replays it. The module has no JAX counterpart module.
   `trace_init`'s carry and the chunk's keys in once a wave. The draws'
   kernel reads `it0` and the keys from these buffers at each replay (an
   `it0` passed by value would be frozen into the graph at capture).
+  Between stages a caller may write a slot's carry and keys in place
+  (`buffers`, inside `writing`): the handoff tracer seats arriving traces
+  in free lanes so.
 * Copies: no uniform crosses from the host; the stage's kill mask and
   `it0` go in through one of two pinned staging sets per slot (a stage is
   dispatched before the previous one is collected), with
@@ -37,7 +48,9 @@ replays it. The module has no JAX counterpart module.
   runner's stream, the lazy state a capture must not create: the kernel
   library and its entry points, cuBLAS's workspace (one matmul of the
   stage's shapes), K2's shared-memory attribute and cluster check for the
-  field's plans, and the tube engine's window table and kernel constants.
+  field's plans, and the tube engine's window table and kernel constants
+  (under the runner's frame). The mesh tracers capture a key at its first
+  stage, as JAX compiles at its first call; only the single stack warms.
 * Warm thread (`warm`, started by `BatchedTracker.warm_async`): while the
   front of the stack runs, it runs `trace_init` on JAX's dummy seeds,
   loads that carry into each slot a full wave fills and captures each
@@ -50,8 +63,10 @@ replays it. The module has no JAX counterpart module.
   run on the legacy default stream); `load` and `finish` order it against
   the caller's stream. Captures use `capture_error_mode="thread_local"`:
   the batch driver's prefetch workers launch fronts on their own streams
-  meanwhile, and the tracing thread replays another field's graphs while
-  a warm thread captures.
+  meanwhile, the tracing thread replays another field's graphs while
+  a warm thread captures, and `reconstruction_batch_sharded`'s group
+  threads capture their shards' graphs on one card at once (none of them
+  synchronises the whole device while it traces).
 * Launch counts: capturing runs the wrappers, which count launches that
   do not happen. The tracer tallies its own kernel calls (the likelihood
   and the draws) while its thread captures (`tally_launch`; another
@@ -256,14 +271,16 @@ class PendingStage:
 
 
 class StageGraphs:
-    """The stage-graph runner of one tracker on one field (see the module
-    docstring): optionally `warm` on a thread first; then per wave `load`
-    each slot's carry, `stage` each stage and `finish`."""
+    """The stage-graph runner of one tracker on one field, read through
+    `frame` (ops/slab.SlabFrame) when the field is a shard's slab (see the
+    module docstring): optionally `warm` on a thread first; then per wave
+    `load` each slot's carry, `stage` each stage and `finish`."""
 
-    def __init__(self, tracker, field: torch.Tensor):
+    def __init__(self, tracker, field: torch.Tensor, frame=None):
         # the tracker owns its runners: a strong reference back would keep
         # both, and the graphs' device memory, alive until a cyclic GC
         self.tracker = weakref.proxy(tracker)
+        self.frame = frame
         self.stream = torch.cuda.Stream(field.device)
         self._field = weakref.ref(field)
         field.record_stream(self.stream)
@@ -384,6 +401,23 @@ class StageGraphs:
         """Order the caller's stream after every stage dispatched so far."""
         torch.cuda.current_stream(self.stream.device).wait_stream(self.stream)
 
+    def buffers(self, slot: int, t: int):
+        """The static device buffers of chunk `slot` at T = t traces (loaded
+        once): (carry, keys). Every stage reads and updates them in place;
+        write them only inside `writing`."""
+        s = self.slots[(slot, t)]
+        return s.carry, s.keys
+
+    @contextlib.contextmanager
+    def writing(self):
+        """Read or write the slots' buffers on the caller's stream between
+        stages: after every stage dispatched so far, and before the next."""
+        self.finish()
+        try:
+            yield
+        finally:
+            self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
+
     def stage(self, slot: int, it0: int, kill: np.ndarray) -> PendingStage:
         """Iterations it0 .. it0+STAGE_ITERS-1 of chunk `slot` (its carry
         and keys `load`ed this wave) with the kill mask `kill` (T,) bool:
@@ -429,7 +463,8 @@ class StageGraphs:
             self.slots.clear()
 
     def _run(self, field, s: _Slot) -> torch.Tensor:
-        carry, packed = self.tracker._stage_body(field, s.carry, s.keys, s.it0, s.kill, s.iters)
+        carry, packed = self.tracker._stage_body(field, s.carry, s.keys, s.it0, s.kill, s.iters,
+                                                 self.frame)
         for dst, src in zip(s.carry, carry):
             dst.copy_(src)
         return packed
@@ -437,7 +472,7 @@ class StageGraphs:
     def _capture(self, key: Key, field, s: _Slot) -> _Graph:
         t0 = time.perf_counter()
         # on this thread and stream: the lazy state no capture may create
-        self.tracker.prepare_graphs(field, self.stream)
+        self.tracker.prepare_graphs(field, self.stream, key[1], self.frame)
         graph = torch.cuda.CUDAGraph()
         launches: Dict[Counter, int] = {}
         before = torch.cuda.memory_reserved(self.stream.device)

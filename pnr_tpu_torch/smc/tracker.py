@@ -24,12 +24,15 @@ stage, as JAX's jitted stage does: one launch of the Threefry kernel
 
 A stage is `trace_stage`: `it0` as a device scalar, then `_stage_body`,
 which takes device tensors only and draws its own uniforms before its
-iterations (`_stage_iters`). On a card the single-stack wave loop
-(pipeline/reconstruct.py) captures that body as a CUDA graph per (chunk
-slot, T, n_it) and replays it (smc/graphs.py), the port's counterpart of
-JAX's jitted stage, and `warm_async` captures those graphs on a thread
-while the front of the stack runs, as JAX's builds its executables; the
-sharded and batch-over-a-mesh tracers call `trace_stage` eagerly.
+iterations (`_stage_iters`). On a card the tracers capture that body as a
+CUDA graph per (chunk slot, T, n_it) and replay it (smc/graphs.py), the
+port's counterpart of JAX's jitted stage: the single-stack wave loop
+(pipeline/reconstruct.py), whose `warm_async` captures those graphs on a
+thread while the front of the stack runs, as JAX's builds its
+executables; batch DP's lockstep waves (parallel/batch_dp.py); and each
+local shard of the handoff tracer (parallel/handoff.py), under its slab's
+frame. The library one-shots (`trace_wave`, parallel/sharded.py's
+`build_local_trace_step`) call `trace_stage` eagerly.
 
 The likelihood is evaluated in one window per trace, centred on the
 particle cloud; the centroid's ZNCC reuses the iteration's window.
@@ -153,10 +156,11 @@ class BatchedTracker:
     `is2d` selects the 2-D (one-plane) direction set, priors and
     templates, as JAX's tracer does.
 
-    On a card, `pipeline.reconstruct`'s wave loop replays the stages as
-    CUDA graphs (`stage_graphs`, smc/graphs.py), captured ahead of the
-    first wave by `warm_async`; `graphs=False` keeps every stage eager
-    there, for the A/B against the graph route."""
+    On a card the wave loops replay the stages as CUDA graphs
+    (`stage_graphs`, smc/graphs.py): the single stack's captured ahead of
+    the first wave by `warm_async`, batch DP's and the handoff tracer's at
+    each key's first stage. `graphs=False` keeps every stage eager there,
+    for the A/B against the graph route."""
 
     def __init__(
         self, cfg: PNRConfig, device, trace_chunk: int = TRACE_CHUNK,
@@ -204,11 +208,13 @@ class BatchedTracker:
         #: when the warm threads may capture (the batch driver's yields)
         self.capture_gate = CaptureGate()
 
-    def stage_graphs(self, field: torch.Tensor) -> Optional[StageGraphs]:
+    def stage_graphs(self, field: torch.Tensor, frame=None) -> Optional[StageGraphs]:
         """The stage-graph runner of `field`, made at its first call, or
         None where stages run eagerly (a CPU field, or `graphs=False`).
-        The tracker holds one runner per live field, by weak reference,
-        until `drop_stage_graphs(field)`."""
+        `frame`: the field is that slab of the volume (ops/slab.SlabFrame),
+        fixed for the field; the runner's stages read it so. The tracker
+        holds one runner per live field, by weak reference, until
+        `drop_stage_graphs(field)`."""
         if not (self.graphs and field.is_cuda):
             return None
         with self._runners_lock:
@@ -216,7 +222,8 @@ class BatchedTracker:
                 del self._runners[k]
             entry = self._runners.get(id(field))
             if entry is None:
-                entry = self._runners[id(field)] = (weakref.ref(field), StageGraphs(self, field))
+                entry = self._runners[id(field)] = (weakref.ref(field),
+                                                    StageGraphs(self, field, frame))
             return entry[1]
 
     def drop_stage_graphs(self, field: torch.Tensor) -> None:
@@ -254,18 +261,19 @@ class BatchedTracker:
         slots = -(-2 * max(1, int(self.cfg.wave_size)) // self.TRACE_CHUNK)
         return runner.start_warm(ready, slots)
 
-    def prepare_graphs(self, field: torch.Tensor, stream: torch.cuda.Stream) -> None:
+    def prepare_graphs(self, field: torch.Tensor, stream: torch.cuda.Stream, t: int,
+                       frame=None) -> None:
         """Set up, on the calling thread and `stream`, the lazy state a
-        CUDA graph capture of `_stage_body` must find in place: the kernel
-        library loaded with its entry points (the draws' included),
-        cuBLAS's workspace for this thread's handle on `stream` (one matmul
-        of the stage's codebook shapes) and the engine's (`prepare`)."""
+        CUDA graph capture of `_stage_body` at T = t traces must find in
+        place: the kernel library loaded with its entry points (the draws'
+        included), cuBLAS's workspace for this thread's handle on `stream`
+        (one matmul of the stage's codebook shapes) and the engine's
+        (`prepare`, under `frame`)."""
         cuda.library()
         with torch.cuda.stream(stream):
-            dirs = torch.zeros((self.TRACE_CHUNK * self.cfg.np, 3), dtype=torch.float32,
-                               device=field.device)
+            dirs = torch.zeros((t * self.cfg.np, 3), dtype=torch.float32, device=field.device)
             dirs @ self.tables.v.T
-            self.engine.prepare(field, self.cfg.np)
+            self.engine.prepare(field, self.cfg.np, frame)
 
     def prepare_field(self, img: torch.Tensor) -> torch.Tensor:
         """The likelihood field of a (Z, Y, X) uint8 volume on the

@@ -39,11 +39,10 @@ import hashlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
-from torch_ab_common import build_trees, card, load_smoke, turn_order
+from torch_ab_common import build_trees, card, load_smoke, run_child, turn_order
 
 ROUTES = ("eager", "graphs", "warm")
 RESULT = "TREES_AB "
@@ -185,16 +184,10 @@ def main(argv=None) -> int:
     order = turn_order(len(trees), args.turns)
     results = {label: [] for label in labels}
     for i in order:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", trees[i],
-                               "--paths", args.paths, "--modes", args.modes,
-                               "--runs", str(args.runs)],
-                              capture_output=True, text=True, cwd=trees[i])
-        line = next((x for x in proc.stdout.splitlines() if x.startswith(RESULT)), None)
-        if proc.returncode != 0 or line is None:
-            print(f"[trees ab] {labels[i]} failed (exit {proc.returncode}):\n"
-                  f"{proc.stderr[-4000:]}", file=sys.stderr)
+        got = run_child(__file__, trees[i], ["--paths", args.paths, "--modes", args.modes,
+                                             "--runs", str(args.runs)], RESULT)
+        if got is None:
             return 1
-        got = json.loads(line[len(RESULT):])
         results[labels[i]].append(got)
         for path, by_mode in got.items():
             for mode, rows in by_mode.items():

@@ -1595,3 +1595,131 @@ def test_batch_graphs_prefetch_bitwise_eager_one_by_one(dev, mode):
         for f in ("x", "y", "z", "sig", "corr"):
             assert np.array_equal(np.asarray(getattr(a.tree, f)), np.asarray(getattr(b.tree, f)))
             assert np.array_equal(np.asarray(getattr(a.n0, f)), np.asarray(getattr(b.n0, f)))
+
+
+# -- the mesh tracers' stage graphs: batch DP's waves, the handoff shards ---------
+
+
+def _mesh_route(monkeypatch, use_graphs):
+    """The mesh tracers' trackers on a route: stage graphs (the default) or
+    eager stages (`BatchedTracker(..., graphs=False)`), with every stage's
+    packed estimates recorded on the host in dispatch order (an eager
+    `trace_stage`'s, or a replayed stage's, fetched as it is dispatched:
+    the sharded loop drops a stage in flight when its wave ends)."""
+    import functools
+
+    from pnr_tpu_torch.parallel import batch_dp, handoff
+    from pnr_tpu_torch.smc import graphs
+    from pnr_tpu_torch.smc.tracker import BatchedTracker
+
+    packs = []
+    if use_graphs:
+        stage = graphs.StageGraphs.stage
+
+        def replayed(self, *a, **k):
+            pending = stage(self, *a, **k)
+            packs.append(pending.numpy())
+            return pending
+
+        monkeypatch.setattr(graphs.StageGraphs, "stage", replayed)
+    else:
+        for mod in (batch_dp, handoff):
+            monkeypatch.setattr(mod, "BatchedTracker",
+                                functools.partial(BatchedTracker, graphs=False))
+        stage = BatchedTracker.trace_stage
+
+        def trace_stage(self, *a, **k):
+            carry, packed = stage(self, *a, **k)
+            packs.append(packed.cpu().numpy())
+            return carry, packed
+
+        monkeypatch.setattr(BatchedTracker, "trace_stage", trace_stage)
+    return packs
+
+
+def _mesh_graphs_vs_eager(monkeypatch, mode, run):
+    """`run()` on the eager route, then on the graph route: each stage's
+    packed estimates, the trees, node graphs and trace counts bitwise, the
+    tracer's launches (likelihood and draws) equal, and the graph route's
+    captures and replays. Returns (eager result, graph result, captures)."""
+    from pnr_tpu_torch.smc import graphs
+
+    counters = ((zncc_exact, "LAUNCHES"), (tube_corr, "TRACE_LAUNCHES"),
+                (tube_corr, "SCORE_LAUNCHES"), (threefry, "LAUNCHES"))
+    runs = []
+    for use in (False, True):
+        with monkeypatch.context() as m:
+            packs = _mesh_route(m, use)
+            before = [getattr(mod, a) for mod, a in counters]
+            caps, reps = graphs.CAPTURES, graphs.REPLAYS
+            res = run()
+            torch.cuda.synchronize()
+            runs.append((res, packs, [getattr(mod, a) - b for (mod, a), b in zip(counters, before)],
+                         graphs.CAPTURES - caps, graphs.REPLAYS - reps))
+    (eager, p_e, n_e, c_e, r_e), (got, p_g, n_g, c_g, r_g) = runs
+    assert (c_e, r_e) == (0, 0) and c_g > 0 and r_g > c_g
+    assert n_g == n_e and n_e[1 if mode == "tube" else 0] > 0 and n_e[3] > 0
+    assert len(p_g) == len(p_e) == r_g and all(np.array_equal(a, b) for a, b in zip(p_e, p_g))
+    for a, b in zip(eager if isinstance(eager, list) else [eager],
+                    got if isinstance(got, list) else [got]):
+        assert a.trace_count == b.trace_count > 0
+        for na, nb in ((a.tree, b.tree), (a.n0, b.n0)):
+            assert len(na) == len(nb) > 1
+            for f in ("x", "y", "z", "sig", "corr", "type"):
+                assert np.array_equal(np.asarray(getattr(na, f)), np.asarray(getattr(nb, f)))
+    return eager, got, c_g
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_mesh_graphs_batch_dp_bitwise_eager(dev, mode, monkeypatch):
+    """reconstruction_batch_dp, two stacks on a two-shard virtual mesh of
+    the card, its lockstep waves replayed as stage graphs against the same
+    waves with eager stages: bitwise (each stage's estimates, trees, node
+    graphs, trace counts), the same launches, one capture a stack (one key:
+    2 * wave_size lanes at STAGE_ITERS) and no warm thread."""
+    from pnr_tpu_torch.parallel import Mesh, reconstruction_batch_dp
+
+    vols = _two_stacks()
+    cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2, ni=40,
+                    np=20, zdist=2.0, nodepervol=4, vol=9, zncc_mode=mode, fused_frangi=False,
+                    wave_size=64)
+    mesh = Mesh((torch.device("cuda", 0),) * 2)
+    _, _, caps = _mesh_graphs_vs_eager(
+        monkeypatch, mode, lambda: reconstruction_batch_dp(vols, cfg, mesh))
+    assert caps == 2
+
+
+@pytest.mark.parametrize("mode", ["exact", "tube"])
+def test_mesh_graphs_sharded_bitwise_eager(dev, mode, monkeypatch):
+    """reconstruction_func_sharded on a four-shard virtual mesh of the card,
+    each shard's stages replayed as stage graphs under its slab's frame,
+    against the same run with eager stages: bitwise (each stage's
+    estimates, tree, node graph, trace count, handoffs), the same launches,
+    at most one capture a shard, traces handed off and none lost."""
+    from pnr_tpu_torch.parallel import Mesh
+    from pnr_tpu_torch.pipeline import reconstruction_func_sharded
+
+    vol = small_stack()
+    cfg = PNRConfig(sigmas=(2.0, 3.0), tolerance=10.0, znccth=0.5, kappa=3.0, step=2,
+                    ni=60, np=20, zdist=2.0, nodepervol=4, vol=9, zncc_mode=mode,
+                    fused_frangi=False)
+    mesh = Mesh((torch.device("cuda", 0),) * 4)
+    eager, got, caps = _mesh_graphs_vs_eager(
+        monkeypatch, mode, lambda: reconstruction_func_sharded(vol, cfg, mesh, verbose=False))
+    assert 2 <= caps <= 4
+    assert got.n_handoffs == eager.n_handoffs > 0 and got.n_lost == 0
+
+
+def test_exact_sums_kernel_nan_queries_match_plain(dev):
+    """A dead lane's NaN query (a zero seed direction, as JAX's one-shot
+    pads its lanes): K2 floors its sample coordinates at 0 with `fmaxf`,
+    and so does the plain version; the other traces' sums are bitwise
+    those without the NaN trace."""
+    vol, corner, qs, eng = exact_case(dev, "tube", B)
+    bad = qs.clone()
+    bad[0, :, [1, 2, 4, 5, 7, 8, 9, 10]] = float("nan")  # the first trace's frame axes
+    dims = eng.dims(vol.shape)
+    want = exact_sums(vol, corner, qs, eng.tables, dims)
+    got = exact_sums(vol, corner, bad, eng.tables, dims)
+    assert torch.equal(got[1:], want[1:]) and torch.isfinite(got).all()
+    check_exact(eng, got, exact_sums_plain(vol, corner, bad, eng.tables, dims))
