@@ -98,7 +98,7 @@ Phases, each of which exits non-zero on failure:
    seconds, stages by route, the warm thread's captures, seconds and
    overlap with the front, the graphs' memory, the tracing thread's host
    milliseconds per stage it dispatched, split into the wave loop's
-   commits (every route; timed around the committer's calls) and, on the
+   commits (every route; their `tracing.commit` spans) and, on the
    graph routes, the staging writes, the replay call and the fetch wait, then
    one eager run under the profiler (the warm route's profile is the phase
    above);
@@ -1356,8 +1356,6 @@ def counters():
         # its stage's K2 or tube_corr launches to their counters above
         "graph_replays": (graphs, "REPLAYS"),
         "graph_captures": (graphs, "CAPTURES"),
-        # of those, the captures of the warm thread (BatchedTracker.warm_async)
-        "warm_captures": (graphs, "WARM_CAPTURES"),
     }
 
 
@@ -1456,32 +1454,6 @@ def counting_stages():
     return counts, undo
 
 
-def timing_commits():
-    """Time the wave loop's commits (`TraceCommitter.commit_steps` and
-    `finish_trace`, which it calls between stages on the tracing thread);
-    returns the seconds and an undo."""
-    from pnr_tpu_torch.graph.build import TraceCommitter
-
-    spent = {"s": 0.0}
-    real = (TraceCommitter.commit_steps, TraceCommitter.finish_trace)
-
-    def timed_call(fn):
-        def wrapped(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spent["s"] += time.perf_counter() - t0
-        return wrapped
-
-    TraceCommitter.commit_steps, TraceCommitter.finish_trace = (timed_call(f) for f in real)
-
-    def undo():
-        TraceCommitter.commit_steps, TraceCommitter.finish_trace = real
-
-    return spent, undo
-
-
 def phase_main(torch, card, src, workdir, mode, label=None, shape=MAIN_SHAPE,
                params=MAIN_PARAMS, runs=(1, 2)):
     """The CLI on the stack at `src` in `mode`, `runs` times; run 1's kernel
@@ -1506,12 +1478,14 @@ def phase_main(torch, card, src, workdir, mode, label=None, shape=MAIN_SHAPE,
                 undo()
         torch.cuda.synchronize()
         e2e = time.perf_counter() - t0
-        if run == 1:
-            launches = read_counters()
-            launches["seed_scoring"] = dict(scoring)
         check(rc == 0, f"{label} CLI run {run} exited {rc}")
         rows = np.loadtxt(os.path.join(workdir, f"{tag}.swc"), comments="#", ndmin=2)
         entry = json.load(open(os.path.join(workdir, f"{tag}.json")))["stacks"][0]
+        if run == 1:
+            launches = read_counters()
+            launches["seed_scoring"] = dict(scoring)
+            # the stage graphs the warm thread captured (its `warm.capture` spans)
+            launches["warm_captures"] = entry["spans"].get("warm.capture", {"n": 0})["n"]
         ys, zs = rows[:, 3], rows[:, 4]  # id type x y z r parent
         print(f"[main {label}] run {run}: {e2e:.3f} s end to end, {len(rows)} SWC nodes, median y "
               f"{np.median(ys):.3f} z {np.median(zs):.3f}, seeds {entry.get('n_raw_seeds')} raw / "
@@ -1764,7 +1738,6 @@ def phase_graphs(torch, card, main_np, mode):
         stages, undo_stages = counting_stages()
         inits, undo_inits = counting_inits()
         scoring, undo_scoring = counting_seed_scoring()
-        commits, undo_commits = timing_commits()
         reset_counters()
         try:
             res, wall = timed(torch, lambda: reconstruction_func(
@@ -1774,7 +1747,6 @@ def phase_graphs(torch, card, main_np, mode):
             undo_stages()
             undo_inits()
             undo_scoring()
-            undo_commits()
         n = read_counters()
         # the run's runner (none on the eager route; on the CPU none at all)
         log = tracker.graph_log[-1] if tracker.graph_log else None
@@ -1785,8 +1757,10 @@ def phase_graphs(torch, card, main_np, mode):
                 f"(the tracing thread waited {log['warm_wait_s']:.4f} s); captures took "
                 f"{log['capture_s']:.4f} s") if log else ""
         # the tracing thread's host ms per stage it dispatched: the wave
-        # loop's commits, and on a runner its staging, replay and fetch
-        host_s = {"commits": commits["s"], **(log["host_s"] if log else {})}
+        # loop's commits (its `tracing.commit` spans), and on a runner its
+        # staging, replay and fetch
+        host_s = {"commits": res.spans.get("tracing.commit", (0.0, 0))[0],
+                  **(log["host_s"] if log else {})}
         info["host_ms_per_stage"] = {k: 1e3 * v / max(1, stages["stages"])
                                      for k, v in host_s.items()}
         warm += "; host ms per stage " + json.dumps(
@@ -1811,9 +1785,8 @@ def phase_graphs(torch, card, main_np, mode):
               f"trace_init ({inits['inits']}) and one a stage ({stages['stages']})")
         warm_inits = log["warm_inits"] if log else 0
         extra = {tracer: 2 * warm_inits, "threefry": warm_inits}
-        kernels = {k: v for k, v in n.items() if not k.startswith(("graph_", "warm_"))}
-        want_k = {k: v + extra.get(k, 0) for k, v in ref[1].items()
-                  if not k.startswith(("graph_", "warm_"))}
+        kernels = {k: v for k, v in n.items() if not k.startswith("graph_")}
+        want_k = {k: v + extra.get(k, 0) for k, v in ref[1].items() if not k.startswith("graph_")}
         check(kernels == want_k, f"[{tag}] {route}: the eager run's kernel launches, plus the warm "
                                  f"thread's trace_init ({extra})")
         check((n["graph_replays"] > 0) == (route != "eager"),
@@ -1823,7 +1796,7 @@ def phase_graphs(torch, card, main_np, mode):
                                       f"({log['graphs']})")
             if route == "warm":
                 check(log["warm_captures"] == 2 and log["routes"]["capture"] == 0
-                      and n["warm_captures"] == 2,
+                      and res.spans.get("warm.capture", (0.0, 0))[1] == 2,
                       f"[{tag}] warm: both keys captured by the warm thread, none on the tracing "
                       f"thread")
             else:
@@ -2933,12 +2906,12 @@ def mesh_turns(torch, card, tag, mode, run, tracing):
               f"[{tag}] run {i + 1} ({route}): trees, node graphs, seeds and trace counts bitwise "
               f"run 1's")
     g, e = out["launches"], out["profile"]["eager"]["launches"]
-    kernels = [k for k in g if not k.startswith(("graph_", "warm_"))]
+    kernels = [k for k in g if not k.startswith("graph_")]
     check(all(g[k] == e[k] for k in kernels),
           f"[{tag}] the graph route's kernel launches are the eager route's")
     check(g["graph_captures"] > 0 and g["graph_replays"] > 0 and e["graph_captures"] == 0
-          and e["graph_replays"] == 0 and g["warm_captures"] == 0,
-          f"[{tag}] stage graphs captured and replayed on the graph route only, none warm")
+          and e["graph_replays"] == 0,
+          f"[{tag}] stage graphs captured and replayed on the graph route only")
     pe, pg = out["profile"]["eager"], out["profile"]["graphs"]
     print(f"[{tag}] eager / graphs, profiled: host launch calls a tracer step "
           f"{pe['host_calls_per_step']:.1f} / {pg['host_calls_per_step']:.1f}; the card busy "

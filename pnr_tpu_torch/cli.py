@@ -108,8 +108,8 @@ def main(argv=None) -> int:
                     help="output SWC file path (default: <image>_Advantra.swc); with --watch, "
                          "an output directory")
     ap.add_argument("--metrics", default=None,
-                    help="write the stage timings and counts as JSON (with --watch, one JSON "
-                         "line per stack)")
+                    help="write the stage timings, the part spans and counts as JSON (with "
+                         "--watch, one JSON line per stack)")
     ap.add_argument("--zncc-mode", choices=("exact", "tube"), default="exact",
                     help="likelihood engine: 'exact' (reference parity) or 'tube' "
                          "(precomputed-map approximation)")

@@ -58,13 +58,13 @@ from pnr_tpu_torch.parallel.sharded import Mesh, on, slab_filter_route
 from pnr_tpu_torch.pipeline import reconstruct as rc
 from pnr_tpu_torch.pipeline.reconstruct import (
     ReconstructionResult,
-    _StageTimer,
     _stack_front,
     reconstruct_graph,
 )
 from pnr_tpu_torch.ops.threefry import key_tensor
 from pnr_tpu_torch.smc.tracker import BatchedTracker, trace_keys
 from pnr_tpu_torch.utils.runtime import require_cuda
+from pnr_tpu_torch.utils.spans import StageTimer
 
 
 def batch_filter(img: torch.Tensor, cfg: PNRConfig):
@@ -248,7 +248,7 @@ def reconstruction_batch_dp(
             for f in [ex.submit(run, idx) for idx in by_dev.values()]:
                 f.result()
 
-    tm = _StageTimer(verbose, devices)
+    tm = StageTimer(verbose, devices)
     tm.start("tracing (batch, lockstep waves)")
     wave = max(1, cfg.wave_size)
     lanes = 2 * wave

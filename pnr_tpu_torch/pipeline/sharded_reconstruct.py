@@ -92,7 +92,6 @@ from pnr_tpu_torch.parallel.sharded import (
 from pnr_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 from pnr_tpu_torch.pipeline.reconstruct import (
     ReconstructionResult,
-    _StageTimer,
     reconstruct_graph,
     smap_to_u8,
 )
@@ -104,6 +103,7 @@ from pnr_tpu_torch.seeds.extract import (
 )
 from pnr_tpu_torch.utils.exporters import low_signal_diagnostic
 from pnr_tpu_torch.utils.runtime import require_cuda
+from pnr_tpu_torch.utils.spans import StageTimer
 
 
 def _pad_axis_replicate(vol: np.ndarray, n_dev: int, axis: int = 0) -> np.ndarray:
@@ -598,8 +598,8 @@ def reconstruction_func_sharded(
     return result
 
 
-class _MeteredTimer(_StageTimer):
-    """`_StageTimer` that also records, per stage, the bytes this process
+class _MeteredTimer(StageTimer):
+    """`StageTimer` that also records, per stage, the bytes this process
     received from other processes (`multihost.RECEIVED_BYTES`)."""
 
     def __init__(self, verbose, devices):

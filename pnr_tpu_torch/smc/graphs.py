@@ -74,9 +74,14 @@ counterpart module.
   subtracts the tally, and every replay adds it (`_count_replay`), under
   `ops.cuda.COUNT_LOCK`: a run's counts equal the eager route's, plus the
   warm thread's real `trace_init`.
-* Host time: `host_s` sums the tracing thread's seconds in the runner's
-  own calls for the stages it dispatched, split into the staging writes
-  and copies, the replay calls and the waits for each stage's estimates.
+* Host time: the runner's calls open part spans (utils/spans.py):
+  `tracing.dispatch` around each stage it dispatches, `tracing.replay`
+  and `tracing.capture` inside it, `tracing.wait` around each fetch of a
+  stage's estimates, `tracing.warm_wait` around `join_warm`, and on the
+  warm thread `warm.init`, `warm.capture` (each slot's load and capture)
+  and `tracing.capture`. They land on the stack the thread works for, and
+  their seconds are summed on the runner too: `stats()` reads its warm,
+  capture and host seconds from those sums.
 * Errors: a capture or replay that fails raises with its key and CUDA's
   error. Nothing falls back to the eager stage.
 
@@ -87,7 +92,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 import weakref
 from typing import Dict, Optional, Tuple
 
@@ -95,14 +99,14 @@ import numpy as np
 import torch
 
 from pnr_tpu_torch.ops import cuda
+from pnr_tpu_torch.utils import spans
+from pnr_tpu_torch.utils.spans import span
 
 #: stage graphs replayed; each replay adds its graph's launches to the
 #: kernels' counters
 REPLAYS = 0
 #: stage graphs captured (by the tracing thread or a warm thread)
 CAPTURES = 0
-#: stage graphs captured by a warm thread (`StageGraphs.warm`)
-WARM_CAPTURES = 0
 
 CAPTURE, REPLAY = "capture", "replay"
 
@@ -208,12 +212,6 @@ def _count_replay(launches: Dict[Counter, int]) -> None:
         REPLAYS += 1
 
 
-def _count_warm_capture() -> None:
-    global WARM_CAPTURES
-    with cuda.COUNT_LOCK:
-        WARM_CAPTURES += 1
-
-
 class _Graph:
     """A captured stage: the graph, its static `packed` output, and the
     launches each replay makes."""
@@ -256,18 +254,16 @@ class _Slot:
 class PendingStage:
     """A dispatched stage's `packed` on its way to the host."""
 
-    __slots__ = ("out", "done", "host_s")
+    __slots__ = ("out", "done", "spent")
 
-    def __init__(self, out: torch.Tensor, done: torch.cuda.Event, host_s: Dict[str, float]):
-        self.out, self.done, self.host_s = out, done, host_s
+    def __init__(self, out: torch.Tensor, done: torch.cuda.Event, spent: Dict[str, float]):
+        self.out, self.done, self.spent = out, done, spent
 
     def numpy(self) -> np.ndarray:
         """(T, n_it, 9) packed estimates, once the stage has run."""
-        t0 = time.perf_counter()
-        self.done.synchronize()
-        packed = self.out.numpy().copy()
-        self.host_s["fetch"] += time.perf_counter() - t0
-        return packed
+        with span("tracing.wait", into=self.spent):
+            self.done.synchronize()
+            return self.out.numpy().copy()
 
 
 class StageGraphs:
@@ -293,20 +289,43 @@ class StageGraphs:
         #: (each launches the tracer's kernel twice, counted)
         self.warm_captures = 0
         self.warm_inits = 0
-        #: the warm thread's seconds, how long the tracing thread waited
-        #: for it in `join_warm`, and the seconds of every capture (its
-        #: preparation and the graph's instantiation included)
-        self.warm_s = 0.0
-        self.warm_wait_s = 0.0
-        self.capture_s = 0.0
         #: the caching allocator's reserved bytes added while capturing
         #: (other threads' allocations meanwhile included)
         self.reserved_bytes = 0
-        #: the tracing thread's host seconds in its stages (module docstring)
-        self.host_s = dict.fromkeys(("staging", "replay", "fetch"), 0.0)
+        #: seconds by span name of the runner's spans on the tracing thread
+        #: and on the warm thread (module docstring)
+        self.spent: Dict[str, float] = {}
+        self.warm_spent: Dict[str, float] = {}
         self.warm_started = False
         self._warm_thread: Optional[threading.Thread] = None
         self._warm_error: Optional[BaseException] = None
+
+    @property
+    def warm_s(self) -> float:
+        """The warm thread's seconds."""
+        return self.warm_spent.get("warm.init", 0.0) + self.warm_spent.get("warm.capture", 0.0)
+
+    @property
+    def warm_wait_s(self) -> float:
+        """How long the tracing thread waited for the warm thread."""
+        return self.spent.get("tracing.warm_wait", 0.0)
+
+    @property
+    def capture_s(self) -> float:
+        """The seconds of every capture, its preparation and the graph's
+        instantiation included."""
+        return self.spent.get("tracing.capture", 0.0) + self.warm_spent.get("tracing.capture", 0.0)
+
+    @property
+    def host_s(self) -> Dict[str, float]:
+        """The tracing thread's host seconds in the stages it dispatched:
+        the staging writes and copies, the replay calls and the waits for
+        each stage's estimates."""
+        got = self.spent.get
+        staging = got("tracing.dispatch", 0.0) - got("tracing.replay", 0.0) \
+            - got("tracing.capture", 0.0)
+        return {"staging": staging, "replay": got("tracing.replay", 0.0),
+                "fetch": got("tracing.wait", 0.0)}
 
     def stats(self) -> dict:
         """The runner's routes, warm captures and `trace_init` calls, warm
@@ -317,13 +336,15 @@ class StageGraphs:
                 "warm_s": self.warm_s, "warm_wait_s": self.warm_wait_s,
                 "capture_s": self.capture_s,
                 "graphs": len(self.plan.seen), "reserved_bytes": self.reserved_bytes,
-                "host_s": dict(self.host_s)}
+                "host_s": self.host_s}
 
     # -- the warm thread ----------------------------------------------------
     def start_warm(self, ready: torch.cuda.Event, slots: int) -> threading.Thread:
-        """Run `warm` on a thread, keeping its exception and its seconds;
-        `ready` is recorded behind the field's last write."""
-        th = threading.Thread(target=self._warm_main, args=(ready, slots), daemon=True,
+        """Run `warm` on a thread, keeping its exception, its spans on the
+        stack the calling thread works for; `ready` is recorded behind the
+        field's last write."""
+        th = threading.Thread(target=spans.call_bound,
+                              args=(spans.current(), self._warm_main, ready, slots), daemon=True,
                               name="pnr-warm-graphs")
         self.warm_started = True
         self._warm_thread = th
@@ -331,13 +352,10 @@ class StageGraphs:
         return th
 
     def _warm_main(self, ready, slots: int) -> None:
-        t0 = time.perf_counter()
         try:
             self.warm(ready, slots)
         except BaseException as e:  # raised again by join_warm
             self._warm_error = e
-        finally:
-            self.warm_s = time.perf_counter() - t0
 
     def warm(self, ready: torch.cuda.Event, slots: int) -> None:
         """Capture the graphs of `slots` chunk slots at TRACE_CHUNK traces
@@ -352,29 +370,31 @@ class StageGraphs:
         tr = self.tracker
         t = tr.TRACE_CHUNK
         field = self._field()
+        spent = self.warm_spent
         with torch.cuda.device(field.device), torch.cuda.stream(self.stream):
-            self.stream.wait_event(ready)
-            sp = np.ones((t, 3), np.float32)
-            sd = np.tile(np.float32([[1.0, 0.0, 0.0]]), (t, 1))
-            keys = key_tensor(trace_keys(tf.key_from_seed(0), np.arange(t)), field.device)
-            carry, _ = tr.trace_init(field, sp, sd, keys)
-            self.warm_inits += 1
+            with span("warm.init", into=spent):
+                self.stream.wait_event(ready)
+                sp = np.ones((t, 3), np.float32)
+                sd = np.tile(np.float32([[1.0, 0.0, 0.0]]), (t, 1))
+                keys = key_tensor(trace_keys(tf.key_from_seed(0), np.arange(t)), field.device)
+                carry, _ = tr.trace_init(field, sp, sd, keys)
+                self.warm_inits += 1
             for slot in range(slots):
-                self.load(slot, carry, keys)
                 key = self._key(slot, t)
-                if self.plan.route(key) == CAPTURE:
+                if self.plan.route(key) != CAPTURE:
+                    continue  # captured already
+                with span("warm.capture", into=spent):
+                    self.load(slot, carry, keys)
                     with tr.capture_gate.capture():
-                        self.graphs[key] = self._capture(key, field, self.slots[(slot, t)])
-                    self.warm_captures += 1
-                    _count_warm_capture()
+                        self.graphs[key] = self._capture(key, field, self.slots[(slot, t)], spent)
+                self.warm_captures += 1
 
     def join_warm(self) -> None:
         """Wait for the warm thread, if one ran, and raise its exception."""
         th, self._warm_thread = self._warm_thread, None
         if th is not None:
-            t0 = time.perf_counter()
-            th.join()
-            self.warm_wait_s = time.perf_counter() - t0
+            with span("tracing.warm_wait", into=self.spent):
+                th.join()
         err, self._warm_error = self._warm_error, None
         if err is not None:
             raise RuntimeError(f"warming the tracer's stage graphs failed: {err}") from err
@@ -422,35 +442,31 @@ class StageGraphs:
         """Iterations it0 .. it0+STAGE_ITERS-1 of chunk `slot` (its carry
         and keys `load`ed this wave) with the kill mask `kill` (T,) bool:
         captured and replayed, or replayed, as `plan` routes its key."""
-        t0 = time.perf_counter()
-        field = self._field()
-        t = len(kill)
-        s = self.slots[(slot, t)]
-        key = self._key(slot, t)
-        route = self.plan.route(key)
-        self.routes[route] += 1
-        st = s.staging[s.turn]
-        out = s.outs[s.turn]
-        s.turn ^= 1
-        st.copied.synchronize()  # the copies that last read this set have run
-        st.kill_np[:] = kill
-        st.it0_np[()] = it0
-        with torch.cuda.stream(self.stream):
-            s.kill.copy_(st.kill, non_blocking=True)
-            s.it0.copy_(st.it0, non_blocking=True)
-            st.copied.record()
-            tc = time.perf_counter()
-            if route == CAPTURE:  # its seconds go to `capture_s`
-                self.graphs[key] = self._capture(key, field, s)
-            t1 = time.perf_counter()
-            packed = self._replay(key)
-            t2 = time.perf_counter()
-            out.copy_(packed, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        self.host_s["replay"] += t2 - t1
-        self.host_s["staging"] += time.perf_counter() - t2 + tc - t0
-        return PendingStage(out, done, self.host_s)
+        with span("tracing.dispatch", into=self.spent):
+            field = self._field()
+            t = len(kill)
+            s = self.slots[(slot, t)]
+            key = self._key(slot, t)
+            route = self.plan.route(key)
+            self.routes[route] += 1
+            st = s.staging[s.turn]
+            out = s.outs[s.turn]
+            s.turn ^= 1
+            st.copied.synchronize()  # the copies that last read this set have run
+            st.kill_np[:] = kill
+            st.it0_np[()] = it0
+            with torch.cuda.stream(self.stream):
+                s.kill.copy_(st.kill, non_blocking=True)
+                s.it0.copy_(st.it0, non_blocking=True)
+                st.copied.record()
+                if route == CAPTURE:
+                    self.graphs[key] = self._capture(key, field, s, self.spent)
+                with span("tracing.replay", into=self.spent):
+                    packed = self._replay(key)
+                out.copy_(packed, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+        return PendingStage(out, done, self.spent)
 
     def close(self) -> None:
         """Drop the graphs once nothing replays into their memory; then
@@ -469,29 +485,30 @@ class StageGraphs:
             dst.copy_(src)
         return packed
 
-    def _capture(self, key: Key, field, s: _Slot) -> _Graph:
-        t0 = time.perf_counter()
-        # on this thread and stream: the lazy state no capture may create
-        self.tracker.prepare_graphs(field, self.stream, key[1], self.frame)
-        graph = torch.cuda.CUDAGraph()
-        launches: Dict[Counter, int] = {}
-        before = torch.cuda.memory_reserved(self.stream.device)
-        _TALLY.counts = launches
-        try:
-            graph.capture_begin(capture_error_mode="thread_local")
+    def _capture(self, key: Key, field, s: _Slot, spent: Dict[str, float]) -> _Graph:
+        """Capture `key`'s stage; its seconds go to `spent` (the capturing
+        thread's sums)."""
+        with span("tracing.capture", into=spent):
+            # on this thread and stream: the lazy state no capture may create
+            self.tracker.prepare_graphs(field, self.stream, key[1], self.frame)
+            graph = torch.cuda.CUDAGraph()
+            launches: Dict[Counter, int] = {}
+            before = torch.cuda.memory_reserved(self.stream.device)
+            _TALLY.counts = launches
             try:
-                packed = self._run(field, s)
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    packed = self._run(field, s)
+                finally:
+                    graph.capture_end()
+            except RuntimeError as e:
+                raise RuntimeError(f"capturing the tracer stage (slot, T, n_it) = {key} failed: "
+                                   f"{e}") from e
             finally:
-                graph.capture_end()
-        except RuntimeError as e:
-            raise RuntimeError(f"capturing the tracer stage (slot, T, n_it) = {key} failed: "
-                               f"{e}") from e
-        finally:
-            _TALLY.counts = None
-        _take_back(launches)
-        self.reserved_bytes += torch.cuda.memory_reserved(self.stream.device) - before
-        self.capture_s += time.perf_counter() - t0
-        return _Graph(graph, packed, launches)
+                _TALLY.counts = None
+            _take_back(launches)
+            self.reserved_bytes += torch.cuda.memory_reserved(self.stream.device) - before
+            return _Graph(graph, packed, launches)
 
     def _replay(self, key: Key) -> torch.Tensor:
         g = self.graphs[key]

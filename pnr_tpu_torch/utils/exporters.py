@@ -190,10 +190,14 @@ def metrics_entry(path: str, result) -> dict:
     """One stack's machine-readable run record (timings + counts) —
     the JSON counterpart of the reference's clock() stage prints
     (Advantra_plugin.cpp:2430-2446, 2548-2575). `result` is a
-    pipeline ReconstructionResult."""
+    pipeline ReconstructionResult; its part spans (utils/spans.py), where
+    it has them, go beside the stage timings as seconds `s` and count `n`
+    by name."""
     entry = {
         "image": path,
         "timings_s": {k: round(float(v), 4) for k, v in result.timings.items()},
+        "spans": {k: {"s": round(float(s), 6), "n": int(n)}
+                  for k, (s, n) in getattr(result, "spans", {}).items()},
         "n_seeds": int(len(result.seeds_pos)),
         "trace_count": int(result.trace_count),
         "n0_nodes": max(len(result.n0) - 1, 0),

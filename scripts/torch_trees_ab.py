@@ -23,7 +23,8 @@ in turns (A, B, B, A for two turns), and in it each of `--paths` through
 It uses only what both trees offer: no switch is added to either program.
 Prints each run's seconds and stage seconds, per tree, path, mode and
 route; on the routes path the tracing thread's host milliseconds per stage:
-the wave loop's commits (timed around the committer's calls) and, where
+the wave loop's commits (its `tracing.commit` spans, where the tree's
+result has them: `ReconstructionResult.spans`) and, where
 the tree's runner reports them (`StageGraphs.stats()["host_s"]`), the
 staging, replay and fetch; the card's name and power limit; with --json,
 every run to that file. Fails unless every run of every tree gives the
@@ -75,7 +76,6 @@ def _routes(torch, smoke, modes, runs):
                 tracker = BatchedTracker(cfg, "cuda", graphs=route != "eager")
                 if route == "graphs":
                     os.environ["PNR_TPU_NO_WARM_ASYNC"] = "1"
-                commits, undo = smoke.timing_commits()
                 before = (zncc_exact.LAUNCHES, tube_corr.TRACE_LAUNCHES)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -85,12 +85,12 @@ def _routes(torch, smoke, modes, runs):
                     torch.cuda.synchronize()
                 finally:
                     os.environ.pop("PNR_TPU_NO_WARM_ASYNC", None)
-                    undo()
                 wall = time.perf_counter() - t0
                 log = tracker.graph_log[-1] if tracker.graph_log else {}
                 # the stages the tracing thread dispatched (eager: none logged)
                 stages = sum(log.get("routes", {}).values())
-                host = {"commits": commits["s"], **log.get("host_s", {})}
+                commits = getattr(res, "spans", {}).get("tracing.commit", (0.0, 0))[0]
+                host = {"commits": commits, **log.get("host_s", {})}
                 rows.append({
                     "route": route, "s": wall, "stages_s": res.timings,
                     "digest": _digest(res), "traces": res.trace_count,

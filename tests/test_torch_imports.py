@@ -24,6 +24,7 @@ PORT_MODULES = (
     "pnr_tpu_torch.utils.exporters",
     "pnr_tpu_torch.utils.swc_compare",
     "pnr_tpu_torch.utils.stats",
+    "pnr_tpu_torch.utils.spans",
     "pnr_tpu_torch.native",
     "pnr_tpu_torch.hostpath",
     "pnr_tpu_torch.hostpath.threefry",

@@ -338,11 +338,12 @@ class FailingWarmRunner(RecordingRunner):
     start_warm = graphs.StageGraphs.start_warm
     _warm_main = graphs.StageGraphs._warm_main
     join_warm = graphs.StageGraphs.join_warm
+    warm_s = graphs.StageGraphs.warm_s
 
     def __init__(self, tracker, field):
         super().__init__(tracker, field)
         self.warm_started, self._warm_thread, self._warm_error = False, None, None
-        self.warm_s = self.warm_wait_s = 0.0
+        self.spent, self.warm_spent = {}, {}
 
     def warm(self, ready, slots):
         raise ValueError("no graph for you")
